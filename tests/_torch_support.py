@@ -1,0 +1,98 @@
+"""Shared helpers for the ``test_torch_*`` parity tests (not a test module)."""
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda_device():
+    """The CUDA device; the test skips where there is none (decided at run
+    time, so every worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def smooth_grid(rng, shape, scale=0.3):
+    """A random smooth signed-distance-like field with exact zeros and bf16
+    rounding ties planted in it."""
+    axes = [np.linspace(0, 1, s) for s in shape]
+    X, Y, Z = np.meshgrid(*axes, indexing="ij")
+    data = np.zeros(shape)
+    for _ in range(4):
+        c = rng.uniform(0, 1, 3)
+        r = rng.uniform(0.1, 0.3)
+        data = np.minimum(data if _ else np.full(shape, np.inf),
+                          np.sqrt((X - c[0]) ** 2 + (Y - c[1]) ** 2 + (Z - c[2]) ** 2) - r)
+    data = (data * scale).astype(np.float32)
+    data[2:5, 2:5, 2:5] = 0.0                     # flat plateau: zero gradients
+    data[-3:, :, :] = data[-4:-3, :, :]           # flat border slab
+    tie = np.uint32(0x3F808000)                   # 1.00390625: exactly half a bf16 ulp
+    data.reshape(-1)[::97] = tie.view(np.float32)
+    data.reshape(-1)[1::97] = np.uint32(0x3F818000).view(np.float32)  # odd tie
+    return data
+
+
+def jax_path_noise(keys, L, Mc, num_samples, num_bases):
+    """The draws ``vgpmp_tpu.gp.pathwise.draw_paths`` makes from each key
+    (float64, no antithetic pairing), stacked over the keys as a port
+    ``PathNoise``."""
+    import jax
+
+    from vgpmp_tpu.gp import pathwise as jpath
+    from vgpmp_torch.gp.pathwise import PathNoise
+
+    rows = []
+    for key in keys:
+        k_omega, k_phase, k_w, k_eps = jax.random.split(key, 4)
+        rows.append((
+            jpath.student_t(k_omega, 5.0, (L, num_bases), np.float64),
+            jax.random.uniform(k_phase, (L, num_bases), dtype=np.float64, maxval=jpath.TWO_PI),
+            jax.random.normal(k_w, (num_samples, L, num_bases), dtype=np.float64),
+            jax.random.normal(k_eps, (num_samples, L, Mc), dtype=np.float64),
+        ))
+    return PathNoise(*(torch.as_tensor(np.stack([np.asarray(r[i]) for r in rows]))
+                       for i in range(4)))
+
+
+def planner_models(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, escalations=0):
+    """The same small franka planner in both packages (float64, packed scene)."""
+    import jax.numpy as jnp
+
+    from vgpmp_tpu import robots as jrobots
+    from vgpmp_tpu import scene as jscene
+    from vgpmp_tpu.kinematics import dh as jdh
+    from vgpmp_tpu.likelihoods import collision as jcol
+    from vgpmp_tpu.models import vgpmp as jm
+    from vgpmp_tpu.sdf import grid as jg
+    from vgpmp_torch import robots as trobots
+    from vgpmp_torch import scene as tscene
+    from vgpmp_torch.kinematics import dh as tdh
+    from vgpmp_torch.likelihoods import collision as tcol
+    from vgpmp_torch.models import vgpmp as tm
+    from vgpmp_torch.sdf import grid as tg
+
+    shape, origin, delta = (40, 40, 36), np.array([-1.2, -1.2, -0.6]), 0.06
+    data = smooth_grid(np.random.default_rng(5), shape, scale=1.0) - np.float32(0.1)
+    off = np.array([0.1, 0.0, -0.05])
+    base = np.eye(4)
+    jspec, tspec = jrobots.load_robot("franka"), trobots.load_robot("franka")
+    jsc = jscene.Scene(base=jg.SdfGrid.from_arrays(data, origin, delta, jnp.float64),
+                       base_offset=jnp.asarray(off)).packed()
+    tsc = tscene.Scene(base=tg.SdfGrid.from_arrays(data, origin, delta, torch.float64),
+                       base_offset=torch.as_tensor(off)).packed()
+    common = dict(num_samples=num_samples, num_bases=num_bases, num_inducing=num_inducing,
+                  jitter=jitter, jitter_escalations=escalations, variance_lower=0.1)
+    jmodel = jm.PlannerModel(
+        collision=jcol.CollisionModel(fk=jdh.FkModel.from_spec(jspec, base, dtype=jnp.float64),
+                                      scene=jsc, epsilon=jnp.asarray(0.05)),
+        ny=jnp.asarray([0.0, 1.0]), limits_low=jnp.asarray(jspec.limits_low),
+        limits_high=jnp.asarray(jspec.limits_high), **common)
+    tmodel = tm.PlannerModel(
+        collision=tcol.CollisionModel(fk=tdh.FkModel.from_spec(tspec, base, dtype=torch.float64),
+                                      scene=tsc, epsilon=0.05),
+        ny=torch.tensor([0.0, 1.0], dtype=torch.float64),
+        limits_low=torch.as_tensor(tspec.limits_low), limits_high=torch.as_tensor(tspec.limits_high),
+        **common)
+    return jspec, jmodel, tmodel
