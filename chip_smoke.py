@@ -10,14 +10,21 @@ Phases, any failure exits non-zero before the result line:
     the build seconds;
 (b) hold every kernel against its plain PyTorch version on the card at the
     main path's shapes (franka/industrial: the real packed table and franka
-    FK for K1; [252, 12, 12] Grams for K2), forward and backward, and time
-    kernel, plain version, library call and the bound;
+    FK for K1; [252, 12, 12] Grams for K2; 36 x 6400 PD-path probes against
+    the real float32 grid for K3; the gather benchmark's tables for K4),
+    forward and backward where there is one, and time kernel, plain version,
+    library call and the bound;
 (c) the main path: ``PlanningSession("franka", "industrial")``, 36 queries,
     the full 200-step batched Adam solve with linear init and again with
     zeros init, then posterior extraction (150 samples x 100 times); plus a
     small-input ELBO check against the CPU's plain path;
 (d) a ``torch.profiler`` window over a 20-step solve: device busy share,
-    kernels by device time, host time per solver span.
+    kernels by device time, host time per solver span (run last, after (f));
+(e) the scored round: ``make_round_solver`` on the 36 queries at 200 steps
+    (solve, best sample, then ``execute_and_validate`` per row through K3),
+    with the verdicts held against the port's CPU plain path on the same
+    trajectories;
+(f) the gather benchmark ``tools/gather_bench_torch.py`` (K4).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. A detailed record goes to
@@ -51,31 +58,13 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
-    """Mean CUDA-event time of ``fn`` per call; ``flush`` (a large buffer) is
-    rewritten between calls so the 50 MB L2 starts cold, as each Adam step
-    finds it."""
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        total += s.elapsed_time(e)
-    return total / reps
-
-
 def k1_phase(torch, sess, flush):
     """K1 against ``log_prob_plain``, which on the card is plain PyTorch end to
     end (FK, ``packed_lookup_plain``'s gather and unpack, the hinge)."""
     from vgpmp_torch.likelihoods import collision as col
     from vgpmp_torch.kinematics.dh import sphere_positions
     from vgpmp_torch.sdf.grid import _packed_flat_index
+    from vgpmp_torch.timing import time_ms
 
     model = sess.model.collision
     dev = sess.device
@@ -117,14 +106,14 @@ def k1_phase(torch, sess, flush):
     assert gerr <= 1e-3 * gscale + 1e-6, "K1: gradient disagrees with the plain version"
 
     q2 = q.reshape(-1, L)
-    ms = time_ms(torch, lambda: col.k1_loglik(model, q2, sigma, True), flush=flush)
-    ms_fwd = time_ms(torch, lambda: col.k1_loglik(model, q2, sigma, False), flush=flush)
+    ms = time_ms(lambda: col.k1_loglik(model, q2, sigma, True), flush=flush)
+    ms_fwd = time_ms(lambda: col.k1_loglik(model, q2, sigma, False), flush=flush)
 
     def plain():
         qq = q.clone().requires_grad_()
         torch.autograd.grad(col.log_prob_plain(model, qq, sigma).sum(), qq)
 
-    plain_ms = time_ms(torch, plain, reps=5, flush=flush)
+    plain_ms = time_ms(plain, reps=5, flush=flush)
     with torch.no_grad():
         flat = _packed_flat_index(model.scene.base_packed,
                                   sphere_positions(model.fk, q) - model.scene.base_offset)
@@ -148,6 +137,7 @@ def k1_phase(torch, sess, flush):
 def k2_phase(torch, sess, flush):
     from vgpmp_torch.models import vgpmp as planner
     from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.timing import time_ms
 
     dev = sess.device
     starts, goals = sess.queries()
@@ -206,18 +196,18 @@ def k2_phase(torch, sess, flush):
 
     Kc = rand[ok].contiguous()
     L = la.k2_chol(Kc)
-    chol = {"ms": time_ms(torch, lambda: la.k2_chol(Kc), flush=flush),
-            "plain_ms": time_ms(torch, lambda: la.cholesky_unrolled(Kc), flush=flush),
-            "library_ms": time_ms(torch, lambda: torch.linalg.cholesky(Kc), flush=flush)}
+    chol = {"ms": time_ms(lambda: la.k2_chol(Kc), flush=flush),
+            "plain_ms": time_ms(lambda: la.cholesky_unrolled(Kc), flush=flush),
+            "library_ms": time_ms(lambda: torch.linalg.cholesky(Kc), flush=flush)}
     Tm = Kc.shape[0]
     chol["bound_ms"], chol["bound_by"] = bound_ms(2 * Tm * n * n * 8, Tm * n ** 3 / 3, F64_FLOPS)
     trsm = {}
     for k in (1, 20, 50, 100, 150):
         Bm = torch.randn((Tm, n, k), generator=gen, device=dev, dtype=torch.float64)
         b_ms, b_by = bound_ms((Tm * n * n + 2 * Tm * n * k) * 8, Tm * n * n * k, F64_FLOPS)
-        trsm[k] = {"ms": time_ms(torch, lambda: la.k2_trsm(L, Bm, False), flush=flush),
-                   "plain_ms": time_ms(torch, lambda: la.solve_lower_unrolled(L, Bm), flush=flush),
-                   "library_ms": time_ms(torch, lambda: torch.linalg.solve_triangular(L, Bm, upper=False),
+        trsm[k] = {"ms": time_ms(lambda: la.k2_trsm(L, Bm, False), flush=flush),
+                   "plain_ms": time_ms(lambda: la.solve_lower_unrolled(L, Bm), flush=flush),
+                   "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bm, upper=False),
                                          flush=flush),
                    "bound_ms": b_ms, "bound_by": b_by}
     log(f"K2 chol [{Tm},{n},{n}]: " + json.dumps(chol))
@@ -238,16 +228,109 @@ def k2_phase(torch, sess, flush):
     ], {"relative": worst, "absolute": worst_abs}
 
 
-def small_input_check(torch, sess):
-    """ELBO and its gradient on the card (K1, K2) against the CPU's plain path
-    on the same model, params and draws: 4 problems, S=4, N=16.
+def k3_phase(torch, sess, flush):
+    """K3 against ``min_clearance_eval_plain`` on the real float32 grid: the
+    main path's 36 x 6400 PD-path probes (perturbed straight lines between the
+    queries), plus as many configs uniform over the joint box so that many
+    spheres sit inside obstacles or outside the grid."""
+    from vgpmp_torch.kinematics.dh import sphere_positions
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.sdf.grid import _flat, trilinear_cell
+    from vgpmp_torch.sim import pd_path_configs
+    from vgpmp_torch.timing import time_ms
+
+    model = sess.model.collision
+    dev = sess.device
+    starts, goals = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in sess.queries())
+    B, T, L = starts.shape[0], sess.train_config.time_spacing_Xnew, starts.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w = torch.linspace(0, 1, T, device=dev)[None, :, None]
+    traj = starts[:, None] + (goals - starts)[:, None] * w
+    traj = traj + 0.3 * torch.sin(torch.pi * w) * torch.randn((B, 1, L), generator=gen, device=dev)
+    lo, hi = sess.model.limits_low, sess.model.limits_high
+    traj = torch.minimum(torch.maximum(traj, lo), hi)
+    q_path = pd_path_configs(traj)[0].reshape(-1, L).contiguous()        # [36 * 6400, 7]
+    q_box = lo + (hi - lo) * torch.rand(q_path.shape, generator=gen, device=dev)
+    q = torch.cat([q_path, q_box])
+
+    got = model.min_clearance_eval(q)
+    want = col.min_clearance_eval_plain(model, q)
+    torch.cuda.synchronize()
+    # tolerance: trilinear interpolation is continuous, so a sphere centre
+    # that differs by a few float32 ulps moves the value by as little; K3
+    # differs from the plain version by fused multiply-adds only: 1e-5 m
+    err = (got - want).abs().max().item()
+    negative = (want < 0).float().mean().item()
+    log(f"K3 check: {q.shape[0]} configs ({q_path.shape[0]} PD-path probes + {q_box.shape[0]} uniform), "
+        f"max |d clearance| {err:.3e} m (<= 1e-5), negative clearance in {negative:.4f} (>= 0.1), "
+        f"range [{want.min().item():.4f}, {want.max().item():.4f}] m")
+    assert torch.isfinite(got).all(), "K3: non-finite clearance"
+    assert err <= 1e-5, "K3 disagrees with the plain version"
+    assert negative >= 0.1, "K3 check: too few configs touch an obstacle"
+    nan_q = q_path[:64].clone()
+    nan_q[::2, 3] = float("nan")
+    nan_out = col.k3_min_clearance(model, nan_q)
+    assert torch.isnan(nan_out[::2]).all() and torch.isfinite(nan_out[1::2]).all(), "K3: NaN in, NaN out"
+
+    ms = time_ms(lambda: col.k3_min_clearance(model, q_path), flush=flush)
+    plain_ms = time_ms(lambda: col.min_clearance_eval_plain(model, q_path), reps=5, flush=flush)
+    # bound: the distinct 32-byte sectors (8 float32 cells) of the grid that
+    # the eight corners of every probe's spheres touch, plus q and the output
+    grid = model.scene.base
+    _, ny, nz = grid.shape
+    with torch.no_grad():
+        i0, _ = trilinear_cell(grid, sphere_positions(model.fk, q_path) - model.scene.base_offset)
+        flat = _flat(grid.shape, i0).reshape(-1)
+        corners = [dx * ny * nz + dy * nz + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+        sectors = torch.unique(torch.cat([torch.unique((flat + c) // 8) for c in corners])).numel()
+    Tq, P = q_path.shape[0], model.fk.sphere_radii.shape[0]
+    nbytes = sectors * 32 + Tq * L * 4 + Tq * 4
+    # per config: 7 DH compositions (~60 flops); per sphere: position (18),
+    # relative position and clamps (~20), seven lerps (3 flops each)
+    flops = Tq * (L * 60 + P * 60)
+    b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
+    log(f"K3 time at {Tq} configs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB)")
+    return {"name": "k3_min_clearance", "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
+            "replaces": "vgpmp_tpu/likelihoods/collision.py:59", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "negative_share": negative, "sectors": sectors, "configs_checked": q.shape[0],
+            "configs_timed": Tq}
+
+
+def k4_phase(torch, sess, flush):
+    """K4 against the plain indexing (exact) and ``torch.index_select``, both
+    entry widths at the gather benchmark's three table sizes."""
+    import gather_bench_torch as gb
+
+    cases = []
+    for entry_bytes in (4, 8):
+        for ncells in gb.TABLE_CELLS:
+            c = gb.gather_case(ncells, entry_bytes, gb.NPTS, sess.device, flush)
+            c["bound_ms"], c["bound_by"] = bound_ms(
+                c["npts"] * (4 + entry_bytes) + c["sectors_touched"] * 32, 0.0, F32_FLOPS)
+            cases.append(c)
+            log(f"K4 {entry_bytes}-byte entries, {ncells} cells ({c['table_mb']:.1f} MB), {c['npts']} points: "
+                f"equal {c['equal']}, kernel {c['k4_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+                f"index_select {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                f"({c['sectors_touched']} sectors)")
+    # the row of the kernels line: what the Pallas kernel gathers (4-byte
+    # entries) at its larger table; the other cases are in the record
+    head = next(c for c in cases if c["entry_bytes"] == 4 and c["ncells"] == 1_048_576)
+    return {"name": "k4_gather", "route": "cuda", "source": "vgpmp_torch/csrc/k4_gather.cu",
+            "replaces": "tools/gather_bench.py:100", "max_abs_err": 0.0, "ms": head["k4_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": [head["ncells"], head["npts"]], "cases": cases}
+
+
+def small_input_check(torch, sess, cpu):
+    """ELBO and its gradient on the card (K1, K2) against the plain path of the
+    CPU session ``cpu`` on the same model, params and draws: 4 problems, S=4, N=16.
     Tolerance 1e-3 relative: float32 bulk tensors on both, summed in other
     orders, and a rare sphere in a neighbouring voxel."""
     from vgpmp_torch.gp.pathwise import draw_noise
     from vgpmp_torch.models import vgpmp as planner
-    from vgpmp_torch.session import PlanningSession
 
-    cpu = PlanningSession("franka", "industrial", overrides=sess.overrides, device="cpu")
     starts, goals = (x[:4] for x in sess.queries())
     pp = sess.planner_params
     out = []
@@ -393,13 +476,107 @@ def profile_phase(torch, sess, steps: int = 20):
     return rec
 
 
+def round_phase(torch, sess, cpu):
+    """(e) the scored round at full width, and its verdicts against the port's
+    plain path on the CPU session ``cpu`` (float32 on both)."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods.collision import k1_loglik, k3_min_clearance
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import linalg as la
+
+    starts, goals = sess.queries()
+    pp, cfg = sess.planner_params, sess.train_config
+    B = len(starts)
+    solve = solver.make_round_solver(sess.model, cfg)
+    params = planner.init_params_batch(sess.model, starts, goals, [0] * B, 0.5 * (starts + goals),
+                                       pp["lengthscales"], pp["variance"], pp["sigma_obs"], pp["alpha"])
+    counters = (k1_loglik, la.k2_chol, la.k2_trsm, k3_min_clearance)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, rep = solve(params, starts, goals, torch.Generator(device=sess.device).manual_seed(0))
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    # again, timed only: the first round also loads the metric's PyTorch
+    # kernels (searchsorted, cumsum, scatter_add) for the first time
+    t0 = time.perf_counter()
+    solve(params, starts, goals, torch.Generator(device=sess.device).manual_seed(0))
+    torch.cuda.synchronize()
+    t_round2 = time.perf_counter() - t0
+
+    m = sess.model
+    st = torch.as_tensor(starts, dtype=torch.float32, device=sess.device)
+    gl = torch.as_tensor(goals, dtype=torch.float32, device=sess.device)
+    t_metric = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            execute_and_validate(m.collision, best, st, gl, m.limits_low, m.limits_high)
+        torch.cuda.synchronize()
+        t_metric.append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = execute_and_validate(cpu.model.collision, best.cpu(), st.cpu(), gl.cpu(),
+                                   cpu.model.limits_low, cpu.model.limits_high)
+    t_cpu = time.perf_counter() - t0
+
+    counts = {k: int(getattr(rep, k).sum()) for k in
+              ("executed", "success", "collision_free", "endpoints_ok", "limits_ok")}
+    clear = rep.min_clearance.cpu()
+    agree = {k: int((getattr(rep, k).cpu() == getattr(ref, k)).sum()) for k in ("executed", "success")}
+    clear_err = (clear - ref.min_clearance).abs().max().item()
+    log(f"(e) scored round, B={B} steps={cfg.num_steps}: {t_round:.3f} s, again {t_round2:.3f} s; "
+        f"execute_and_validate alone "
+        f"{min(t_metric):.4f} s (CPU plain path {t_cpu:.2f} s); of {B} rows: " + ", ".join(
+            f"{k} {v}" for k, v in counts.items())
+        + f"; min_clearance smallest {clear.min().item():.4f} m, median {clear.median().item():.4f} m; "
+        f"launches {launches}")
+    log(f"    card vs CPU plain path on the same trajectories: executed agrees on {agree['executed']}/{B}, "
+        f"success on {agree['success']}/{B}, max |d min_clearance| {clear_err:.3e} m")
+    assert list(best.shape) == [B, cfg.time_spacing_Xnew, 7]
+    for name, v in rep._asdict().items():
+        assert v.shape == (B,) and torch.isfinite(v.float()).all(), f"report field {name}: {v}"
+    # the solver clamps the endpoints and the sigmoid keeps the limits
+    assert counts["endpoints_ok"] == B and counts["limits_ok"] == B, counts
+    assert counts["executed"] >= 1, "no row of the round was executed"
+    # float32 on both sides: a row that sits on a threshold (ceil of the step
+    # count, a probe at the floor) may fall the other way
+    assert min(agree.values()) >= B - 2, f"verdicts disagree with the CPU plain path: {agree}"
+    assert clear_err <= 1e-4, f"min_clearance disagrees with the CPU plain path: {clear_err}"
+    assert all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}"
+    return {"round_s": t_round, "round_again_s": t_round2, "metric_s": min(t_metric), "metric_cpu_plain_s": t_cpu, "counts": counts,
+            "min_clearance_smallest": clear.min().item(), "min_clearance_median": clear.median().item(),
+            "agree_with_cpu": agree, "min_clearance_max_err_vs_cpu": clear_err, "launches": launches}
+
+
+def gather_phase(torch):
+    """(f) the gather benchmark's own entry point, with K4's launches counted."""
+    import gather_bench_torch as gb
+    from vgpmp_torch.ops.gather import k4_gather
+
+    k4_gather.launches = 0
+    t0 = time.perf_counter()
+    out = gb.main()
+    torch.cuda.synchronize()
+    launches = k4_gather.launches
+    log(f"(f) gather benchmark: {time.perf_counter() - t0:.2f} s, K4 launches {launches}")
+    assert all(c["equal"] for c in out["gathers"]) and len(out["gathers"]) == 6
+    assert launches > 0, "K4 was not launched"
+    return out, launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path[:0] = [str(ROOT), str(ROOT / "tools")]  # the package, and gather_bench_torch
     try:
         from vgpmp_torch import _build
         from vgpmp_torch.session import PlanningSession
@@ -417,30 +594,46 @@ def main() -> int:
     sess = PlanningSession("franka", "industrial")
     log(f"session on {sess.device}: {time.perf_counter() - t0:.2f} s "
         f"(scene {tuple(sess.sdf.data.shape)}, packed table {tuple(sess.scene.base_packed.words.shape)})")
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=sess.device)
+    from vgpmp_torch.timing import l2_flush_buffer
+
+    flush = l2_flush_buffer(sess.device)
+    t0 = time.perf_counter()
+    cpu = PlanningSession("franka", "industrial", overrides=sess.overrides, device="cpu")
+    log(f"the same session on the CPU (float32, plain path), for the cross-checks: "
+        f"{time.perf_counter() - t0:.2f} s")
 
     log("(b) kernels against their plain versions")
     k1 = k1_phase(torch, sess, flush)
     k2, k2_errs = k2_phase(torch, sess, flush)
-    small = small_input_check(torch, sess)
+    k3 = k3_phase(torch, sess, flush)
+    k4 = k4_phase(torch, sess, flush)
+    small = small_input_check(torch, sess, cpu)
     del flush
 
     log("(c) main path")
     summary, launches, t_ext, peak = main_path(torch, sess)
 
+    scored = round_phase(torch, sess, cpu)
+    gather, k4["launches"] = gather_phase(torch)
+
+    # the profile comes last: once a profiler has traced the process, its
+    # kernel launches stay slower, which would inflate the round's seconds
     prof = profile_phase(torch, sess)
 
     k1["launches"] = launches["k1_loglik"]
     k2[0]["launches"] = launches["k2_chol"]
     k2[1]["launches"] = launches["k2_trsm"]
+    k3["launches"] = scored["launches"]["k3_min_clearance"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kernels = [{k: v for k, v in d.items() if k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")} for d in [k1, *k2]]
-    record = {"card": smi, "build_s": secs, "kernels": [k1, *k2], "k2_errors": k2_errs,
+        "bound_ms", "bound_by", "library_ms")} for d in [k1, *k2, k3, k4]]
+    assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
+    record = {"card": smi, "build_s": secs, "kernels": [k1, *k2, k3, k4], "k2_errors": k2_errs,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,
               "peak_memory_bytes": peak, "launches": launches, "profile": prof,
+              "scored_round": scored, "gather_bench": gather,
               "total_s": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -96,3 +96,36 @@ def planner_models(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, esc
         limits_low=torch.as_tensor(tspec.limits_low), limits_high=torch.as_tensor(tspec.limits_high),
         **common)
     return jspec, jmodel, tmodel
+
+
+def metric_trajectories(rng, lo, hi, T=16):
+    """Named ``[T, L]`` joint trajectories that exercise the PD-path metric:
+    smooth, wiggly, with repeated waypoints, without motion, and two with more
+    travel than the probe budget certifies (random jumps, a periodic zigzag)."""
+    L = len(lo)
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    w = np.linspace(0, 1, T)[:, None]
+    a = mid + 0.25 * half * rng.uniform(-1, 1, L)
+    b = mid + 0.25 * half * rng.uniform(-1, 1, L)
+    smooth = a * (1 - w) + b * w
+    wiggly = smooth + 0.03 * rng.normal(size=(T, L))
+    repeated = np.repeat(smooth[: T // 2], 2, axis=0)
+    still = np.repeat(a[None], T, axis=0)
+    jumps = mid + 0.9 * half * rng.uniform(-1, 1, (T, L))
+    # a periodic zigzag settles where every segment's step count is an exact
+    # integer quotient: the rounding of the division decides the count
+    zigzag = np.where((np.arange(T) % 2 == 0)[:, None], mid - 0.9 * half, mid + 0.9 * half)
+    out = {"smooth": smooth, "wiggly": wiggly, "repeated": repeated, "still": still,
+           "over_budget": jumps, "zigzag": zigzag}
+    assert all(v.shape == (T, L) for v in out.values())
+    return out
+
+
+def jax_report_rows(fn, *batched):
+    """Run the single-trajectory JAX function ``fn`` under ``jax.vmap`` over the
+    leading axis of ``batched`` and return its output tree as numpy arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    out = jax.jit(jax.vmap(fn))(*(jnp.asarray(x) for x in batched))
+    return jax.tree.map(np.asarray, out)

@@ -54,13 +54,14 @@ def test_sphere_positions_match_jax_and_numpy(robot):
                                rtol=1e-10, atol=1e-12)
 
 
-def _models(robot, dtype_j=jnp.float64, dtype_t=torch.float64, device="cpu"):
+def _models(robot, dtype_j=jnp.float64, dtype_t=torch.float64, device="cpu", origin=ORIGIN,
+            delta=DELTA):
     data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)
     off = np.array([0.1, 0.0, -0.05])
     jspec, tspec = jrobots.load_robot(robot), trobots.load_robot(robot)
-    jsc = jscene.Scene(base=jg.SdfGrid.from_arrays(data, ORIGIN, DELTA, dtype_j),
+    jsc = jscene.Scene(base=jg.SdfGrid.from_arrays(data, origin, delta, dtype_j),
                        base_offset=jnp.asarray(off, dtype_j)).packed()
-    tsc = tscene.Scene(base=tg.SdfGrid.from_arrays(data, ORIGIN, DELTA, dtype_t, device),
+    tsc = tscene.Scene(base=tg.SdfGrid.from_arrays(data, origin, delta, dtype_t, device),
                        base_offset=torch.as_tensor(off, dtype=dtype_t, device=device)).packed()
     jm = jcol.CollisionModel(fk=jdh.FkModel.from_spec(jspec, BASE, dtype=dtype_j), scene=jsc,
                              epsilon=jnp.asarray(0.05, dtype_j))
@@ -98,3 +99,24 @@ def test_joint_sigmoid_round_trip_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
     back = tcol.joint_sigmoid_inverse(got, torch.as_tensor(lo), torch.as_tensor(hi))
     np.testing.assert_allclose(back.numpy(), f, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("robot", ["franka", "ur10"])
+def test_clearance_eval_matches_jax_inside_and_outside_the_grid(robot):
+    """The metric's trilinear clearance, per sphere and its minimum, on a grid
+    smaller than the arm's reach, so that sphere centres leave it on all six
+    sides and the border clamps are exercised; float64, 1e-12."""
+    origin, delta = np.array([-0.2, -0.3, 0.1]), 0.015
+    jspec, jm, tm = _models(robot, origin=origin, delta=delta)
+    q = _configs(jspec, np.random.default_rng(4), 3 * 50).reshape(3, 50, jspec.dof)
+    rel = (tdh.sphere_positions(tm.fk, torch.as_tensor(q)) - tm.scene.base_offset).numpy() - origin
+    top = delta * (np.array(SHAPE) - 1)
+    assert (rel < 0).any(axis=(0, 1, 2)).all() and (rel > top).any(axis=(0, 1, 2)).all()
+    assert ((rel > 0) & (rel < top)).all(axis=-1).any()
+    want = np.asarray(jm.sphere_clearance_eval(jnp.asarray(q)))
+    got = tm.sphere_clearance_eval(torch.as_tensor(q))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tm.min_clearance_eval(torch.as_tensor(q)).numpy(), want.min(-1),
+                               rtol=0, atol=1e-12)
+    torch.testing.assert_close(tcol.min_clearance_eval_plain(tm, torch.as_tensor(q)),
+                               got.min(dim=-1).values, rtol=0, atol=0)

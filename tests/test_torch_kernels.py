@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain PyTorch versions, on the card.
+"""Kernels K1 to K4 against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and skip without one; they import no JAX, so
 they run on a machine that has only PyTorch and the CUDA toolkit:
@@ -17,6 +17,7 @@ from _torch_support import cuda_device, smooth_grid  # noqa: F401
 from vgpmp_torch import robots, scene
 from vgpmp_torch.kinematics import dh
 from vgpmp_torch.likelihoods import collision as col
+from vgpmp_torch.ops import gather as tg
 from vgpmp_torch.ops import linalg as la
 from vgpmp_torch.sdf import grid as sg
 
@@ -51,7 +52,10 @@ def test_wrappers_refuse_cpu_tensors():
         col.k1_loglik(model, q, torch.ones(1, spec.num_spheres), grad=True)
     with pytest.raises(ValueError):
         la.k2_chol(torch.eye(3, dtype=torch.float64)[None])
-    # on the CPU the entry point takes the plain version
+    with pytest.raises(ValueError):
+        col.k3_min_clearance(model, q)
+    # on the CPU the entry points take the plain versions
+    torch.testing.assert_close(model.min_clearance_eval(q), col.min_clearance_eval_plain(model, q))
     lik = model.log_prob(q, torch.full((spec.num_spheres,), 0.005))
     torch.testing.assert_close(lik, col.log_prob_plain(model, q, torch.full((spec.num_spheres,), 0.005)))
 
@@ -117,3 +121,60 @@ def test_k2_refuses_what_it_does_not_take(cuda_device):
         la.chol(torch.eye(4, device=cuda_device)[None])  # float32
     with pytest.raises(ValueError):
         la.chol(torch.eye(33, dtype=torch.float64, device=cuda_device)[None])  # n > 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k3_matches_plain_on_card(robot, cuda_device):
+    """K3 (float32) against the plain trilinear clearance on the same card, on
+    a grid smaller than the arm's reach so that sphere centres leave it on
+    every side. Trilinear interpolation is continuous and K3 differs from the
+    plain version by fused multiply-adds only: 1e-5 m absolute. A NaN config
+    gives NaN on both sides."""
+    data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)
+    sc = scene.Scene(base=sg.SdfGrid.from_arrays(data, np.array([-0.2, -0.3, 0.1]), 0.015,
+                                                 torch.float32, cuda_device),
+                     base_offset=torch.tensor([0.1, 0.0, -0.05], device=cuda_device))
+    spec = robots.load_robot(robot)
+    model = col.CollisionModel(fk=dh.FkModel.from_spec(spec, np.eye(4), dtype=torch.float32,
+                                                       device=cuda_device), scene=sc, epsilon=0.05)
+    q = torch.as_tensor(_configs(spec, np.random.default_rng(3), (4, 2000)), dtype=torch.float32,
+                        device=cuda_device)
+    q[0, :5, 2] = float("nan")
+    got = model.min_clearance_eval(q)
+    want = col.min_clearance_eval_plain(model, q)
+    assert got.shape == (4, 2000)
+    assert torch.isnan(got[0, :5]).all() and torch.isnan(want[0, :5]).all()
+    ok = ~torch.isnan(want)
+    assert ok.sum() == 4 * 2000 - 5 and (want[ok] < 0).float().mean() > 0.05
+    torch.testing.assert_close(got[ok], want[ok], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [1, 2])
+def test_k4_matches_plain_on_card(words, cuda_device):
+    """K4 against the plain indexing: exact, both entry widths, with indices
+    at the table's ends and outside it (clamped)."""
+    ncells = 100_003
+    table = torch.arange(ncells * words, dtype=torch.int32, device=cuda_device) * 40503 - 7
+    if words == 2:
+        table = table.reshape(ncells, 2)
+    idx = torch.randint(0, ncells, (257, 129), device=cuda_device, dtype=torch.int32)
+    idx.view(-1)[:4] = torch.tensor([0, ncells - 1, -5, ncells + 9], dtype=torch.int32)
+    before = tg.k4_gather.launches
+    got = tg.gather(table, idx)
+    assert tg.k4_gather.launches == before + 1
+    assert torch.equal(got, tg.gather_plain(table, idx))
+    assert got.shape == idx.shape + ((2,) if words == 2 else ())
+
+
+@pytest.mark.cuda
+def test_k3_k4_refuse_what_they_do_not_take(cuda_device):
+    spec, model = _collision("franka", torch.float64, cuda_device)
+    with pytest.raises(TypeError):
+        model.min_clearance_eval(torch.zeros(4, spec.dof, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(TypeError):
+        tg.k4_gather(torch.zeros(8, device=cuda_device), torch.zeros(4, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        tg.k4_gather(torch.zeros(8, 3, dtype=torch.int32, device=cuda_device),
+                     torch.zeros(4, dtype=torch.int32, device=cuda_device))

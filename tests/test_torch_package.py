@@ -1,13 +1,16 @@
 """Port package rules and the planning session.
 
-- no file of ``vgpmp_torch`` (or ``chip_smoke.py``) imports JAX, flax, optax
-  or anything of ``vgpmp_tpu``;
+- no file of ``vgpmp_torch`` (nor ``chip_smoke.py``, nor the port's tools)
+  imports JAX, flax, optax or anything of ``vgpmp_tpu``, in the source text
+  and in a fresh interpreter;
 - entry points default to the CUDA device and raise where there is none;
 - ``PlanningSession`` builds the same model configuration as the JAX one
   (the one test that loads the full industrial scene).
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -26,12 +29,33 @@ def _imports(path: Path):
             yield node.module
 
 
+PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "gather_bench_torch.py"]
+NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.ops.gather",
+               "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver"]
+
+
 def test_port_imports_no_jax_package():
-    files = sorted((ROOT / "vgpmp_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    files = sorted((ROOT / "vgpmp_torch").rglob("*.py")) + PORT_SCRIPTS
+    assert len(files) > 20 and all(f.exists() for f in files)
+    names = {str(f.relative_to(ROOT / "vgpmp_torch").with_suffix("")).replace("/", ".")
+             for f in files[:-len(PORT_SCRIPTS)]}
+    assert {m.removeprefix("vgpmp_torch.") for m in NEW_MODULES} <= names
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("target", NEW_MODULES + ["chip_smoke", "tools/gather_bench_torch.py"])
+def test_importing_the_port_loads_no_jax(target):
+    """In a fresh interpreter, importing the module (or loading the script
+    without running its entry point) leaves ``sys.modules`` free of JAX and of
+    the JAX package."""
+    load = (f"import runpy; runpy.run_path({target!r}, run_name='loaded')" if target.endswith(".py")
+            else f"import importlib; importlib.import_module({target!r})")
+    code = (f"import sys; {load}; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -44,6 +68,43 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         PlanningSession("franka", "industrial")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_gather_benchmark_raises_without_cuda(monkeypatch):
+    """The gather benchmark has no CPU mode."""
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import gather_bench_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gather_bench_torch.main()
+
+
+def test_round_solver_runs_where_its_model_lives(monkeypatch):
+    """``make_round_solver`` follows its model's device: a session asked for
+    the CPU gives a CPU round, and without CUDA there is no other session to
+    build one from."""
+    from _torch_support import planner_models
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.session import PlanningSession
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlanningSession("franka", "industrial", overrides=dict(num_steps=1))
+    _, _, tmodel = planner_models()
+    cfg = solver.TrainConfig(num_steps=1, time_spacing_X=6, time_spacing_Xnew=8,
+                             num_posterior_samples=4)
+    solve = solver.make_round_solver(tmodel, cfg)
+    from vgpmp_torch.models import vgpmp as planner
+
+    lo, hi = tmodel.limits_low.numpy(), tmodel.limits_high.numpy()
+    starts = (0.5 * (lo + hi))[None] - 0.2
+    goals = (0.5 * (lo + hi))[None] + 0.2
+    params = planner.init_params_batch(tmodel, starts, goals, [0], 0.5 * (starts + goals),
+                                       [1.5] * 7, 0.2, 0.005, 100.0)
+    best, rep = solve(params, starts, goals, torch.Generator().manual_seed(0))
+    assert best.device.type == "cpu" and best.shape == (1, 8, 7)
+    assert all(v.shape == (1,) for v in rep)
 
 
 def test_session_matches_jax_session():

@@ -4,6 +4,9 @@
 
 #include <torch/extension.h>
 
+#include <cstdint>
+#include <string>
+
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -12,6 +15,15 @@
 
 namespace {
 
+// A tensor's shape for an error message. Written out by hand: streaming
+// x.sizes() into a TORCH_CHECK message has crashed the process on the build
+// this extension was tested with.
+std::string shape_str(const at::Tensor& x) {
+  std::string s = "[";
+  for (int64_t i = 0; i < x.dim(); ++i) s += (i ? ", " : "") + std::to_string(x.size(i));
+  return s + "]";
+}
+
 void check(const at::Tensor& x, at::ScalarType dtype, int64_t ndim, const char* what,
            const char* name) {
   TORCH_CHECK_VALUE(x.is_cuda(), what, ": ", name, " must be a CUDA tensor");
@@ -19,7 +31,7 @@ void check(const at::Tensor& x, at::ScalarType dtype, int64_t ndim, const char* 
                    x.scalar_type());
   TORCH_CHECK_VALUE(x.is_contiguous(), what, ": ", name, " must be contiguous");
   TORCH_CHECK_VALUE(x.dim() == ndim, what, ": ", name, " must have ", ndim, " dims, got ",
-                    x.sizes());
+                    shape_str(x));
 }
 
 void same_device(const at::Tensor& a, const at::Tensor& b, const char* what) {
@@ -45,9 +57,9 @@ std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
   TORCH_CHECK_VALUE(robot.numel() == 6 * dof + 12, what, ": robot constants do not match ", dof,
                     " joints");
   TORCH_CHECK_VALUE(spheres.size(0) == P && spheres.size(1) == 5, what, ": spheres ",
-                    spheres.sizes(), " do not match sigma ", sigma.sizes());
-  TORCH_CHECK_VALUE(R > 0 && T % R == 0, what, ": sigma ", sigma.sizes(), " does not match q ",
-                    q.sizes());
+                    shape_str(spheres), " do not match sigma ", shape_str(sigma));
+  TORCH_CHECK_VALUE(R > 0 && T % R == 0, what, ": sigma ", shape_str(sigma), " does not match q ",
+                    shape_str(q));
   TORCH_CHECK_VALUE(words.size(1) == 2, what, ": words must be [ncells, 2]");
   TORCH_CHECK_VALUE(grid.size() == 7 && shape.size() == 3, what, ": grid needs 7 numbers and 3 sizes");
   TORCH_CHECK_VALUE(words.size(0) == shape[0] * shape[1] * shape[2], what,
@@ -70,7 +82,7 @@ std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
 int64_t square_n(const at::Tensor& L, const char* what) {
   const int64_t n = L.size(1);
   TORCH_CHECK_VALUE(L.size(2) == n && n >= 1 && n <= 32, what, ": needs square n <= 32, got ",
-                    L.sizes());
+                    shape_str(L));
   return n;
 }
 
@@ -90,7 +102,7 @@ at::Tensor k2_trsm(const at::Tensor& L, const at::Tensor& B, bool upper_t) {
   same_device(L, B, "k2_trsm");
   const int64_t n = square_n(L, "k2_trsm");
   TORCH_CHECK_VALUE(B.size(0) == L.size(0) && B.size(1) == n && B.size(2) >= 1,
-                    "k2_trsm: B ", B.sizes(), " does not match L ", L.sizes());
+                    "k2_trsm: B ", shape_str(B), " does not match L ", shape_str(L));
   const c10::cuda::CUDAGuard guard(L.device());
   auto X = at::empty_like(B);
   C10_CUDA_CHECK(k2_trsm_launch(L.data_ptr<double>(), B.data_ptr<double>(), X.data_ptr<double>(),
@@ -99,10 +111,67 @@ at::Tensor k2_trsm(const at::Tensor& L, const at::Tensor& B, bool upper_t) {
   return X;
 }
 
+// grid: base offset (3), origin (3), delta; sdf carries the shape
+at::Tensor k3_min_clearance(const at::Tensor& q, const at::Tensor& robot,
+                            const at::Tensor& spheres, const at::Tensor& sdf, bool craig,
+                            std::vector<double> grid) {
+  const char* what = "k3_min_clearance";
+  check(q, at::kFloat, 2, what, "q");
+  check(robot, at::kFloat, 1, what, "robot");
+  check(spheres, at::kFloat, 2, what, "spheres");
+  check(sdf, at::kFloat, 3, what, "sdf");
+  for (const auto* t : {&robot, &spheres, &sdf}) same_device(q, *t, what);
+  const int64_t T = q.size(0), dof = q.size(1), P = spheres.size(0);
+  TORCH_CHECK_VALUE(dof == 6 || dof == 7, what, ": built for 6 or 7 joints, got ", dof);
+  TORCH_CHECK_VALUE(robot.numel() == 6 * dof + 12, what, ": robot constants do not match ", dof,
+                    " joints");
+  TORCH_CHECK_VALUE(P >= 1 && spheres.size(1) == 5, what, ": spheres must be [P, 5], got ",
+                    shape_str(spheres));
+  TORCH_CHECK_VALUE(sdf.size(0) >= 2 && sdf.size(1) >= 2 && sdf.size(2) >= 2, what,
+                    ": the grid needs at least 2 cells along each axis, got ", shape_str(sdf));
+  TORCH_CHECK_VALUE(grid.size() == 7, what, ": grid needs 7 numbers");
+  const K1Grid g{(float)grid[0], (float)grid[1], (float)grid[2], (float)grid[3], (float)grid[4],
+                 (float)grid[5], (float)grid[6], (int)sdf.size(0), (int)sdf.size(1),
+                 (int)sdf.size(2)};
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = at::empty({T}, q.options());
+  C10_CUDA_CHECK(k3_min_clearance_launch(q.data_ptr<float>(), robot.data_ptr<float>(),
+                                         spheres.data_ptr<float>(), sdf.data_ptr<float>(),
+                                         out.data_ptr<float>(), T, (int)P, (int)dof, craig, g,
+                                         at::cuda::getCurrentCUDAStream()));
+  return out;
+}
+
+// table [ncells] (4-byte entries) or [ncells, 2] (8-byte entries), int32;
+// idx int32 of any shape -> idx's shape, plus the trailing 2 of a row table
+at::Tensor k4_gather(const at::Tensor& table, const at::Tensor& idx) {
+  const char* what = "k4_gather";
+  TORCH_CHECK_VALUE(table.dim() == 1 || (table.dim() == 2 && table.size(1) == 2), what,
+                    ": table must be [ncells] or [ncells, 2], got ", shape_str(table));
+  check(table, at::kInt, table.dim(), what, "table");
+  check(idx, at::kInt, idx.dim(), what, "idx");
+  same_device(table, idx, what);
+  TORCH_CHECK_VALUE(table.size(0) >= 1, what, ": empty table");
+  const int entry_bytes = table.dim() == 2 ? 8 : 4;
+  TORCH_CHECK_VALUE(reinterpret_cast<std::uintptr_t>(table.data_ptr()) % entry_bytes == 0, what,
+                    ": table is not aligned to its ", entry_bytes, "-byte entries");
+  auto sizes = idx.sizes().vec();
+  if (entry_bytes == 8) sizes.push_back(2);
+  const c10::cuda::CUDAGuard guard(table.device());
+  auto out = at::empty(sizes, table.options());
+  C10_CUDA_CHECK(k4_gather_launch(table.data_ptr(), idx.data_ptr<int32_t>(), out.data_ptr(),
+                                  idx.numel(), table.size(0), entry_bytes,
+                                  at::cuda::getCurrentCUDAStream()));
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("k1_loglik", &k1_loglik, "K1: fused FK, packed-SDF gather and hinge; (lik, dlik/dq)");
   m.def("k2_chol", &k2_chol, "K2: batched float64 lower Cholesky");
   m.def("k2_trsm", &k2_trsm, "K2: batched float64 triangular solve, L X = B or L^T X = B");
+  m.def("k3_min_clearance", &k3_min_clearance,
+        "K3: fused FK and trilinear SDF lookup; minimum clearance over spheres per config");
+  m.def("k4_gather", &k4_gather, "K4: out[i] = table[idx[i]] for 4-byte or 8-byte entries");
 }

@@ -1,5 +1,5 @@
-"""Batched planning engine, training and extraction (port of the training part
-of ``vgpmp_tpu/engine/solver.py``).
+"""Batched planning engine: training, extraction and the scored round (port of
+``vgpmp_tpu/engine/solver.py`` without the adaptive restart engine).
 
 The JAX engine vmaps a single-problem ``lax.scan`` over the batch; here the
 batch is an explicit leading axis ``B`` and the Adam loop is a Python loop.
@@ -8,10 +8,13 @@ guard must act per problem row, with a step count per row, exactly as
 ``_guarded_step`` does under ``vmap``. Each step is labelled for
 ``torch.profiler`` (``elbo_forward``, ``elbo_backward``, ``adam_update``,
 then ``extract``); the labels cost nothing while no profiler runs.
+:func:`make_round_solver` adds the metric of every solved row (label
+``validate``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
@@ -19,12 +22,14 @@ from typing import List, NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
+from vgpmp_torch.engine.validator import execute_and_validate
 from vgpmp_torch.gp.pathwise import PathNoise
 from vgpmp_torch.kinematics.dh import ee_positions
 from vgpmp_torch.models import vgpmp as planner
 
 __all__ = ["TrainConfig", "SolveResult", "SolveNoise", "BatchedAdam", "default_trainable",
-           "lr_schedule", "make_single_solver", "make_batch_solver"]
+           "lr_schedule", "make_single_solver", "make_batch_solver", "ensemble_score",
+           "make_round_solver"]
 
 
 @dataclass(frozen=True)
@@ -241,5 +246,43 @@ def make_single_solver(model: planner.PlannerModel, cfg: TrainConfig,
             logs={k: v[0] for k, v in res.logs.items()} if res.logs else None,
             ee_uncertainty=first(res.ee_uncertainty),
         )
+
+    return solve
+
+
+def ensemble_score(executed, success, min_clearance) -> torch.Tensor:
+    """Restart-selection score: physical execution dominates, then the
+    geometric verdict, then the worst clearance as the tie-breaker. Computed in
+    float32 whatever the inputs' dtype, so that exact ties resolve the same
+    everywhere: the clearance, clipped to +-8 m, maps into [-0.5, 0.5] under
+    unit-scale tiers, where float32 spacing is about 1 um of clearance. A
+    diverged (NaN) row scores ``-inf``."""
+    f32 = lambda x: torch.as_tensor(x).to(torch.float32)
+    score = (f32(executed) * 4.0 + f32(success) * 2.0
+             + torch.clamp(f32(min_clearance), -8.0, 8.0) / 16.0)
+    return torch.where(torch.isnan(score), torch.full_like(score, float("-inf")), score)
+
+
+def make_round_solver(model: planner.PlannerModel, cfg: TrainConfig,
+                      trainable: Optional[dict] = None):
+    """One scored round: batch-solve ``[B]`` problems and score each row's best
+    sample with the geometric validator and the physical execution metric
+    (:func:`vgpmp_torch.engine.validator.execute_and_validate`).
+
+    Returns ``solve(params0, starts, goals, generator=None, noise=None) ->
+    (best [B, Nnew, L], reports)``, every report field ``[B]``.
+    """
+    # the round consumes only (best, reports): skip the EE-uncertainty FK pass
+    solve_batch = make_batch_solver(model, dataclasses.replace(cfg, ee_uncertainty=False), trainable)
+
+    def solve(params: planner.PlannerParams, starts, goals,
+              generator: Optional[torch.Generator] = None, noise: Optional[SolveNoise] = None):
+        starts = torch.as_tensor(starts, dtype=model.dtype, device=model.device)
+        goals = torch.as_tensor(goals, dtype=model.dtype, device=model.device)
+        _, res = solve_batch(params, starts, goals, generator, noise)
+        with torch.no_grad(), record_function("validate"):
+            reports = execute_and_validate(model.collision, res.best, starts, goals,
+                                           model.limits_low, model.limits_high)
+        return res.best, reports
 
     return solve

@@ -5,6 +5,11 @@ Port of ``vgpmp_tpu/likelihoods/collision.py``. ``log_prob`` is
 tensor with a packed scene it runs kernel K1 (``csrc/k1_collision.cu``), which
 fuses FK, the packed-table gather and the hinge and computes ``∂/∂q`` in the
 same pass; on a CPU tensor it runs :func:`log_prob_plain`.
+
+``min_clearance_eval`` is the success metric's clearance: the minimum over
+spheres of the trilinear-interpolated clearance. On a CUDA tensor it runs
+kernel K3 (``csrc/k3_clearance.cu``), on a CPU tensor
+:func:`min_clearance_eval_plain`.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from vgpmp_torch.ops.transforms import sigmoid_box, sigmoid_box_inverse
 from vgpmp_torch.scene import Scene
 
 __all__ = ["CollisionModel", "joint_sigmoid", "joint_sigmoid_inverse", "log_prob_plain",
-           "k1_loglik"]
+           "k1_loglik", "min_clearance_eval_plain", "k3_min_clearance"]
 
 
 def joint_sigmoid(f: torch.Tensor, low, high) -> torch.Tensor:
@@ -38,16 +43,37 @@ class CollisionModel:
     fk: FkModel
     scene: Scene
     epsilon: float  # hinge safety margin
+    # host copies for kernel launches (no device sync): the base offset, and
+    # the base grid's origin and delta
     _base_offset_host: tuple = field(init=False, repr=False)
+    _grid_host: tuple = field(init=False, repr=False)
 
     def __post_init__(self):
         self.epsilon = float(self.epsilon)
         self._base_offset_host = tuple(float(v) for v in self.scene.base_offset.tolist())
+        base = self.scene.base
+        self._grid_host = (*(float(v) for v in base.origin.tolist()), float(base.delta))
 
     def sphere_clearance(self, configs: torch.Tensor) -> torch.Tensor:
         """``[..., L] -> [..., P]`` signed clearance (sdf − radius) per sphere."""
         pos = sphere_positions(self.fk, configs)
         return self.scene.distance(pos) - self.fk.sphere_radii
+
+    def sphere_clearance_eval(self, configs: torch.Tensor) -> torch.Tensor:
+        """``[..., L] -> [..., P]`` clearance by trilinear SDF interpolation (plain
+        PyTorch on every device): what the executor and validator verdicts
+        measure, where training keeps the one-gather nearest-cell lookup."""
+        pos = sphere_positions(self.fk, configs)
+        return self.scene.distance(pos, mode_override="trilinear") - self.fk.sphere_radii
+
+    def min_clearance_eval(self, configs: torch.Tensor) -> torch.Tensor:
+        """``[..., L] -> [...]``: :meth:`sphere_clearance_eval`'s minimum over the
+        spheres, the quantity every caller of the metric takes. Not
+        differentiable on CUDA (K3 is forward only)."""
+        if configs.is_cuda:
+            q = configs.detach().reshape(-1, configs.shape[-1]).contiguous()
+            return k3_min_clearance(self, q).reshape(configs.shape[:-1])
+        return min_clearance_eval_plain(self, configs)
 
     def hinge_cost(self, configs: torch.Tensor) -> torch.Tensor:
         """``max(ε − clearance, 0)`` per sphere."""
@@ -98,6 +124,32 @@ def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad:
 
 
 k1_loglik.launches = 0
+
+
+def min_clearance_eval_plain(model: CollisionModel, configs: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: FK, the eight-corner trilinear lookup and the
+    minimum over spheres as separate tensor ops."""
+    return model.sphere_clearance_eval(configs).min(dim=-1).values
+
+
+def k3_min_clearance(model: CollisionModel, q: torch.Tensor) -> torch.Tensor:
+    """K3 launch: ``q [T, dof]`` float32 CUDA -> ``[T]`` minimum over spheres of
+    the trilinear clearance against the scene's base grid."""
+    scene, fk = model.scene, model.fk
+    if not q.is_cuda:
+        raise ValueError(f"k3_min_clearance: needs CUDA tensors, got q on {q.device}")
+    if q.shape[-1] != fk.dof:
+        raise ValueError(f"k3_min_clearance: q has {q.shape[-1]} joints, the robot {fk.dof}")
+    if scene.has_extras:
+        raise ValueError("k3_min_clearance: needs a scene with no extra grids or primitives")
+    out = _build.load().k3_min_clearance(
+        q, fk.k1_robot, fk.k1_spheres, scene.base.data, fk.craig,
+        [*model._base_offset_host, *model._grid_host])
+    k3_min_clearance.launches += 1
+    return out
+
+
+k3_min_clearance.launches = 0
 
 
 class _K1Fn(torch.autograd.Function):

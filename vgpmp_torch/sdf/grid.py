@@ -23,7 +23,7 @@ import torch
 
 __all__ = [
     "SdfGrid", "PackedSdfGrid", "central_difference_grad", "nearest_distance",
-    "packed_nearest_distance", "packed_lookup_plain", "trilinear_distance",
+    "packed_nearest_distance", "packed_lookup_plain", "trilinear_cell", "trilinear_distance",
 ]
 
 
@@ -197,14 +197,22 @@ def packed_nearest_distance(packed: PackedSdfGrid, points: torch.Tensor) -> torc
     return _PackedFn.apply(points, packed)
 
 
-def trilinear_distance(grid: SdfGrid, points: torch.Tensor) -> torch.Tensor:
-    """C0 trilinear interpolation with corners at ``origin + delta * (i,j,k)``;
-    points outside the grid clamp to the border values."""
+def trilinear_cell(grid: SdfGrid, points: torch.Tensor):
+    """The cell a trilinear lookup interpolates in: its base corner ``[..., 3]``
+    int64 and the fractions ``[..., 3]`` inside it. The relative position is
+    clamped to ``[0, n-1]`` and the base index to ``[0, n-2]``, so a fraction
+    reaches exactly 1 on the upper border."""
     nmax = torch.tensor([s - 1 for s in grid.data.shape], dtype=points.dtype, device=points.device)
     rel = torch.clamp((points - grid.origin) / grid.delta, torch.zeros_like(nmax), nmax)
     nmax_i = (nmax - 1).to(torch.int64)
     i0 = torch.clamp(torch.floor(rel).to(torch.int64), torch.zeros_like(nmax_i), nmax_i)
-    frac = rel - i0.to(points.dtype)
+    return i0, rel - i0.to(points.dtype)
+
+
+def trilinear_distance(grid: SdfGrid, points: torch.Tensor) -> torch.Tensor:
+    """C0 trilinear interpolation with corners at ``origin + delta * (i,j,k)``;
+    points outside the grid clamp to the border values."""
+    i0, frac = trilinear_cell(grid, points)
 
     def corner(dx, dy, dz):
         return _gather(grid, i0 + torch.tensor([dx, dy, dz], device=points.device))
