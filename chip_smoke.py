@@ -10,16 +10,21 @@ Phases, any failure exits non-zero before the result line:
     the build seconds;
 (b) hold every kernel against its plain PyTorch version on the card at the
     main path's shapes (franka/industrial: the real packed table and franka
-    FK for K1; [252, 12, 12] Grams for K2; 36 x 6400 PD-path probes against
+    FK for K1; [252, 12, 12] Grams for K2's factorisation, solves and fused
+    pair ([252, 12, 71] right-hand sides in a training step, [252, 12, 251]
+    in the extraction); 36 x 6400 PD-path probes against
     the real float32 grid for K3; the gather benchmark's tables for K4),
     forward and backward where there is one, and time kernel, plain version,
     library call and the bound;
 (c) the main path: ``PlanningSession("franka", "industrial")``, 36 queries,
     the full 200-step batched Adam solve with linear init and again with
-    zeros init, then posterior extraction (150 samples x 100 times); plus a
+    zeros init, then posterior extraction (150 samples x 100 times); a
+    20-step solve with jitter escalation on, the path that keeps the lone
+    factorisation and solves, held against the fused path; plus a
     small-input ELBO check against the CPU's plain path;
 (d) a ``torch.profiler`` window over a 20-step solve: device busy share,
-    kernels by device time, host time per solver span (run last, after (f));
+    kernels by device time, host time per solver span, device launches and
+    K2 launches per Adam step (run last, after (f));
 (e) the scored round: ``make_round_solver`` on the 36 queries at 200 steps
     (solve, best sample, then ``execute_and_validate`` per row through K3),
     with the verdicts held against the port's CPU plain path on the same
@@ -106,8 +111,9 @@ def k1_phase(torch, sess, flush):
     assert gerr <= 1e-3 * gscale + 1e-6, "K1: gradient disagrees with the plain version"
 
     q2 = q.reshape(-1, L)
-    ms = time_ms(lambda: col.k1_loglik(model, q2, sigma, True), flush=flush)
-    ms_fwd = time_ms(lambda: col.k1_loglik(model, q2, sigma, False), flush=flush)
+    # 100 calls each: at 20 a single slow call moves the mean by a tenth
+    ms = time_ms(lambda: col.k1_loglik(model, q2, sigma, True), reps=100, flush=flush)
+    ms_fwd = time_ms(lambda: col.k1_loglik(model, q2, sigma, False), reps=100, flush=flush)
 
     def plain():
         qq = q.clone().requires_grad_()
@@ -191,6 +197,32 @@ def k2_phase(torch, sess, flush):
                 assert e <= tol, f"K2 trsm {name} k={k} upper_t={up}: {e}"
                 xn = fk(la.chol(K), Bm)
                 assert torch.isnan(xn[-1]).any(), "K2 trsm: NaN-in, NaN-out"
+        # the fused pair on the same matrices: forward on both sets, and
+        # through autograd (the fused backward launch) on the random set; 251
+        # columns is the extraction's call, which runs without a backward
+        for k in (1, 20, 71, 100, 251):
+            Bm = torch.randn((T, n, k), generator=gen, device=dev, dtype=torch.float64)
+            Ln, Xn = la.factor_solve(K, Bm)
+            Lq, Xq = la.factor_solve_plain(K, Bm)
+            assert all(torch.isnan(v[-1]).any() for v in (Ln, Xn, Lq, Xq)), "K2 fused: NaN-in, NaN-out"
+            pairs = [(Ln[ok], Lq[ok]), (Xn[ok], Xq[ok])]
+            if name == "random" and k != 251:
+                WL = torch.randn((T, n, n), generator=gen, device=dev, dtype=torch.float64)
+                WX = torch.randn((T, n, k), generator=gen, device=dev, dtype=torch.float64)
+                Kt, Bt = K[ok].clone().requires_grad_(), Bm[ok].clone().requires_grad_()
+                Kq, Bq = K[ok].clone().requires_grad_(), Bm[ok].clone().requires_grad_()
+                Lf, Xf = la.factor_solve(Kt, Bt)
+                Lg, Xg = la.factor_solve_plain(Kq, Bq)
+                gk = torch.autograd.grad((WL[ok] * Lf).sum() + (WX[ok] * Xf).sum(), [Kt, Bt])
+                gp = torch.autograd.grad((WL[ok] * Lg).sum() + (WX[ok] * Xg).sum(), [Kq, Bq])
+                hp = la.factor_solve_bwd_plain(Lq[ok], Xq[ok], WL[ok], WX[ok])  # the closed formula
+                pairs += [*zip(gk, gp), *zip(gk, hp)]
+                gn = la.k2_factor_solve_bwd(Ln, Xn, WL, WX)
+                assert all(torch.isnan(v[-1]).any() for v in gn), "K2 fused backward: NaN-in, NaN-out"
+            a, e = (max(v) for v in zip(*(errs(u, w) for u, w in pairs)))
+            key = f"fused_{name}_k{k}"
+            worst[key], worst_abs[key] = e, a
+            assert e <= tol, f"K2 fused pair {name} k={k}: {e}"
     log("K2 check (relative / absolute): "
         + ", ".join(f"{k} {v:.2e} / {worst_abs[k]:.2e}" for k, v in worst.items()))
 
@@ -210,9 +242,45 @@ def k2_phase(torch, sess, flush):
                    "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bm, upper=False),
                                          flush=flush),
                    "bound_ms": b_ms, "bound_by": b_by}
+    # the fused pair at the main path's widths. A training step: the draw's 20
+    # columns, the time grid's 50 and the variational mean's one. The
+    # extraction (forward only): 150 draws, 100 times and the mean. The library
+    # time is the two PyTorch calls that compute the forward (a yardstick
+    # only; the backward has no such call)
+    def library_pair(Bm):
+        Ll = torch.linalg.cholesky(Kc)
+        return Ll, torch.linalg.solve_triangular(Ll, Bm, upper=False)
+
+    fused_by_k = {}
+    for k in (71, 251):
+        Bm = torch.randn((Tm, n, k), generator=gen, device=dev, dtype=torch.float64)
+        b_ms, b_by = bound_ms((2 * Tm * n * n + 2 * Tm * n * k) * 8, Tm * (n ** 3 / 3 + n * n * k),
+                              F64_FLOPS)
+        fused_by_k[k] = {"ms": time_ms(lambda: la.k2_factor_solve(Kc, Bm), flush=flush),
+                         "plain_ms": time_ms(lambda: la.factor_solve_plain(Kc, Bm), flush=flush),
+                         "library_ms": time_ms(lambda: library_pair(Bm), flush=flush),
+                         "separate_ms": time_ms(lambda: la.k2_trsm(la.k2_chol(Kc), Bm, False),
+                                                flush=flush),
+                         "bound_ms": b_ms, "bound_by": b_by}
+    kf = 71
+    fused = fused_by_k[kf]
+    Bm = torch.randn((Tm, n, kf), generator=gen, device=dev, dtype=torch.float64)
+    gL = torch.randn((Tm, n, n), generator=gen, device=dev, dtype=torch.float64)
+    gX = torch.randn((Tm, n, kf), generator=gen, device=dev, dtype=torch.float64)
+    Lf, Xf = la.k2_factor_solve(Kc, Bm)
+    fused_bwd = {"ms": time_ms(lambda: la.k2_factor_solve_bwd(Lf, Xf, gL, gX), flush=flush),
+                 "plain_ms": time_ms(lambda: la.factor_solve_bwd_plain(Lf, Xf, gL, gX), flush=flush),
+                 "library_ms": None}
+    # one substitution of k columns, the lower half of dB X^T, L^T G and two
+    # substitutions of n columns
+    fused_bwd["bound_ms"], fused_bwd["bound_by"] = bound_ms(
+        (3 * Tm * n * n + 3 * Tm * n * kf) * 8, Tm * (2 * n * n * kf + 7 * n ** 3 / 3), F64_FLOPS)
     log(f"K2 chol [{Tm},{n},{n}]: " + json.dumps(chol))
     for k, v in trsm.items():
         log(f"K2 trsm lower [{Tm},{n},{k}]: " + json.dumps(v))
+    for k, v in fused_by_k.items():
+        log(f"K2 fused forward [{Tm},{n},{n}] + [{Tm},{n},{k}]: " + json.dumps(v))
+    log(f"K2 fused backward, same shapes: " + json.dumps(fused_bwd))
 
     def worst_of(prefix):
         return {"max_abs_err": max(v for k, v in worst_abs.items() if k.startswith(prefix)),
@@ -225,6 +293,13 @@ def k2_phase(torch, sess, flush):
         {"name": "k2_trsm", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
          "replaces": "vgpmp_tpu/ops/linalg.py:52", **worst_of("trsm"), **trsm[50],
          "shape": [Tm, n, 50], "by_k": trsm},
+        {"name": "k2_factor_solve", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
+         "replaces": "vgpmp_tpu/ops/linalg.py:30", **worst_of("fused"), **fused,
+         "shape": [Tm, n, kf], "by_k": fused_by_k},
+        # the backward launch is held through autograd in the same checks
+        {"name": "k2_factor_solve_bwd", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
+         "replaces": "vgpmp_tpu/ops/linalg.py:30", **worst_of("fused_random"), **fused_bwd,
+         "shape": [Tm, n, kf]},
     ], {"relative": worst, "absolute": worst_abs}
 
 
@@ -366,7 +441,7 @@ def main_path(torch, sess):
     pp, cfg = sess.planner_params, sess.train_config
     solve = solver.make_batch_solver(sess.model, cfg)
     B = len(starts)
-    counters = (k1_loglik, la.k2_chol, la.k2_trsm)
+    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd)
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -421,6 +496,43 @@ def main_path(torch, sess):
     return summary, launches, t_ext, peak
 
 
+def escalation_phase(torch, sess, steps: int = 20):
+    """The solve with jitter escalation on (``jitter_escalations=1``): the
+    factor may be replaced per row after the first attempt, so this path keeps
+    the lone factorisation (``k2_chol``) and solves (``k2_trsm``). Every Gram
+    of the main path is SPD, so nothing escalates and the first ELBO must be
+    the fused path's on the same draws. Tolerance 1e-3 relative: the two
+    paths round the float64 island differently, and in float32 a last-bit
+    change can move a sphere into the neighbouring voxel."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import linalg as la
+
+    starts, goals = sess.queries()
+    pp = sess.planner_params
+    cfg = dataclasses.replace(sess.train_config, num_steps=steps)
+    params = planner.init_params_batch(sess.model, starts, goals, [0] * len(starts),
+                                       0.5 * (starts + goals), pp["lengthscales"], pp["variance"],
+                                       pp["sigma_obs"], pp["alpha"])
+    counters = (la.k2_chol, la.k2_trsm, la.k2_factor_solve)
+    first, launches = {}, {}
+    for name, esc in (("fused", 0), ("escalating", 1)):
+        solve = solver.make_batch_solver(dataclasses.replace(sess.model, jitter_escalations=esc), cfg)
+        for c in counters:
+            c.launches = 0
+        _, res = solve(params, starts, goals, torch.Generator(device=sess.device).manual_seed(2))
+        torch.cuda.synchronize()
+        launches[name] = {c.__name__: c.launches for c in counters}
+        first[name] = res.elbo_history[:, 0]
+        assert torch.isfinite(res.elbo_history).all() and torch.isfinite(res.best).all(), name
+    err = ((first["escalating"] - first["fused"]).abs() / first["fused"].abs()).max().item()
+    log(f"escalation path, {steps} steps: launches {launches['escalating']} (fused path: "
+        f"{launches['fused']}), first ELBO differs from the fused path's by {err:.2e} relative (<= 1e-3)")
+    assert err <= 1e-3, "the escalation path disagrees with the fused path"
+    assert launches["escalating"]["k2_factor_solve"] == 0 and launches["fused"]["k2_chol"] == 0
+    return {"launches": launches["escalating"], "first_elbo_rel_err": err}
+
+
 def profile_phase(torch, sess, steps: int = 20):
     """Where a step's time goes: ``torch.profiler`` over a ``steps``-step solve
     of the main path (B=36) after a warm-up solve; the same solve is also
@@ -429,6 +541,7 @@ def profile_phase(torch, sess, steps: int = 20):
 
     from vgpmp_torch.engine import solver
     from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import linalg as la
 
     starts, goals = sess.queries()
     pp = sess.planner_params
@@ -437,6 +550,13 @@ def profile_phase(torch, sess, steps: int = 20):
     params = planner.init_params_batch(sess.model, starts, goals, [0] * len(starts),
                                        0.5 * (starts + goals), pp["lengthscales"], pp["variance"],
                                        pp["sigma_obs"], pp["alpha"])
+    k2 = (la.k2_chol, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd)
+
+    def k2_count(fn):
+        for c in k2:
+            c.launches = 0
+        fn()
+        return sum(c.launches for c in k2)
 
     def run():
         torch.cuda.synchronize()
@@ -445,7 +565,17 @@ def profile_phase(torch, sess, steps: int = 20):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    run()
+    # K2 launches of one Adam step: a solve's, less its one extraction's
+    st = torch.as_tensor(starts, dtype=torch.float32, device=sess.device)
+    gl = torch.as_tensor(goals, dtype=torch.float32, device=sess.device)
+    Xnew = torch.linspace(0, 1, cfg.time_spacing_Xnew, device=sess.device)
+
+    def extract():
+        with torch.no_grad():
+            planner.sample_from_posterior(params, sess.model, st, gl, Xnew, cfg.num_posterior_samples,
+                                          torch.Generator(device=sess.device).manual_seed(9))
+
+    k2_per_step = (k2_count(run) - k2_count(extract)) / steps
     plain_wall = min(run() for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         wall = run()
@@ -463,16 +593,20 @@ def profile_phase(torch, sess, steps: int = 20):
     rec = {"steps": steps, "wall_s_unprofiled": plain_wall, "wall_s_profiled": wall,
            "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / wall,
            "device_busy_share_of_unprofiled_wall": busy_us / 1e6 / plain_wall,
-           "device_kernel_launches": launches, "span_cpu_ms": spans,
+           "device_kernel_launches": launches, "device_launches_per_step": launches / steps,
+           "k2_launches_per_step": k2_per_step, "span_cpu_ms": spans,
            "top_kernels": [{"name": e.key[:90], "count": e.count,
                             "device_ms": e.self_device_time_total / 1e3} for e in top]}
     log(f"(d) profile of a {steps}-step solve + extraction, B={len(starts)}: wall {plain_wall:.3f} s "
         f"unprofiled, {wall:.3f} s profiled; device busy {busy_us / 1e3:.2f} ms "
         f"({rec['device_busy_share']:.3f} of the profiled wall, "
-        f"{rec['device_busy_share_of_unprofiled_wall']:.3f} of the unprofiled), {launches} kernel launches; "
-        f"spans (host ms) {json.dumps({k: round(v, 1) for k, v in spans.items()})}")
+        f"{rec['device_busy_share_of_unprofiled_wall']:.3f} of the unprofiled), {launches} kernel launches, "
+        f"{launches / steps:.1f} per step with the extraction's (about 670 with the factorisation and "
+        f"solves as separate launches, on an NVIDIA H100 80GB HBM3); K2 launches per Adam step "
+        f"{k2_per_step:g} (13 with separate launches, of them 6 for the KL); spans (host ms) {json.dumps({k: round(v, 1) for k, v in spans.items()})}")
     for t in rec["top_kernels"]:
         log(f"  {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['name']}")
+    assert k2_per_step <= 8, f"K2 launches per Adam step: {k2_per_step}"
     return rec
 
 
@@ -491,7 +625,7 @@ def round_phase(torch, sess, cpu):
     solve = solver.make_round_solver(sess.model, cfg)
     params = planner.init_params_batch(sess.model, starts, goals, [0] * B, 0.5 * (starts + goals),
                                        pp["lengthscales"], pp["variance"], pp["sigma_obs"], pp["alpha"])
-    counters = (k1_loglik, la.k2_chol, la.k2_trsm, k3_min_clearance)
+    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd, k3_min_clearance)
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -612,6 +746,7 @@ def main() -> int:
 
     log("(c) main path")
     summary, launches, t_ext, peak = main_path(torch, sess)
+    escalating = escalation_phase(torch, sess)
 
     scored = round_phase(torch, sess, cpu)
     gather, k4["launches"] = gather_phase(torch)
@@ -621,8 +756,10 @@ def main() -> int:
     prof = profile_phase(torch, sess)
 
     k1["launches"] = launches["k1_loglik"]
-    k2[0]["launches"] = launches["k2_chol"]
+    k2[0]["launches"] = escalating["launches"]["k2_chol"]
     k2[1]["launches"] = launches["k2_trsm"]
+    k2[2]["launches"] = launches["k2_factor_solve"]
+    k2[3]["launches"] = launches["k2_factor_solve_bwd"]
     k3["launches"] = scored["launches"]["k3_min_clearance"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -631,6 +768,7 @@ def main() -> int:
         "bound_ms", "bound_by", "library_ms")} for d in [k1, *k2, k3, k4]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
     record = {"card": smi, "build_s": secs, "kernels": [k1, *k2, k3, k4], "k2_errors": k2_errs,
+              "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,
               "peak_memory_bytes": peak, "launches": launches, "profile": prof,
               "scored_round": scored, "gather_bench": gather,

@@ -54,6 +54,8 @@ def test_wrappers_refuse_cpu_tensors():
         la.k2_chol(torch.eye(3, dtype=torch.float64)[None])
     with pytest.raises(ValueError):
         col.k3_min_clearance(model, q)
+    with pytest.raises(ValueError):
+        la.k2_factor_solve(torch.eye(3, dtype=torch.float64)[None], torch.ones(1, 3, 2, dtype=torch.float64))
     # on the CPU the entry points take the plain versions
     torch.testing.assert_close(model.min_clearance_eval(q), col.min_clearance_eval_plain(model, q))
     lik = model.log_prob(q, torch.full((spec.num_spheres,), 0.005))
@@ -116,11 +118,85 @@ def test_k2_matches_plain_on_card(cuda_device, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(12, 1), (12, 20), (12, 71), (12, 251), (2, 1), (8, 5), (26, 70), (32, 40)])
+def test_k2_fused_pair_matches_plain_on_card(cuda_device, n, k):
+    """The fused pair, forward and backward (through autograd and called
+    directly), against its plain versions; float64 on well-conditioned input,
+    so 1e-9 relative. One launch each way; a non-SPD matrix gives NaN."""
+    rng = np.random.default_rng(1000 * n + k)
+    T = 252
+    K = torch.as_tensor(_spd(rng, T, n), device=cuda_device)
+    K[7] = -K[7]
+    Bm = torch.as_tensor(rng.normal(size=(T, n, k)), device=cuda_device)
+    WL = torch.as_tensor(rng.normal(size=(T, n, n)), device=cuda_device)
+    WX = torch.as_tensor(rng.normal(size=(T, n, k)), device=cuda_device)
+    ok = torch.ones(T, dtype=torch.bool, device=cuda_device)
+    ok[7] = False
+    L_k, X_k = la.factor_solve(K.reshape(36, 7, n, n), Bm.reshape(36, 7, n, k))  # leading axes
+    L_k, X_k = L_k.reshape(T, n, n), X_k.reshape(T, n, k)
+    L_p, X_p = la.factor_solve_plain(K, Bm)
+    assert all(torch.isnan(v[7]).any() for v in (L_k, X_k, L_p, X_p))
+    torch.testing.assert_close(L_k[ok], L_p[ok], rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(X_k[ok], X_p[ok], rtol=1e-9, atol=1e-12)
+    gK_n, gB_n = la.k2_factor_solve_bwd(L_k, X_k, WL, WX)
+    assert torch.isnan(gK_n[7]).any() and torch.isnan(gB_n[7]).any()
+
+    Kt, Bt = K[ok].clone().requires_grad_(), Bm[ok].clone().requires_grad_()
+    before = (la.k2_factor_solve.launches, la.k2_factor_solve_bwd.launches, la.k2_chol.launches,
+              la.k2_trsm.launches)
+    Lf, Xf = la.factor_solve(Kt, Bt)
+    g_k = torch.autograd.grad((WL[ok] * Lf).sum() + (WX[ok] * Xf).sum(), [Kt, Bt])
+    assert (la.k2_factor_solve.launches, la.k2_factor_solve_bwd.launches, la.k2_chol.launches,
+            la.k2_trsm.launches) == (before[0] + 1, before[1] + 1, before[2], before[3])
+    Kp, Bp = K[ok].clone().requires_grad_(), Bm[ok].clone().requires_grad_()
+    Lg, Xg = la.factor_solve_plain(Kp, Bp)
+    g_p = torch.autograd.grad((WL[ok] * Lg).sum() + (WX[ok] * Xg).sum(), [Kp, Bp])
+    for a, b, c in zip(g_k, g_p, (gK_n[ok], gB_n[ok])):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10 * b.abs().max().item())
+        torch.testing.assert_close(c, b, rtol=1e-8, atol=1e-10 * b.abs().max().item())
+    # only one of the two outputs used: the other's gradient arrives as zeros
+    Kt2, Bt2 = K[ok].clone().requires_grad_(), Bm[ok].clone().requires_grad_()
+    (gK_only,) = torch.autograd.grad(la.factor_solve(Kt2, Bt2)[0].square().sum(), [Kt2])
+    Kp2 = K[ok].clone().requires_grad_()
+    (gK_ref,) = torch.autograd.grad(la.cholesky_unrolled(Kp2).square().sum(), [Kp2])
+    torch.testing.assert_close(gK_only, gK_ref, rtol=1e-8, atol=1e-10 * gK_ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_k1_tail_tile_and_sigma_rows_on_card(cuda_device):
+    """K1 where the config count is no multiple of its tile and every sigma row
+    covers fewer configs than a tile: each config must still read its own row."""
+    spec, model = _collision("franka", torch.float32, cuda_device)
+    rng = np.random.default_rng(9)
+    q = torch.as_tensor(_configs(spec, rng, (9, 23)), dtype=torch.float32, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.002, 0.02, size=(9, spec.num_spheres)), dtype=torch.float32,
+                            device=cuda_device)
+    qk = q.clone().requires_grad_()
+    lik_k = model.log_prob(qk, sigma)
+    lik_k.sum().backward()
+    qp = q.clone().requires_grad_()
+    lik_p = col.log_prob_plain(model, qp, sigma)
+    lik_p.sum().backward()
+    close = torch.isclose(lik_k, lik_p, rtol=1e-5, atol=1e-3)
+    assert (~close).sum().item() <= 1  # 207 configs: at most one in a neighbouring voxel
+    torch.testing.assert_close(qk.grad[close], qp.grad[close], rtol=1e-3,
+                               atol=1e-3 * qp.grad.abs().max().item())
+
+
+@pytest.mark.cuda
 def test_k2_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         la.chol(torch.eye(4, device=cuda_device)[None])  # float32
     with pytest.raises(ValueError):
         la.chol(torch.eye(33, dtype=torch.float64, device=cuda_device)[None])  # n > 32
+    eye = torch.eye(4, dtype=torch.float64, device=cuda_device)[None]
+    with pytest.raises(TypeError):
+        la.factor_solve(eye.float(), eye.float())
+    with pytest.raises(ValueError):
+        la.factor_solve(torch.eye(33, dtype=torch.float64, device=cuda_device)[None],
+                        torch.ones(1, 33, 2, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(ValueError):
+        la.factor_solve(eye, torch.ones(1, 5, 2, dtype=torch.float64, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -111,6 +111,49 @@ at::Tensor k2_trsm(const at::Tensor& L, const at::Tensor& B, bool upper_t) {
   return X;
 }
 
+// K [T, n, n], B [T, n, k] -> (L = chol(K), X = L^-1 B), one launch
+std::vector<at::Tensor> k2_factor_solve(const at::Tensor& K, const at::Tensor& B) {
+  const char* what = "k2_factor_solve";
+  check(K, at::kDouble, 3, what, "K");
+  check(B, at::kDouble, 3, what, "B");
+  same_device(K, B, what);
+  const int64_t n = square_n(K, what);
+  TORCH_CHECK_VALUE(B.size(0) == K.size(0) && B.size(1) == n && B.size(2) >= 1, what, ": B ",
+                    shape_str(B), " does not match K ", shape_str(K));
+  const c10::cuda::CUDAGuard guard(K.device());
+  auto L = at::empty_like(K);
+  auto X = at::empty_like(B);
+  C10_CUDA_CHECK(k2_factor_solve_launch(K.data_ptr<double>(), B.data_ptr<double>(),
+                                        L.data_ptr<double>(), X.data_ptr<double>(), K.size(0),
+                                        (int)n, (int)B.size(2), at::cuda::getCurrentCUDAStream()));
+  return {L, X};
+}
+
+// the pair's backward: (L, X, dL, dX) -> (dK folded onto the lower triangle, dB)
+std::vector<at::Tensor> k2_factor_solve_bwd(const at::Tensor& L, const at::Tensor& X,
+                                            const at::Tensor& gL, const at::Tensor& gX) {
+  const char* what = "k2_factor_solve_bwd";
+  check(L, at::kDouble, 3, what, "L");
+  check(X, at::kDouble, 3, what, "X");
+  check(gL, at::kDouble, 3, what, "gL");
+  check(gX, at::kDouble, 3, what, "gX");
+  for (const auto* t : {&X, &gL, &gX}) same_device(L, *t, what);
+  const int64_t n = square_n(L, what);
+  TORCH_CHECK_VALUE(X.size(0) == L.size(0) && X.size(1) == n && X.size(2) >= 1, what, ": X ",
+                    shape_str(X), " does not match L ", shape_str(L));
+  TORCH_CHECK_VALUE(gL.sizes() == L.sizes() && gX.sizes() == X.sizes(), what, ": gradients ",
+                    shape_str(gL), " and ", shape_str(gX), " do not match L ", shape_str(L),
+                    " and X ", shape_str(X));
+  const c10::cuda::CUDAGuard guard(L.device());
+  auto gK = at::empty_like(L);
+  auto gB = at::empty_like(X);
+  C10_CUDA_CHECK(k2_factor_solve_bwd_launch(
+      L.data_ptr<double>(), X.data_ptr<double>(), gL.data_ptr<double>(), gX.data_ptr<double>(),
+      gK.data_ptr<double>(), gB.data_ptr<double>(), L.size(0), (int)n, (int)X.size(2),
+      at::cuda::getCurrentCUDAStream()));
+  return {gK, gB};
+}
+
 // grid: base offset (3), origin (3), delta; sdf carries the shape
 at::Tensor k3_min_clearance(const at::Tensor& q, const at::Tensor& robot,
                             const at::Tensor& spheres, const at::Tensor& sdf, bool craig,
@@ -171,6 +214,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("k1_loglik", &k1_loglik, "K1: fused FK, packed-SDF gather and hinge; (lik, dlik/dq)");
   m.def("k2_chol", &k2_chol, "K2: batched float64 lower Cholesky");
   m.def("k2_trsm", &k2_trsm, "K2: batched float64 triangular solve, L X = B or L^T X = B");
+  m.def("k2_factor_solve", &k2_factor_solve,
+        "K2: float64 Cholesky and the forward substitution of B in one launch; (L, L^-1 B)");
+  m.def("k2_factor_solve_bwd", &k2_factor_solve_bwd,
+        "K2: backward of k2_factor_solve in one launch; (dK, dB)");
   m.def("k3_min_clearance", &k3_min_clearance,
         "K3: fused FK and trilinear SDF lookup; minimum clearance over spheres per config");
   m.def("k4_gather", &k4_gather, "K4: out[i] = table[idx[i]] for 4-byte or 8-byte entries");

@@ -12,8 +12,38 @@
 
 #include <cuda_runtime.h>
 
+// One DH step: frame (Rn, tn) = frame (Rc, tc) composed with joint j's
+// transform at angle q_j. c points at the joint's six constants. Every FK of
+// this file goes through here, so all of them round alike.
+template <bool CRAIG>
+__device__ __forceinline__ void dh_step(const float* __restrict__ c, float qj, const float (&Rc)[9],
+                                        const float (&tc)[3], float (&Rn)[9], float (&tn)[3]) {
+  const float ca = c[0], sa = c[1];
+  const float ang = qj + c[2];
+  const float co = cosf(ang), s = sinf(ang);
+  float Tm[9], p[3];
+  if (CRAIG) {
+    Tm[0] = co;      Tm[1] = -s;      Tm[2] = 0.f;
+    Tm[3] = s * ca;  Tm[4] = co * ca; Tm[5] = -sa;
+    Tm[6] = s * sa;  Tm[7] = co * sa; Tm[8] = ca;
+    p[0] = c[3]; p[1] = c[4]; p[2] = c[5];
+  } else {
+    Tm[0] = co;  Tm[1] = -s * ca; Tm[2] = s * sa;
+    Tm[3] = s;   Tm[4] = co * ca; Tm[5] = -co * sa;
+    Tm[6] = 0.f; Tm[7] = sa;      Tm[8] = ca;
+    p[0] = c[3] * co; p[1] = c[3] * s; p[2] = c[5];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      Rn[3 * i + k] = Rc[3 * i] * Tm[k] + Rc[3 * i + 1] * Tm[3 + k] + Rc[3 * i + 2] * Tm[6 + k];
+    tn[i] = tc[i] + Rc[3 * i] * p[0] + Rc[3 * i + 1] * p[1] + Rc[3 * i + 2] * p[2];
+  }
+}
+
 // Rotation R[k] (row-major 3x3) and translation t[k] of every chain frame
-// k = 0..DOF for the configuration q[0..DOF).
+// k = 0..DOF for the configuration q[0..DOF), all in the thread's registers.
 template <int DOF, bool CRAIG>
 __device__ __forceinline__ void fk_chain(const float* __restrict__ q,
                                          const float* __restrict__ robot,
@@ -26,31 +56,59 @@ __device__ __forceinline__ void fk_chain(const float* __restrict__ q,
     t[0][i] = base[4 * i + 3];
   }
 #pragma unroll
-  for (int j = 0; j < DOF; ++j) {
-    const float* c = robot + 6 * j;
-    const float ca = c[0], sa = c[1];
-    const float ang = q[j] + c[2];
-    const float co = cosf(ang), s = sinf(ang);
-    float Tm[9], p[3];
-    if (CRAIG) {
-      Tm[0] = co;      Tm[1] = -s;      Tm[2] = 0.f;
-      Tm[3] = s * ca;  Tm[4] = co * ca; Tm[5] = -sa;
-      Tm[6] = s * sa;  Tm[7] = co * sa; Tm[8] = ca;
-      p[0] = c[3]; p[1] = c[4]; p[2] = c[5];
-    } else {
-      Tm[0] = co;  Tm[1] = -s * ca; Tm[2] = s * sa;
-      Tm[3] = s;   Tm[4] = co * ca; Tm[5] = -co * sa;
-      Tm[6] = 0.f; Tm[7] = sa;      Tm[8] = ca;
-      p[0] = c[3] * co; p[1] = c[3] * s; p[2] = c[5];
-    }
+  for (int j = 0; j < DOF; ++j) dh_step<CRAIG>(robot + 6 * j, q[j], R[j], t[j], R[j + 1], t[j + 1]);
+}
+
+// Block-level FK: the same chain for one configuration, with every frame
+// written to shared memory as soon as it is known, so the thread holds two
+// frames and not DOF + 1. Element e of frame k (e = 0..8 the rotation,
+// row-major; 9..11 the translation) of the block's local configuration c goes
+// to frames[(12 * k + e) * stride + c]: the threads of a warp, on consecutive
+// c, write and later read consecutive words. Pass frames + c.
+constexpr int FK_FRAME = 12;
+
+template <int DOF, bool CRAIG>
+__device__ __forceinline__ void fk_chain_to_shared(const float* __restrict__ q,
+                                                   const float* __restrict__ robot,
+                                                   float* __restrict__ frames, int stride) {
+  const float* base = robot + 6 * DOF;
+  float Rc[9], tc[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < 3; ++i) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        R[j + 1][3 * i + k] = R[j][3 * i] * Tm[k] + R[j][3 * i + 1] * Tm[3 + k] + R[j][3 * i + 2] * Tm[6 + k];
-      t[j + 1][i] = t[j][i] + R[j][3 * i] * p[0] + R[j][3 * i + 1] * p[1] + R[j][3 * i + 2] * p[2];
+    for (int j = 0; j < 3; ++j) Rc[3 * i + j] = base[4 * i + j];
+    tc[i] = base[4 * i + 3];
+  }
+  float qj[DOF];
+#pragma unroll
+  for (int j = 0; j < DOF; ++j) qj[j] = q[j];
+#pragma unroll
+  for (int j = 0; j <= DOF; ++j) {
+    float* F = frames + FK_FRAME * j * stride;
+#pragma unroll
+    for (int e = 0; e < 9; ++e) F[e * stride] = Rc[e];
+#pragma unroll
+    for (int e = 0; e < 3; ++e) F[(9 + e) * stride] = tc[e];
+    if (j < DOF) {
+      float Rn[9], tn[3];
+      dh_step<CRAIG>(robot + 6 * j, qj[j], Rc, tc, Rn, tn);
+#pragma unroll
+      for (int e = 0; e < 9; ++e) Rc[e] = Rn[e];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) tc[e] = tn[e];
     }
   }
+}
+
+// World centre of a sphere at offset (ox, oy, oz) in frame f, from the frames
+// that fk_chain_to_shared wrote; the sum runs in sphere_centre's order.
+__device__ __forceinline__ void sphere_centre_shared(const float* __restrict__ frames, int stride,
+                                                     int f, float ox, float oy, float oz, float& x,
+                                                     float& y, float& z) {
+  const float* F = frames + FK_FRAME * f * stride;
+  x = F[0] * ox + F[stride] * oy + F[2 * stride] * oz + F[9 * stride];
+  y = F[3 * stride] * ox + F[4 * stride] * oy + F[5 * stride] * oz + F[10 * stride];
+  z = F[6 * stride] * ox + F[7 * stride] * oy + F[8 * stride] * oz + F[11 * stride];
 }
 
 // World centre (x, y, z) of the sphere described by s[0..5); returns its frame.

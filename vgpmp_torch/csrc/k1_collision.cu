@@ -12,17 +12,31 @@
 // ([ncells, 2] words, 222 MB for the industrial scene, larger than the 50 MB
 // L2). Each sphere lookup touches one 32-byte DRAM sector, so the bound is the
 // bytes of the distinct sectors a call touches over the memory rate; the FK
-// chain and the hinge are a few hundred flops per config and never bind.
+// chain and the hinge are a few hundred flops per config and never bind. What
+// a kernel has to do about it is keep many independent gathers in flight and
+// spend few instructions and registers around them.
 //
-// Design: one warp per configuration. Every lane runs the (cheap) DH chain for
-// that configuration redundantly, so no lane waits on another, then the lanes
-// split the P spheres between them: each lane issues its own independent
-// 8-byte load (value and the three gradient components packed as bf16), and
-// many warps per SM keep enough loads in flight to cover DRAM latency. The
-// derivative is accumulated in the same pass from the gathered gradient
-// (dlik/dq_j = sum_p (c_p/sigma_p) z_j . ((x_p - o_j) x grad_p)), so the
-// backward pass is a multiply by the saved result and never gathers again —
-// what the custom VJP at vgpmp_tpu/sdf/grid.py:308-318 achieves.
+// Design: a block of 256 threads takes a tile of 32 consecutive configurations
+// (neighbours in time along a trajectory, so neighbours in space: their
+// spheres share sectors).
+//   Phase 1: one thread per configuration runs the DH chain once
+//     (fk.cuh:fk_chain_to_shared) and leaves the frames in shared memory.
+//   Phase 2: thread (g, c) keeps local configuration c and the spheres g,
+//     g + 8, g + 16, ..., so a warp holds the tile's 32 configurations of one
+//     sphere: its shared-memory reads are conflict-free, the sphere's constants
+//     are a broadcast, and its 32 gathers land near each other. A thread
+//     computes the cells of its five spheres and starts all five gathers
+//     before it uses one.
+//   Phase 3: the hinge, and for an active pair the joint torques from the
+//     frames in shared memory (dlik/dq_j = sum_p (c_p/sigma_p) z_j . ((x_p -
+//     o_j) x grad_p), from the gathered gradient, so the backward pass is a
+//     multiply by the saved result and never gathers again: what the custom
+//     VJP at vgpmp_tpu/sdf/grid.py:308-318 achieves). The eight partial sums
+//     per configuration meet in shared memory, and lik [32] and dlik [32, DOF]
+//     leave coalesced.
+// No thread holds a configuration's frames in registers: the kernel takes 64
+// registers a thread with the gradient, 48 without, and spills nothing, so
+// eight warps of a block and several blocks share an SM (PERF.md).
 // The compiler may contract the FK's products and sums into fused
 // multiply-adds, so a sphere near a voxel face can land in the neighbouring
 // voxel of the one the plain version picks; the checks bound that share.
@@ -33,8 +47,6 @@
 #include "kernels.h"
 
 namespace {
-
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float unpack_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 __device__ __forceinline__ float unpack_lo(uint32_t w) { return __uint_as_float(w << 16); }
@@ -50,81 +62,129 @@ __device__ __forceinline__ long long flat_index(float px, float py, float pz, fl
   return ((long long)ix * ny + iy) * nz + iz;
 }
 
+// C configurations and THREADS threads a block, NI gathers in flight a thread:
+// the tile that was fastest of six at the main path's shape (PERF.md).
+constexpr int C = 32, THREADS = 256, NI = 5;
+
 // robot and spheres: the constant tables described in fk.cuh.
 template <int DOF, bool CRAIG, bool GRAD>
-__global__ void __launch_bounds__(256) loglik_kernel(
+__global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ sigma,
     const float* __restrict__ robot, const float* __restrict__ spheres,
     const uint2* __restrict__ words, float* __restrict__ lik, float* __restrict__ dlik,
     long long T, long long K, int P, K1Grid g, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long cfg = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (cfg >= T) return;  // uniform across the warp
-  const long long row = cfg / K;
+  constexpr int G = THREADS / C;
+  constexpr int NF = FK_FRAME * (DOF + 1);
+  constexpr int SLOTS = 8;  // 1 + DOF <= 8 partial sums per thread
+  static_assert(THREADS % C == 0 && C % 32 == 0 && DOF + 1 <= SLOTS, "tile shape");
+  extern __shared__ float smem[];
+  float* frames = smem;                // [NF][C]
+  float* red = frames + NF * C;        // [G][SLOTS][C]
+  float* sph = red + G * SLOTS * C;    // [P][5]
 
-  float R[DOF + 1][9];
-  float t[DOF + 1][3];
-  fk_chain<DOF, CRAIG>(q + cfg * DOF, robot, R, t);
+  const int tid = threadIdx.x;
+  const long long tile0 = (long long)blockIdx.x * C;
+  for (int i = tid; i < 5 * P; i += THREADS) sph[i] = spheres[i];
+  if (tid < C && tile0 + tid < T)
+    fk_chain_to_shared<DOF, CRAIG>(q + (tile0 + tid) * DOF, robot, frames + tid, C);
+  __syncthreads();
+
+  const int c = tid % C, grp = tid / C;
+  const long long cfg = tile0 + c;
+  const bool live = cfg < T;
+  const float* fr = frames + c;
+  const float* sig = sigma + (live ? cfg / K : 0) * P;
 
   float acc = 0.f;
   float dq[DOF];
 #pragma unroll
   for (int j = 0; j < DOF; ++j) dq[j] = 0.f;
 
-  for (int sp = lane; sp < P; sp += 32) {
-    const float* s = spheres + 5 * sp;
-    const float rad = s[4];
-    float x, y, z;
-    const int f = sphere_centre<DOF>(s, R, t, x, y, z);
-    const long long idx =
-        flat_index(x - g.bx, y - g.by, z - g.bz, g.ox, g.oy, g.oz, g.delta, g.nx, g.ny, g.nz);
-    const uint2 w = __ldg(words + idx);
-    const float dist = unpack_hi(w.x);
-    const float c = fmaxf(eps - (dist - rad), 0.f);
-    const float sig = sigma[row * P + sp];
-    acc += c * c / sig;
-    if (GRAD && c > 0.f) {
-      const float k = c / sig;
-      const float gx = k * unpack_lo(w.x), gy = k * unpack_hi(w.y), gz = k * unpack_lo(w.y);
+  for (int base = grp; base < P; base += G * NI) {
+    uint2 w[NI];
+    float sg[NI];
 #pragma unroll
-      for (int j = 0; j < DOF; ++j) {
-        if (j < f) {  // joint j moves frames j+1.. (both DH conventions)
-          const int ax = CRAIG ? j + 1 : j;  // frame whose z axis joint j turns about
-          const float rx = x - t[ax][0], ry = y - t[ax][1], rz = z - t[ax][2];
-          const float mx = ry * gz - rz * gy, my = rz * gx - rx * gz, mz = rx * gy - ry * gx;
-          dq[j] += R[ax][2] * mx + R[ax][5] * my + R[ax][8] * mz;
+    for (int i = 0; i < NI; ++i) {
+      const int sp = base + G * i;
+      if (live && sp < P) {
+        const float* s = sph + 5 * sp;
+        float x, y, z;
+        sphere_centre_shared(fr, C, (int)s[0], s[1], s[2], s[3], x, y, z);
+        const long long idx =
+            flat_index(x - g.bx, y - g.by, z - g.bz, g.ox, g.oy, g.oz, g.delta, g.nx, g.ny, g.nz);
+        w[i] = __ldg(words + idx);
+        sg[i] = __ldg(sig + sp);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int sp = base + G * i;
+      if (live && sp < P) {
+        const float* s = sph + 5 * sp;
+        const float dist = unpack_hi(w[i].x);
+        const float h = fmaxf(eps - (dist - s[4]), 0.f);
+        acc += h * h / sg[i];
+        if (GRAD && h > 0.f) {
+          const int f = (int)s[0];
+          float x, y, z;
+          sphere_centre_shared(fr, C, f, s[1], s[2], s[3], x, y, z);
+          const float k = h / sg[i];
+          const float gx = k * unpack_lo(w[i].x), gy = k * unpack_hi(w[i].y),
+                      gz = k * unpack_lo(w[i].y);
+#pragma unroll
+          for (int j = 0; j < DOF; ++j) {
+            if (j < f) {  // joint j moves frames j+1.. (both DH conventions)
+              // frame whose z axis joint j turns about
+              const float* A = fr + FK_FRAME * (CRAIG ? j + 1 : j) * C;
+              const float rx = x - A[9 * C], ry = y - A[10 * C], rz = z - A[11 * C];
+              const float mx = ry * gz - rz * gy, my = rz * gx - rx * gz, mz = rx * gy - ry * gx;
+              dq[j] += A[2 * C] * mx + A[5 * C] * my + A[8 * C] * mz;
+            }
+          }
         }
       }
     }
   }
+
+  red[(grp * SLOTS) * C + c] = acc;
+  if (GRAD) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(FULL, acc, off);
-    if (GRAD) {
-#pragma unroll
-      for (int j = 0; j < DOF; ++j) dq[j] += __shfl_xor_sync(FULL, dq[j], off);
-    }
+    for (int j = 0; j < DOF; ++j) red[(grp * SLOTS + 1 + j) * C + c] = dq[j];
   }
-  if (lane == 0) {
-    lik[cfg] = -0.5f * acc;
-    if (GRAD) {
+  __syncthreads();
+  if (tid < C && tile0 + tid < T) {
+    float s = 0.f;
 #pragma unroll
-      for (int j = 0; j < DOF; ++j) dlik[cfg * DOF + j] = dq[j];
+    for (int k = 0; k < G; ++k) s += red[(k * SLOTS) * C + tid];
+    lik[tile0 + tid] = -0.5f * s;
+  }
+  if (GRAD) {
+    for (int e = tid; e < C * DOF; e += THREADS) {
+      const int cc = e / DOF, j = e % DOF;
+      if (tile0 + cc < T) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < G; ++k) s += red[(k * SLOTS + 1 + j) * C + cc];
+        dlik[tile0 * DOF + e] = s;
+      }
     }
   }
 }
 
 template <int DOF, bool CRAIG>
-cudaError_t launch_dof(bool grad, dim3 grid, dim3 block, cudaStream_t st, const float* q,
-                       const float* sigma, const float* robot, const float* spheres,
-                       const uint2* words, float* lik, float* dlik, long long T, long long K,
-                       int P, K1Grid g, float eps) {
+cudaError_t launch_tile(bool grad, cudaStream_t st, const float* q, const float* sigma,
+                        const float* robot, const float* spheres, const uint2* words, float* lik,
+                        float* dlik, long long T, long long K, int P, K1Grid g, float eps) {
+  const size_t smem =
+      sizeof(float) * ((size_t)FK_FRAME * (DOF + 1) * C + (size_t)(THREADS / C) * 8 * C + 5 * (size_t)P);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;  // more spheres than the tile has room for
+  const dim3 grid((unsigned)((T + C - 1) / C)), block(THREADS);
   if (grad)
-    loglik_kernel<DOF, CRAIG, true><<<grid, block, 0, st>>>(q, sigma, robot, spheres, words, lik,
-                                                            dlik, T, K, P, g, eps);
+    loglik_tile_kernel<DOF, CRAIG, true>
+        <<<grid, block, smem, st>>>(q, sigma, robot, spheres, words, lik, dlik, T, K, P, g, eps);
   else
-    loglik_kernel<DOF, CRAIG, false><<<grid, block, 0, st>>>(q, sigma, robot, spheres, words, lik,
-                                                             dlik, T, K, P, g, eps);
+    loglik_tile_kernel<DOF, CRAIG, false>
+        <<<grid, block, smem, st>>>(q, sigma, robot, spheres, words, lik, dlik, T, K, P, g, eps);
   return cudaGetLastError();
 }
 
@@ -135,17 +195,14 @@ cudaError_t k1_loglik_launch(const float* q, const float* sigma, const float* ro
                              int64_t T, int64_t K, int P, int dof, bool craig, bool grad,
                              K1Grid g, float eps, cudaStream_t st) {
   if (T == 0) return cudaSuccess;
-  const int warps = 8;
-  const dim3 block(32 * warps);
-  const dim3 grid((unsigned)((T + warps - 1) / warps));
   const uint2* w = (const uint2*)words;
   if (dof == 7 && craig)
-    return launch_dof<7, true>(grad, grid, block, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
+    return launch_tile<7, true>(grad, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
   if (dof == 7)
-    return launch_dof<7, false>(grad, grid, block, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
+    return launch_tile<7, false>(grad, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
   if (dof == 6 && craig)
-    return launch_dof<6, true>(grad, grid, block, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
+    return launch_tile<6, true>(grad, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
   if (dof == 6)
-    return launch_dof<6, false>(grad, grid, block, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
+    return launch_tile<6, false>(grad, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
   return cudaErrorInvalidValue;
 }

@@ -27,6 +27,16 @@ cudaError_t k2_chol_launch(const double* A, double* L, int64_t T, int n, cudaStr
 cudaError_t k2_trsm_launch(const double* L, const double* B, double* X, int64_t T, int n, int k,
                            bool upper_t, cudaStream_t stream);
 
+// The fused pair: L = chol(K) and X = L^-1 B in one launch, and its backward
+// in one launch: given dL and dX it writes dB = L^-T dX and dK, the gradient
+// of the symmetric K folded onto the lower triangle (the factorisation reads
+// only that triangle). K, L, gL, gK [T, n, n]; B, X, gX, gB [T, n, k].
+cudaError_t k2_factor_solve_launch(const double* K, const double* B, double* L, double* X,
+                                   int64_t T, int n, int k, cudaStream_t stream);
+cudaError_t k2_factor_solve_bwd_launch(const double* L, const double* X, const double* gL,
+                                       const double* gX, double* gK, double* gB, int64_t T, int n,
+                                       int k, cudaStream_t stream);
+
 // K3 (k3_clearance.cu). q [T, dof] f32; robot and spheres as K1; sdf
 // [nx, ny, nz] f32 with every size >= 2; out [T], the minimum over spheres of
 // the trilinear clearance. dof is 6 or 7.

@@ -9,7 +9,7 @@ import torch
 
 from vgpmp_torch.ops import linalg
 
-__all__ = ["gauss_kl_white", "prior_kl"]
+__all__ = ["gauss_kl_white", "prior_kl", "prior_kl_whitened"]
 
 
 def gauss_kl_white(q_mu: torch.Tensor, q_sqrt: torch.Tensor) -> torch.Tensor:
@@ -40,3 +40,17 @@ def prior_kl(kuu: torch.Tensor, chol_kuu: torch.Tensor, q_mu: torch.Tensor,
     diff = q_mu_full.transpose(-1, -2)[..., None] - p_mu  # [..., L, Mc, 1]
     whitened = linalg.solve_lower(chol_kuu, diff)[..., C:, 0].transpose(-1, -2)  # [..., M, L]
     return gauss_kl_white(whitened, q_sqrt)
+
+
+def prior_kl_whitened(m_w: torch.Tensor, q_sqrt: torch.Tensor) -> torch.Tensor:
+    """:func:`prior_kl` from the whitened full mean ``m_w = L⁻¹ q_mu_fullᵀ
+    [..., L, Mc, 1]`` with ``q_mu_full = [query_states; q_mu]``.
+
+    With ``Kuu = LLᵀ``, ``L⁻¹ Kuu[:, :C] = Lᵀ[:, :C]``, whose rows below ``C``
+    are zero, so ``L⁻¹ p_mu`` vanishes below row ``C`` and the whitened
+    difference of :func:`prior_kl` is rows ``C:`` of ``m_w``. ``q_mu_full``
+    does not depend on the factor, so it can be solved beside every other
+    right-hand side that shares it.
+    """
+    C = m_w.shape[-2] - q_sqrt.shape[-1]
+    return gauss_kl_white(m_w[..., C:, 0].transpose(-1, -2), q_sqrt)

@@ -21,7 +21,8 @@ import torch
 from vgpmp_torch.gp.conditioned import zy as zy_fn
 from vgpmp_torch.ops import linalg
 
-__all__ = ["PathNoise", "PathState", "student_t", "whitened_scale", "draw_paths", "eval_paths"]
+__all__ = ["PathNoise", "PathState", "student_t", "whitened_scale", "draw_paths", "eval_paths",
+           "draw_and_eval_paths"]
 
 TWO_PI = 6.283185307179586
 
@@ -104,6 +105,53 @@ def draw_noise(batch: tuple, L: int, Mc: int, num_samples: int, num_bases: int, 
     return PathNoise(t=t, phase=phase, w=normal((L, num_bases)), eps=normal((L, Mc)))
 
 
+class _Draw(NamedTuple):
+    """What :func:`draw_paths` knows before its solve."""
+
+    omega: torch.Tensor
+    noise: PathNoise
+    rff_scale: torch.Tensor
+    rhs: torch.Tensor  # [..., L, Mc, S], island dtype: the solve's right-hand side
+
+
+def _draw_rhs(ny, Z, lengthscales, variance, Mc: int, solve_dtype, q_mu_full, q_sqrt,
+              num_samples: int, num_bases: int, df: float, jitter: float, kernel: str,
+              antithetic: bool, generator, noise) -> _Draw:
+    L = Z.shape[-1]
+    bulk = Z.dtype
+    if noise is None:
+        noise = draw_noise(tuple(Z.shape[:-2]), L, Mc, num_samples, num_bases, bulk, Z.device,
+                           generator, kernel, antithetic, df)
+    omega = noise.t / lengthscales[..., None]
+    rff_scale = torch.sqrt(2.0 * variance[..., None] / num_bases).to(bulk)
+
+    zy_ = zy_fn(ny, Z).to(bulk)
+    phi_z = _rff_features(zy_, omega, noise.phase) * rff_scale[..., None]
+    f_prior_z = torch.einsum("...lmb,...slb->...slm", phi_z, noise.w)  # [..., S, L, Mc]
+
+    C = Mc - q_sqrt.shape[-1]
+    cond_rows = (torch.arange(Mc, device=Z.device) < C).to(bulk)
+    rhs = (
+        q_mu_full.transpose(-1, -2)[..., None].to(bulk)
+        - f_prior_z.movedim(-3, -1)
+        + jitter * (noise.eps * cond_rows).movedim(-3, -1)
+    )  # [..., L, Mc, S]
+    return _Draw(omega=omega, noise=noise, rff_scale=rff_scale, rhs=rhs.to(solve_dtype))
+
+
+def _draw_state(d: _Draw, a_solve: torch.Tensor, chol_kuu: torch.Tensor, q_sqrt) -> PathState:
+    """The drawn paths from ``a_solve = L⁻¹ rhs [..., L, Mc, S]``."""
+    bulk = d.omega.dtype
+    eps = d.noise.eps
+    C = chol_kuu.shape[-1] - q_sqrt.shape[-1]
+    pad_eps = torch.einsum("...lmn,...sln->...slm", torch.tril(q_sqrt).to(bulk), eps[..., C:])
+    pad_eps = torch.cat([torch.zeros(pad_eps.shape[:-1] + (C,), dtype=bulk, device=eps.device),
+                         pad_eps], dim=-1)
+    a = a_solve.movedim(-1, -3).to(bulk) + pad_eps  # [..., S, L, Mc]
+    return PathState(omega=d.omega, phase=d.noise.phase, w=d.noise.w, a=a,
+                     rff_scale=d.rff_scale, chol=chol_kuu)
+
+
 def draw_paths(ny, Z, lengthscales, variance, chol_kuu, q_mu_full, q_sqrt, num_samples: int,
                num_bases: int, df: float = 5.0, jitter: float = 1e-6, kernel: str = "matern52",
                antithetic: bool = False, generator: Optional[torch.Generator] = None,
@@ -114,44 +162,46 @@ def draw_paths(ny, Z, lengthscales, variance, chol_kuu, q_mu_full, q_sqrt, num_s
     ``chol_kuu [..., L, Mc, Mc]``, ``q_mu_full [..., Mc, L]``,
     ``q_sqrt [..., L, M, M]``. ``noise`` replaces the generator's draws.
     """
-    L = Z.shape[-1]
-    Mc = chol_kuu.shape[-1]
-    bulk = Z.dtype
-    solve = chol_kuu.dtype
-    batch = tuple(Z.shape[:-2])
-    if noise is None:
-        noise = draw_noise(batch, L, Mc, num_samples, num_bases, bulk, Z.device, generator,
-                           kernel, antithetic, df)
-    omega = noise.t / lengthscales[..., None]
-    phase, w, eps = noise.phase, noise.w, noise.eps
-    rff_scale = torch.sqrt(2.0 * variance[..., None] / num_bases).to(bulk)
+    d = _draw_rhs(ny, Z, lengthscales, variance, chol_kuu.shape[-1], chol_kuu.dtype, q_mu_full,
+                  q_sqrt, num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise)
+    return _draw_state(d, linalg.solve_lower(chol_kuu, d.rhs), chol_kuu, q_sqrt)
 
-    zy_ = zy_fn(ny, Z).to(bulk)
-    phi_z = _rff_features(zy_, omega, phase) * rff_scale[..., None]
-    f_prior_z = torch.einsum("...lmb,...slb->...slm", phi_z, w)  # [..., S, L, Mc]
 
-    C = Mc - q_sqrt.shape[-1]
-    cond_rows = (torch.arange(Mc, device=Z.device) < C).to(bulk)
-    rhs = (
-        q_mu_full.transpose(-1, -2)[..., None].to(bulk)
-        - f_prior_z.movedim(-3, -1)
-        + jitter * (eps * cond_rows).movedim(-3, -1)
-    )  # [..., L, Mc, S]
-    a_solve = linalg.solve_lower(chol_kuu, rhs.to(solve))
-    pad_eps = torch.einsum("...lmn,...sln->...slm", torch.tril(q_sqrt).to(bulk), eps[..., C:])
-    pad_eps = torch.cat([torch.zeros(pad_eps.shape[:-1] + (C,), dtype=bulk, device=Z.device),
-                         pad_eps], dim=-1)
-    a = a_solve.movedim(-1, -3).to(bulk) + pad_eps  # [..., S, L, Mc]
-    return PathState(omega=omega, phase=phase, w=w, a=a, rff_scale=rff_scale, chol=chol_kuu)
+def _eval_whitened(state: PathState, A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """:func:`eval_paths` from ``A = L⁻¹ kuf [..., L, Mc, N]``."""
+    bulk = state.omega.dtype
+    Xb = X.to(bulk).expand(state.omega.shape[:-1] + (X.shape[0],))
+    phi_x = _rff_features(Xb, state.omega, state.phase) * state.rff_scale[..., None]
+    f_prior = torch.einsum("...lnb,...slb->...sln", phi_x, state.w)
+    update = torch.einsum("...lmn,...slm->...sln", A.to(bulk), state.a)
+    return (f_prior + update).transpose(-1, -2)
 
 
 def eval_paths(state: PathState, kuf: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Evaluate drawn paths on the grid ``X [N]``: ``kuf [..., L, Mc, N]`` ->
     latent samples ``[..., S, N, L]``."""
-    bulk = state.omega.dtype
-    Xb = X.to(bulk).expand(state.omega.shape[:-1] + (X.shape[0],))
-    phi_x = _rff_features(Xb, state.omega, state.phase) * state.rff_scale[..., None]
-    f_prior = torch.einsum("...lnb,...slb->...sln", phi_x, state.w)
-    A = linalg.solve_lower(state.chol, kuf.to(state.chol.dtype))
-    update = torch.einsum("...lmn,...slm->...sln", A.to(bulk), state.a)
-    return (f_prior + update).transpose(-1, -2)
+    return _eval_whitened(state, linalg.solve_lower(state.chol, kuf.to(state.chol.dtype)), X)
+
+
+def draw_and_eval_paths(ny, Z, lengthscales, variance, kuu, kuf, X, q_mu_full, q_sqrt,
+                        num_samples: int, num_bases: int, df: float = 5.0, jitter: float = 1e-6,
+                        kernel: str = "matern52", antithetic: bool = False,
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[PathNoise] = None):
+    """:func:`draw_paths` and :func:`eval_paths` from the Gram ``kuu
+    [..., L, Mc, Mc]`` itself: the draw's right-hand side, ``kuf`` and the
+    variational mean ``q_mu_full`` share the factor and depend on neither it
+    nor each other, so they go through one
+    :func:`vgpmp_torch.ops.linalg.factor_solve` side by side. Columns are
+    solved independently, so the result is that of the separate calls.
+
+    Returns ``(chol(kuu), PathState, latent samples [..., S, N, L], whitened
+    mean L⁻¹ q_mu_fullᵀ [..., L, Mc, 1])``.
+    """
+    d = _draw_rhs(ny, Z, lengthscales, variance, kuu.shape[-1], kuu.dtype, q_mu_full, q_sqrt,
+                  num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise)
+    mean = q_mu_full.transpose(-1, -2)[..., None].to(kuu.dtype)
+    chol_kuu, sol = linalg.factor_solve(kuu, torch.cat([d.rhs, kuf.to(kuu.dtype), mean], dim=-1))
+    a_solve, A, m_w = torch.split(sol, [d.rhs.shape[-1], kuf.shape[-1], 1], dim=-1)
+    state = _draw_state(d, a_solve, chol_kuu, q_sqrt)
+    return chol_kuu, state, _eval_whitened(state, A, X), m_w

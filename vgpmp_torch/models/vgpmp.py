@@ -16,6 +16,7 @@ from vgpmp_torch.gp import conditioned, kl, pathwise, posterior
 from vgpmp_torch.gp.pathwise import PathNoise
 from vgpmp_torch.likelihoods.collision import CollisionModel, joint_sigmoid, joint_sigmoid_inverse
 from vgpmp_torch.ops import kernels as kernel_ops
+from vgpmp_torch.ops import linalg
 from vgpmp_torch.ops import transforms as tf_ops
 from vgpmp_torch.ops.transforms import (
     ALPHA_LOWER, SIGMA_OBS_LOWER, VARIANCE_LOWER, Z_HIGH, Z_LOW,
@@ -168,24 +169,38 @@ def _kuf(model: PlannerModel, c: dict, X: torch.Tensor) -> torch.Tensor:
                            c["lengthscales"], c["variance"], solve_dtype=model.solve_dtype)
 
 
+def _draw_eval(model: PlannerModel, c: dict, q_mu_full, Kuf, X, num_samples, generator, noise,
+               antithetic: bool = False):
+    """``(chol, escalation count [B], latent samples [B, S, N, L], whitened
+    mean L⁻¹ q_mu_fullᵀ [B, L, Mc, 1])`` on the grid ``X`` with ``Kuf =
+    _kuf(model, c, X)``. Without jitter escalation the factorisation and every
+    solve that shares it (the draw, ``Kuf``, the variational mean for the KL)
+    are one fused call; with it the factor may be replaced per row after the
+    first attempt, so the calls stay apart."""
+    draw = dict(num_samples=num_samples, num_bases=model.num_bases, jitter=model.jitter,
+                kernel=model.kernel, antithetic=antithetic, generator=generator, noise=noise)
+    if model.jitter_escalations == 0:
+        Kuu = conditioned.kuu(kernel_ops.KERNELS[model.kernel], model.ny, c["Z"], c["lengthscales"],
+                              c["variance"], jitter=model.jitter, solve_dtype=model.solve_dtype)
+        chol, _, f, m_w = pathwise.draw_and_eval_paths(
+            model.ny, c["Z"], c["lengthscales"], c["variance"], Kuu, Kuf, X, q_mu_full, c["q_sqrt"],
+            **draw)
+        return chol, torch.zeros(Kuu.shape[:-3], dtype=torch.int32, device=Kuu.device), f, m_w
+    _, chol, esc = _gram(model, c, with_info=True)
+    state = pathwise.draw_paths(model.ny, c["Z"], c["lengthscales"], c["variance"], chol, q_mu_full,
+                                c["q_sqrt"], **draw)
+    m_w = linalg.solve_lower(chol, q_mu_full.transpose(-1, -2)[..., None].to(chol.dtype))
+    return chol, esc, pathwise.eval_paths(state, Kuf, X), m_w
+
+
 def _sample_configs(params, model, start, goal, X, num_samples, generator, noise, antithetic):
     c = constrain(params, model.variance_lower)
     q_lat = query_latent(model, start, goal)
-    Kuu, chol, esc = _gram(model, c, with_info=True)
     q_mu_full = torch.cat([q_lat, c["q_mu"]], dim=-2)
-    state = pathwise.draw_paths(
-        model.ny, c["Z"], c["lengthscales"], c["variance"], chol, q_mu_full, c["q_sqrt"],
-        num_samples, model.num_bases, jitter=model.jitter, kernel=model.kernel,
-        antithetic=antithetic, generator=generator, noise=noise,
-    )
-    f = pathwise.eval_paths(state, _kuf(model, c, X), X)  # [B, S, N, L]
-    g = joint_sigmoid(f, model.limits_low, model.limits_high)
-    return c, q_lat, Kuu, chol, esc, g
-
-
-def _kl(c, Kuu, chol, q_lat):
-    sd = chol.dtype
-    return kl.prior_kl(Kuu, chol, c["q_mu"].to(sd), c["q_sqrt"].to(sd), q_lat.to(sd))
+    chol, esc, f, m_w = _draw_eval(model, c, q_mu_full, _kuf(model, c, X), X, num_samples,
+                                   generator, noise, antithetic)
+    g = joint_sigmoid(f, model.limits_low, model.limits_high)  # [B, S, N, L]
+    return c, kl.prior_kl_whitened(m_w, c["q_sqrt"].to(chol.dtype)), esc, g
 
 
 def elbo(params: PlannerParams, model: PlannerModel, start: torch.Tensor, goal: torch.Tensor,
@@ -197,11 +212,11 @@ def elbo(params: PlannerParams, model: PlannerModel, start: torch.Tensor, goal: 
     ``generator`` unless ``noise`` gives them. ``sigma_scale`` multiplies
     σ_obs (the solver's annealing factor; 1.0 is the exact objective).
     """
-    c, q_lat, Kuu, chol, _, g = _sample_configs(params, model, start, goal, X, model.num_samples,
-                                                generator, noise, model.antithetic)
+    c, kl_term, _, g = _sample_configs(params, model, start, goal, X, model.num_samples,
+                                       generator, noise, model.antithetic)
     lik = model.collision.log_prob(g, c["sigma_obs"] * sigma_scale)  # [B, S, N]
     lik_sum = lik.mean(dim=1).sum(dim=-1)
-    return lik_sum * c["alpha"] - _kl(c, Kuu, chol, q_lat).to(lik.dtype)
+    return lik_sum * c["alpha"] - kl_term.to(lik.dtype)
 
 
 def elbo_with_aux(params: PlannerParams, model: PlannerModel, start, goal, X,
@@ -209,14 +224,14 @@ def elbo_with_aux(params: PlannerParams, model: PlannerModel, start, goal, X,
                   sigma_scale: float = 1.0):
     """ELBO plus per-problem metrics: KL, expected log-likelihood, min
     clearance, mean hinge cost and the jitter-escalation count."""
-    c, q_lat, Kuu, chol, esc, g = _sample_configs(params, model, start, goal, X, model.num_samples,
-                                                  generator, noise, model.antithetic)
+    c, kl_term, esc, g = _sample_configs(params, model, start, goal, X, model.num_samples,
+                                         generator, noise, model.antithetic)
     clearance = model.collision.sphere_clearance(g)  # [B, S, N, P]
     cost = torch.clamp(model.collision.epsilon - clearance, min=0.0)
     sigma = (c["sigma_obs"] * sigma_scale)[:, None, None, :]
     lik = -0.5 * (cost * cost / sigma).sum(dim=-1)
     lik_total = lik.mean(dim=1).sum(dim=-1)
-    kl_term = _kl(c, Kuu, chol, q_lat).to(lik.dtype)
+    kl_term = kl_term.to(lik.dtype)
     value = lik_total * c["alpha"] - kl_term
     aux = {
         "kl": kl_term,
@@ -240,21 +255,16 @@ def sample_from_posterior(params: PlannerParams, model: PlannerModel, start, goa
     """
     c = constrain(params, model.variance_lower)
     q_lat = query_latent(model, start, goal)
-    _, chol = _gram(model, c)
     q_mu_full = torch.cat([q_lat, c["q_mu"]], dim=-2)
     Kuf = _kuf(model, c, Xnew)
+    chol, _, f, _ = _draw_eval(model, c, q_mu_full, Kuf, Xnew, num_samples, generator, noise)
     sd = chol.dtype
     kff = c["variance"].to(sd)[..., None].expand(Kuf.shape[:-2] + Kuf.shape[-1:])
     mean_lat, _ = posterior.predict_f(chol, Kuf, kff, q_mu_full.to(sd), c["q_sqrt"].to(sd),
                                       jitter=model.jitter)
     mean = joint_sigmoid(mean_lat.to(q_lat.dtype), model.limits_low, model.limits_high)
 
-    state = pathwise.draw_paths(
-        model.ny, c["Z"], c["lengthscales"], c["variance"], chol, q_mu_full, c["q_sqrt"],
-        num_samples, model.num_bases, jitter=model.jitter, kernel=model.kernel,
-        generator=generator, noise=noise,
-    )
-    samples = joint_sigmoid(pathwise.eval_paths(state, Kuf, Xnew), model.limits_low, model.limits_high)
+    samples = joint_sigmoid(f, model.limits_low, model.limits_high)
     scores = torch.cat([
         model.collision.log_prob(samples[:, i:i + chunk], c["sigma_obs"]).sum(dim=-1)
         for i in range(0, num_samples, chunk)

@@ -7,10 +7,16 @@ functions do, keeping their NaN-in, NaN-out behaviour on non-SPD input: a
 negative pivot gives NaN through ``sqrt`` and is never clamped.
 
 On a CUDA tensor the entry points (:func:`chol`, :func:`solve_lower`,
-:func:`solve_upper_T`, :func:`cho_solve`) run kernel K2
+:func:`solve_upper_T`, :func:`cho_solve`, :func:`factor_solve`) run kernel K2
 (``csrc/k2_linalg.cu``) through ``torch.autograd.Function``s whose backward
-passes call the same kernels; on a CPU tensor they run the plain versions.
+passes are K2 launches too; on a CPU tensor they run the plain versions.
 K2 takes float64 and ``n <= 32``; anything else on CUDA raises.
+
+:func:`factor_solve` is the fused pair: the factorisation and the forward
+substitution of every right-hand side that shares the factor in one launch
+(``k2_factor_solve``), and the whole backward pass of both in one more
+(``k2_factor_solve_bwd``), where :func:`chol` followed by :func:`solve_lower`
+takes two launches forward and three backward.
 """
 
 from __future__ import annotations
@@ -22,8 +28,9 @@ from vgpmp_torch import _build
 __all__ = [
     "MAX_UNROLL", "KERNEL_MAX_N",
     "cholesky_unrolled", "solve_lower_unrolled", "solve_upper_T_unrolled",
-    "cho_solve_unrolled", "k2_chol", "k2_trsm",
-    "chol", "solve_lower", "solve_upper_T", "cho_solve",
+    "cho_solve_unrolled", "factor_solve_plain", "factor_solve_bwd_plain",
+    "k2_chol", "k2_trsm", "k2_factor_solve", "k2_factor_solve_bwd",
+    "chol", "solve_lower", "solve_upper_T", "cho_solve", "factor_solve",
 ]
 
 MAX_UNROLL = 40   # plain path: unrolled up to here, torch.linalg beyond (CPU only)
@@ -77,6 +84,34 @@ def cho_solve_unrolled(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return solve_upper_T_unrolled(L, solve_lower_unrolled(L, B))
 
 
+def factor_solve_plain(K: torch.Tensor, B: torch.Tensor):
+    """Plain version of ``k2_factor_solve``: ``(L, L⁻¹B)`` for ``K = LLᵀ``."""
+    L = cholesky_unrolled(K)
+    return L, solve_lower_unrolled(L, B)
+
+
+def _fold_lower(S: torch.Tensor) -> torch.Tensor:
+    """The gradient ``S`` of a symmetric matrix, folded onto the lower triangle:
+    the unrolled factorisation reads only that triangle."""
+    return torch.tril(S + S.mT) - torch.diag_embed(torch.diagonal(S, dim1=-2, dim2=-1))
+
+
+def factor_solve_bwd_plain(L: torch.Tensor, X: torch.Tensor, gL: torch.Tensor, gX: torch.Tensor):
+    """Plain version of ``k2_factor_solve_bwd``: the gradients ``(K̄, B̄)`` of
+    ``(L, X) = factor_solve_plain(K, B)`` from ``(L̄, X̄)``.
+
+    ``B̄ = L⁻ᵀX̄``; the solve adds ``−tril(B̄Xᵀ)`` to ``L̄``; then
+    ``K̄ = L⁻ᵀ Φ L⁻¹`` with ``Φ`` the symmetrised lower triangle of ``LᵀL̄``
+    (diagonal halved), folded onto the lower triangle.
+    """
+    gB = solve_upper_T_unrolled(L, gX)
+    G = torch.tril(gL) - torch.tril(gB @ X.mT)
+    P = L.mT @ G
+    phi = 0.5 * (torch.tril(P) + torch.tril(P, -1).mT)
+    S = solve_upper_T_unrolled(L, solve_upper_T_unrolled(L, phi).mT).mT  # L⁻ᵀ Φ L⁻¹
+    return _fold_lower(S), gB
+
+
 # ----------------------------------------------------------------- K2 wrappers
 
 
@@ -108,6 +143,45 @@ def k2_trsm(L: torch.Tensor, B: torch.Tensor, upper_t: bool) -> torch.Tensor:
 k2_trsm.launches = 0
 
 
+def k2_factor_solve(K: torch.Tensor, B: torch.Tensor):
+    """K2 fused pair, forward: ``K [T, n, n]``, ``B [T, n, k]`` float64 on CUDA,
+    ``n <= 32`` -> ``(L, X = L⁻¹B)`` in one launch."""
+    _require_cuda(K, "k2_factor_solve")
+    L, X = _build.load().k2_factor_solve(K, B)
+    k2_factor_solve.launches += 1
+    return L, X
+
+
+k2_factor_solve.launches = 0
+
+
+def k2_factor_solve_bwd(L: torch.Tensor, X: torch.Tensor, gL: torch.Tensor, gX: torch.Tensor):
+    """K2 fused pair, backward: ``(L, X, L̄, X̄) -> (K̄, B̄)`` in one launch, as
+    :func:`factor_solve_bwd_plain`."""
+    _require_cuda(L, "k2_factor_solve_bwd")
+    gK, gB = _build.load().k2_factor_solve_bwd(L, X, gL, gX)
+    k2_factor_solve_bwd.launches += 1
+    return gK, gB
+
+
+k2_factor_solve_bwd.launches = 0
+
+
+class _FactorSolveFn(torch.autograd.Function):
+    """The fused pair: one K2 launch forward, one backward."""
+
+    @staticmethod
+    def forward(ctx, K, B):
+        L, X = k2_factor_solve(K, B)
+        ctx.save_for_backward(L, X)
+        return L, X
+
+    @staticmethod
+    def backward(ctx, gL, gX):
+        L, X = ctx.saved_tensors
+        return k2_factor_solve_bwd(L, X, gL.contiguous(), gX.contiguous())
+
+
 class _CholFn(torch.autograd.Function):
     """K2 Cholesky with the Φ(LᵀL̄) backward (two K2 triangular solves)."""
 
@@ -124,9 +198,7 @@ class _CholFn(torch.autograd.Function):
         phi = 0.5 * (torch.tril(P) + torch.tril(P, -1).mT)
         Y = k2_trsm(L, phi.contiguous(), upper_t=True)                # L⁻ᵀ Φ
         S = k2_trsm(L, Y.mT.contiguous(), upper_t=True).mT            # L⁻ᵀ Φ L⁻¹
-        # the unrolled factorisation reads only the lower triangle, so its
-        # gradient is the symmetric one folded onto the lower triangle
-        return torch.tril(S + S.mT) - torch.diag_embed(torch.diagonal(S, dim1=-2, dim2=-1))
+        return _fold_lower(S)
 
 
 class _TrsmFn(torch.autograd.Function):
@@ -200,3 +272,18 @@ def solve_upper_T(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve ``(L Lᵀ) X = B`` given the lower Cholesky factor."""
     return solve_upper_T(L, solve_lower(L, B))
+
+
+def factor_solve(K: torch.Tensor, B: torch.Tensor):
+    """``(L, X)`` with ``K = LLᵀ`` and ``LX = B``: ``K [..., n, n]``,
+    ``B [..., n, k]`` with the same leading axes. On CUDA one fused K2 launch;
+    on the CPU :func:`chol` then :func:`solve_lower`."""
+    if K.is_cuda:
+        n = _cuda_n(K, "factor_solve")
+        if B.shape[:-1] != K.shape[:-1]:
+            raise ValueError(f"factor_solve: B {tuple(B.shape)} does not match K {tuple(K.shape)}")
+        L, X = _FactorSolveFn.apply(K.reshape(-1, n, n).contiguous(),
+                                    B.reshape(-1, n, B.shape[-1]).contiguous())
+        return L.reshape(K.shape), X.reshape(B.shape)
+    L = chol(K)
+    return L, solve_lower(L, B)
