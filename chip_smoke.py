@@ -13,9 +13,11 @@ Phases, any failure exits non-zero before the result line:
     FK for K1; [252, 12, 12] Grams for K2's factorisation, solves and fused
     pair ([252, 12, 71] right-hand sides in a training step, [252, 12, 251]
     in the extraction); 36 x 6400 PD-path probes against
-    the real float32 grid for K3; the gather benchmark's tables for K4),
-    forward and backward where there is one, and time kernel, plain version,
-    library call and the bound;
+    the real float32 grid for K3, and for its fused entry (the floor compare
+    and the per-segment count) the same paths plus a row without motion, a
+    NaN row and two random rows; the gather benchmark's tables for K4, and
+    K4 at one point as the timer's floor), forward and backward where there
+    is one, and time kernel, plain version, library call and the bound;
 (c) the main path: ``PlanningSession("franka", "industrial")``, 36 queries,
     the full 200-step batched Adam solve with linear init and again with
     zeros init, then posterior extraction (150 samples x 100 times); a
@@ -24,11 +26,13 @@ Phases, any failure exits non-zero before the result line:
     small-input ELBO check against the CPU's plain path;
 (d) a ``torch.profiler`` window over a 20-step solve: device busy share,
     kernels by device time, host time per solver span, device launches and
-    K2 launches per Adam step (run last, after (f));
+    K2 launches per Adam step; and a second window over one
+    ``execute_and_validate`` of the round's best trajectories: device busy
+    ms, device launches, K3's device ms (run last, after (f));
 (e) the scored round: ``make_round_solver`` on the 36 queries at 200 steps
-    (solve, best sample, then ``execute_and_validate`` per row through K3),
-    with the verdicts held against the port's CPU plain path on the same
-    trajectories;
+    (solve, best sample, then ``execute_and_validate`` of every row: two K3
+    launches, the fused probe entry and the endpoints), with the verdicts
+    held against the port's CPU plain path on the same trajectories;
 (f) the gather benchmark ``tools/gather_bench_torch.py`` (K4).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
@@ -303,15 +307,42 @@ def k2_phase(torch, sess, flush):
     ], {"relative": worst, "absolute": worst_abs}
 
 
+def k3_bound(torch, model, q, extra_bytes: float, extra_flops: float):
+    """K3's bound at the configs ``q [n, L]``: the distinct 32-byte sectors (8
+    float32 cells) of the grid that the eight corners of every config's
+    spheres touch, plus q (read) and the minima (written) and ``extra_bytes``;
+    per config 7 DH compositions (~60 flops), per sphere its position (18),
+    the relative position and clamps (~20) and seven lerps (3 flops each),
+    plus ``extra_flops``. Returns (ms, "bytes" or "operations", sectors)."""
+    from vgpmp_torch.kinematics.dh import sphere_positions
+    from vgpmp_torch.sdf.grid import _flat, trilinear_cell
+
+    grid = model.scene.base
+    _, ny, nz = grid.shape
+    with torch.no_grad():
+        i0, _ = trilinear_cell(grid, sphere_positions(model.fk, q) - model.scene.base_offset)
+        flat = _flat(grid.shape, i0).reshape(-1)
+        corners = [dx * ny * nz + dy * nz + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+        sectors = torch.unique(torch.cat([torch.unique((flat + c) // 8) for c in corners])).numel()
+    n, L = q.shape
+    P = model.fk.sphere_radii.shape[0]
+    nbytes = sectors * 32 + n * L * 4 + n * 4 + extra_bytes
+    flops = n * (L * 60 + P * 60) + extra_flops
+    return (*bound_ms(nbytes, flops, F32_FLOPS), sectors)
+
+
 def k3_phase(torch, sess, flush):
     """K3 against ``min_clearance_eval_plain`` on the real float32 grid: the
     main path's 36 x 6400 PD-path probes (perturbed straight lines between the
     queries), plus as many configs uniform over the joint box so that many
-    spheres sit inside obstacles or outside the grid."""
-    from vgpmp_torch.kinematics.dh import sphere_positions
+    spheres sit inside obstacles or outside the grid. Then K3's fused entry
+    ``k3_probe_clearance`` against ``probe_clearance_plain`` on the probes of
+    the same paths plus a row without motion, a NaN row and two rows of
+    random waypoints (which surely collide)."""
+    from functools import partial
+
+    from vgpmp_torch import sim
     from vgpmp_torch.likelihoods import collision as col
-    from vgpmp_torch.sdf.grid import _flat, trilinear_cell
-    from vgpmp_torch.sim import pd_path_configs
     from vgpmp_torch.timing import time_ms
 
     model = sess.model.collision
@@ -324,7 +355,7 @@ def k3_phase(torch, sess, flush):
     traj = traj + 0.3 * torch.sin(torch.pi * w) * torch.randn((B, 1, L), generator=gen, device=dev)
     lo, hi = sess.model.limits_low, sess.model.limits_high
     traj = torch.minimum(torch.maximum(traj, lo), hi)
-    q_path = pd_path_configs(traj)[0].reshape(-1, L).contiguous()        # [36 * 6400, 7]
+    q_path = sim.pd_path_configs(traj)[0].reshape(-1, L).contiguous()    # [36 * 6400, 7]
     q_box = lo + (hi - lo) * torch.rand(q_path.shape, generator=gen, device=dev)
     q = torch.cat([q_path, q_box])
 
@@ -349,28 +380,72 @@ def k3_phase(torch, sess, flush):
 
     ms = time_ms(lambda: col.k3_min_clearance(model, q_path), flush=flush)
     plain_ms = time_ms(lambda: col.min_clearance_eval_plain(model, q_path), reps=5, flush=flush)
-    # bound: the distinct 32-byte sectors (8 float32 cells) of the grid that
-    # the eight corners of every probe's spheres touch, plus q and the output
-    grid = model.scene.base
-    _, ny, nz = grid.shape
-    with torch.no_grad():
-        i0, _ = trilinear_cell(grid, sphere_positions(model.fk, q_path) - model.scene.base_offset)
-        flat = _flat(grid.shape, i0).reshape(-1)
-        corners = [dx * ny * nz + dy * nz + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
-        sectors = torch.unique(torch.cat([torch.unique((flat + c) // 8) for c in corners])).numel()
-    Tq, P = q_path.shape[0], model.fk.sphere_radii.shape[0]
-    nbytes = sectors * 32 + Tq * L * 4 + Tq * 4
-    # per config: 7 DH compositions (~60 flops); per sphere: position (18),
-    # relative position and clamps (~20), seven lerps (3 flops each)
-    flops = Tq * (L * 60 + P * 60)
-    b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
-    log(f"K3 time at {Tq} configs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+    b_ms, b_by, sectors = k3_bound(torch, model, q_path, 0, 0)
+    log(f"K3 time at {q_path.shape[0]} configs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB)")
-    return {"name": "k3_min_clearance", "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
-            "replaces": "vgpmp_tpu/likelihoods/collision.py:59", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "negative_share": negative, "sectors": sectors, "configs_checked": q.shape[0],
-            "configs_timed": Tq}
+    k3 = {"name": "k3_min_clearance", "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
+          "replaces": "vgpmp_tpu/likelihoods/collision.py:59", "max_abs_err": err, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+          "negative_share": negative, "sectors": sectors, "configs_checked": q.shape[0],
+          "configs_timed": q_path.shape[0]}
+
+    # the fused entry on the round's shape: the 36 paths, a row without
+    # motion, a row that turns NaN half way, and two rows of random waypoints
+    rows = [traj, traj[:1, :1].expand(1, T, L), traj[1:2].clone(),
+            lo + (hi - lo) * torch.rand((2, T, L), generator=gen, device=dev)]
+    rows[2][0, T // 2:] = float("nan")
+    traj2 = torch.cat(rows)
+    B2 = traj2.shape[0]
+    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj2)
+    q_s = torch.cat([starts, traj2[B:, 0]])
+    q_g = torch.cat([goals, traj2[B:B + 1, -1], goals[1:2], traj2[B + 2:, -1]])
+    plain = partial(col.min_clearance_eval_plain, model)
+    depth_s, depth_g = torch.clamp(-plain(torch.cat([q_s, q_g])), min=0.0).split(B2)
+    radius, slack = 0.5, 5e-3
+    args = (q_s, q_g, depth_s, depth_g, visited[:, 0], seg_idx, T, radius, slack)
+    clear_k, count_k = col.k3_probe_clearance(model, qs, *args)
+    clear_p, count_p = sim.probe_clearance_plain(plain, qs, *args)
+    floor = sim._floor_from_depths(qs, q_s, q_g, depth_s, depth_g, radius, slack)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(clear_k), torch.isnan(clear_p)
+    ok = ~nan_p
+    perr = (clear_k[ok] - clear_p[ok]).abs().max().item()
+    # a probe within 1e-5 m of its floor may fall either way (K3's clearance
+    # is held to 1e-5 m); every other probe must count as the plain version
+    # counts it, so per segment far <= count <= far + near
+    near = visited & ((clear_p - floor).abs() <= 1e-5)
+    far = sim._segment_count(seg_idx, visited & (clear_p < floor) & ~near, T)
+    near_n = sim._segment_count(seg_idx, near, T)
+    differ = (count_k > 0) != (count_p > 0)
+    responsible = int(near_n[differ].sum())
+    log(f"K3 probe entry check: {qs.shape[0]} rows x {qs.shape[1]} probes, max |d clearance| {perr:.3e} m "
+        f"(<= 1e-5), NaN probes {int(nan_p.sum())} on both sides: {bool(torch.equal(nan_k, nan_p))}; "
+        f"violated probes {int(count_p.sum())} (plain) / {int(count_k.sum())} (kernel) in "
+        f"{int((count_p > 0).sum())} / {int((count_k > 0).sum())} segments; segment flags differ in "
+        f"{int(differ.sum())}, explained by {responsible} probes within 1e-5 m of their floor")
+    assert torch.equal(nan_k, nan_p) and nan_p[B + 1].any() and not nan_p[:B].any(), "K3 probe: NaN in, NaN out"
+    assert perr <= 1e-5, "K3 probe entry: clearance disagrees with the plain version"
+    assert ((far <= count_k) & (count_k <= far + near_n)).all(), "K3 probe entry: counts disagree"
+    assert bool((near_n[differ] > 0).all()), "K3 probe entry: a flag differs with no probe at its floor"
+    assert count_p.sum() > 0 and count_k[B].sum() == 0 and not visited[B].any(), "K3 probe check: cases"
+
+    pms = time_ms(lambda: col.k3_probe_clearance(model, qs, *args), flush=flush)
+    pplain_ms = time_ms(lambda: sim.probe_clearance_plain(plain, qs, *args), reps=5, flush=flush)
+    n = qs.shape[0] * qs.shape[1]
+    # beyond K3's bytes: the segment index (8 B) a probe read, the per-row
+    # inputs read, the counts written; about 20 operations a probe for the
+    # distances, the ramps and the compare
+    pb_ms, pb_by, psectors = k3_bound(torch, model, qs.reshape(-1, L), n * 8 + B2 * (2 * L + 3) * 4
+                                      + B2 * T * 4, n * 20)
+    log(f"K3 probe entry time at {n} probes: kernel {pms:.4f} ms, plain {pplain_ms:.4f} ms, "
+        f"bound {pb_ms:.4f} ms ({pb_by}: {psectors} sectors)")
+    k3p = {"name": "k3_probe_clearance", "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
+           "replaces": "vgpmp_tpu/engine/validator.py:211", "max_abs_err": perr, "ms": pms,
+           "plain_ms": pplain_ms, "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None,
+           "sectors": psectors, "probes": n, "violated_plain": int(count_p.sum()),
+           "violated_kernel": int(count_k.sum()), "segment_flags_differ": int(differ.sum()),
+           "probes_at_floor_responsible": responsible}
+    return k3, k3p
 
 
 def k4_phase(torch, sess, flush):
@@ -389,13 +464,25 @@ def k4_phase(torch, sess, flush):
                 f"equal {c['equal']}, kernel {c['k4_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
                 f"index_select {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
                 f"({c['sectors_touched']} sectors)")
+    # the timer's floor: K4 gathering one point, timed as every row is timed
+    # (a launch between two events after an L2 flush)
+    from vgpmp_torch.ops.gather import k4_gather
+    from vgpmp_torch.timing import time_ms
+
+    table = torch.arange(1024, dtype=torch.int32, device=sess.device)
+    one = torch.zeros(1, dtype=torch.int32, device=sess.device)
+    floor_ms = time_ms(lambda: k4_gather(table, one), reps=100, flush=flush)
+    log(f"timer floor: K4 at one point, {floor_ms:.4f} ms (a launch between two events, L2 flushed)")
+    log("K4 no slower than index_select in all six cases: "
+        f"{all(c['k4_ms'] <= c['library_ms'] for c in cases)}")
     # the row of the kernels line: what the Pallas kernel gathers (4-byte
     # entries) at its larger table; the other cases are in the record
     head = next(c for c in cases if c["entry_bytes"] == 4 and c["ncells"] == 1_048_576)
     return {"name": "k4_gather", "route": "cuda", "source": "vgpmp_torch/csrc/k4_gather.cu",
             "replaces": "tools/gather_bench.py:100", "max_abs_err": 0.0, "ms": head["k4_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "shape": [head["ncells"], head["npts"]], "cases": cases}
+            "library_ms": head["library_ms"], "shape": [head["ncells"], head["npts"]], "cases": cases,
+            "timer_floor_ms": floor_ms}
 
 
 def small_input_check(torch, sess, cpu):
@@ -615,7 +702,7 @@ def round_phase(torch, sess, cpu):
     plain path on the CPU session ``cpu`` (float32 on both)."""
     from vgpmp_torch.engine import solver
     from vgpmp_torch.engine.validator import execute_and_validate
-    from vgpmp_torch.likelihoods.collision import k1_loglik, k3_min_clearance
+    from vgpmp_torch.likelihoods.collision import k1_loglik, k3_min_clearance, k3_probe_clearance
     from vgpmp_torch.models import vgpmp as planner
     from vgpmp_torch.ops import linalg as la
 
@@ -625,7 +712,8 @@ def round_phase(torch, sess, cpu):
     solve = solver.make_round_solver(sess.model, cfg)
     params = planner.init_params_batch(sess.model, starts, goals, [0] * B, 0.5 * (starts + goals),
                                        pp["lengthscales"], pp["variance"], pp["sigma_obs"], pp["alpha"])
-    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd, k3_min_clearance)
+    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd, k3_min_clearance,
+                k3_probe_clearance)
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -683,9 +771,48 @@ def round_phase(torch, sess, cpu):
     assert min(agree.values()) >= B - 2, f"verdicts disagree with the CPU plain path: {agree}"
     assert clear_err <= 1e-4, f"min_clearance disagrees with the CPU plain path: {clear_err}"
     assert all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}"
-    return {"round_s": t_round, "round_again_s": t_round2, "metric_s": min(t_metric), "metric_cpu_plain_s": t_cpu, "counts": counts,
+    # K3 per round: the probes with the floor compare fused in, and the [3B]
+    # endpoints (start, goal, first waypoint) in one launch
+    assert launches["k3_min_clearance"] == 1 and launches["k3_probe_clearance"] == 1, launches
+    return best, {"round_s": t_round, "round_again_s": t_round2, "metric_s": min(t_metric), "metric_cpu_plain_s": t_cpu, "counts": counts,
             "min_clearance_smallest": clear.min().item(), "min_clearance_median": clear.median().item(),
             "agree_with_cpu": agree, "min_clearance_max_err_vs_cpu": clear_err, "launches": launches}
+
+
+def metric_profile_phase(torch, sess, best):
+    """A second ``torch.profiler`` window: one ``execute_and_validate`` of the
+    round's best trajectories at B = 36 (after the round's own calls warmed
+    it): device busy ms, device launches, K3's device ms, the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vgpmp_torch.engine.validator import execute_and_validate
+
+    m = sess.model
+    st = torch.as_tensor(sess.queries()[0], dtype=torch.float32, device=sess.device)
+    gl = torch.as_tensor(sess.queries()[1], dtype=torch.float32, device=sess.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            execute_and_validate(m.collision, best, st, gl, m.limits_low, m.limits_high)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    k3_us = sum(e.self_device_time_total for e in dev if "clearance_tile_kernel" in e.key)
+    launches = sum(e.count for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    rec = {"wall_s_profiled": wall, "device_busy_ms": busy_us / 1e3, "device_launches": launches,
+           "k3_device_ms": k3_us / 1e3,
+           "top_kernels": [{"name": e.key[:90], "count": e.count, "device_ms": e.self_device_time_total / 1e3}
+                           for e in top]}
+    log(f"(d) profile of one execute_and_validate, B={best.shape[0]}: wall {wall:.4f} s profiled, device busy "
+        f"{busy_us / 1e3:.3f} ms, {launches} device launches, K3 {k3_us / 1e3:.4f} ms of device time")
+    for t in rec["top_kernels"]:
+        log(f"  {t['device_ms']:9.4f} ms  x{t['count']:<6d} {t['name']}")
+    assert k3_us > 0, "the metric's profile shows no K3 launch"
+    return rec
 
 
 def gather_phase(torch):
@@ -739,7 +866,7 @@ def main() -> int:
     log("(b) kernels against their plain versions")
     k1 = k1_phase(torch, sess, flush)
     k2, k2_errs = k2_phase(torch, sess, flush)
-    k3 = k3_phase(torch, sess, flush)
+    k3, k3p = k3_phase(torch, sess, flush)
     k4 = k4_phase(torch, sess, flush)
     small = small_input_check(torch, sess, cpu)
     del flush
@@ -748,12 +875,13 @@ def main() -> int:
     summary, launches, t_ext, peak = main_path(torch, sess)
     escalating = escalation_phase(torch, sess)
 
-    scored = round_phase(torch, sess, cpu)
+    best, scored = round_phase(torch, sess, cpu)
     gather, k4["launches"] = gather_phase(torch)
 
     # the profile comes last: once a profiler has traced the process, its
     # kernel launches stay slower, which would inflate the round's seconds
     prof = profile_phase(torch, sess)
+    metric_prof = metric_profile_phase(torch, sess, best)
 
     k1["launches"] = launches["k1_loglik"]
     k2[0]["launches"] = escalating["launches"]["k2_chol"]
@@ -761,16 +889,18 @@ def main() -> int:
     k2[2]["launches"] = launches["k2_factor_solve"]
     k2[3]["launches"] = launches["k2_factor_solve_bwd"]
     k3["launches"] = scored["launches"]["k3_min_clearance"]
+    k3p["launches"] = scored["launches"]["k3_probe_clearance"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kernels = [{k: v for k, v in d.items() if k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")} for d in [k1, *k2, k3, k4]]
+        "bound_ms", "bound_by", "library_ms")} for d in [k1, *k2, k3, k3p, k4]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
-    record = {"card": smi, "build_s": secs, "kernels": [k1, *k2, k3, k4], "k2_errors": k2_errs,
+    record = {"card": smi, "build_s": secs, "kernels": [k1, *k2, k3, k3p, k4], "k2_errors": k2_errs,
               "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,
               "peak_memory_bytes": peak, "launches": launches, "profile": prof,
+              "metric_profile": metric_prof,
               "scored_round": scored, "gather_bench": gather,
               "total_s": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"

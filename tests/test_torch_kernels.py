@@ -1,4 +1,5 @@
-"""Kernels K1 to K4 against their plain PyTorch versions, on the card.
+"""Kernels K1 to K4 (K3 with both entries) against their plain PyTorch
+versions, on the card.
 
 These tests need an NVIDIA GPU and skip without one; they import no JAX, so
 they run on a machine that has only PyTorch and the CUDA toolkit:
@@ -54,6 +55,10 @@ def test_wrappers_refuse_cpu_tensors():
         la.k2_chol(torch.eye(3, dtype=torch.float64)[None])
     with pytest.raises(ValueError):
         col.k3_min_clearance(model, q)
+    with pytest.raises(ValueError):
+        col.k3_probe_clearance(model, q[None], q[:1], q[:1], torch.zeros(1), torch.zeros(1),
+                               torch.ones(1, dtype=torch.bool), torch.zeros(1, 4, dtype=torch.int64),
+                               3, 0.5, 5e-3)
     with pytest.raises(ValueError):
         la.k2_factor_solve(torch.eye(3, dtype=torch.float64)[None], torch.ones(1, 3, 2, dtype=torch.float64))
     # on the CPU the entry points take the plain versions
@@ -199,31 +204,84 @@ def test_k2_refuses_what_it_does_not_take(cuda_device):
         la.factor_solve(eye, torch.ones(1, 5, 2, dtype=torch.float64, device=cuda_device))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
-def test_k3_matches_plain_on_card(robot, cuda_device):
-    """K3 (float32) against the plain trilinear clearance on the same card, on
-    a grid smaller than the arm's reach so that sphere centres leave it on
-    every side. Trilinear interpolation is continuous and K3 differs from the
-    plain version by fused multiply-adds only: 1e-5 m absolute. A NaN config
-    gives NaN on both sides."""
+def _k3_model(robot, device):
+    """A float32 model on a grid smaller than the arm's reach, so that sphere
+    centres leave it on every side."""
     data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)
     sc = scene.Scene(base=sg.SdfGrid.from_arrays(data, np.array([-0.2, -0.3, 0.1]), 0.015,
-                                                 torch.float32, cuda_device),
-                     base_offset=torch.tensor([0.1, 0.0, -0.05], device=cuda_device))
+                                                 torch.float32, device),
+                     base_offset=torch.tensor([0.1, 0.0, -0.05], device=device))
     spec = robots.load_robot(robot)
-    model = col.CollisionModel(fk=dh.FkModel.from_spec(spec, np.eye(4), dtype=torch.float32,
-                                                       device=cuda_device), scene=sc, epsilon=0.05)
-    q = torch.as_tensor(_configs(spec, np.random.default_rng(3), (4, 2000)), dtype=torch.float32,
+    return spec, col.CollisionModel(fk=dh.FkModel.from_spec(spec, np.eye(4), dtype=torch.float32,
+                                                            device=device), scene=sc, epsilon=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 8000])
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k3_matches_plain_on_card(robot, n, cuda_device):
+    """K3 (float32) against the plain trilinear clearance on the same card, at
+    config counts that leave a ragged last tile of 32 (and one config alone).
+    Trilinear interpolation is continuous and K3 differs from the plain
+    version by fused multiply-adds only: 1e-5 m absolute. A NaN config gives
+    NaN on both sides."""
+    spec, model = _k3_model(robot, cuda_device)
+    q = torch.as_tensor(_configs(spec, np.random.default_rng(3), (n,)), dtype=torch.float32,
                         device=cuda_device)
-    q[0, :5, 2] = float("nan")
+    nans = min(5, n // 2)
+    q[:nans, 2] = float("nan")
+    before = col.k3_min_clearance.launches
     got = model.min_clearance_eval(q)
+    assert col.k3_min_clearance.launches == before + 1
     want = col.min_clearance_eval_plain(model, q)
-    assert got.shape == (4, 2000)
-    assert torch.isnan(got[0, :5]).all() and torch.isnan(want[0, :5]).all()
+    assert got.shape == (n,)
+    assert torch.isnan(got[:nans]).all() and torch.isnan(want[:nans]).all()
     ok = ~torch.isnan(want)
-    assert ok.sum() == 4 * 2000 - 5 and (want[ok] < 0).float().mean() > 0.05
+    assert ok.sum() == n - nans
+    if n >= 1000:
+        assert (want[ok] < 0).float().mean() > 0.05
     torch.testing.assert_close(got[ok], want[ok], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k3_probe_entry_matches_plain_on_card(robot, cuda_device):
+    """K3's fused entry against ``probe_clearance_plain`` on ``pd_path_configs``
+    output: rows that move, one without motion (not visited) and one that
+    turns NaN, with 7 probes per segment so that tiles of 32 straddle rows.
+    Clearance to 1e-5 m; every segment count equal, except that a probe
+    within 1e-5 m of its floor may fall either way."""
+    from vgpmp_torch import sim
+
+    spec, model = _k3_model(robot, cuda_device)
+    rng = np.random.default_rng(11)
+    B, T = 6, 15
+    lo, hi = spec.joint_limits[:, 1], spec.joint_limits[:, 0]
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    a, b = (mid + 0.6 * half * rng.uniform(-1, 1, (B, spec.dof)) for _ in range(2))
+    w = np.linspace(0, 1, T)[None, :, None]
+    traj = a[:, None] * (1 - w) + b[:, None] * w + 0.05 * rng.normal(size=(B, T, spec.dof))
+    traj[1] = traj[1, :1]
+    traj[4, T // 2:] = np.nan
+    traj = torch.as_tensor(traj, dtype=torch.float32, device=cuda_device)
+    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj, samples_per_segment=7)
+    q_s, q_g = traj[:, 0] + 0.01, torch.nan_to_num(traj[:, -1], 0.1)
+    plain = lambda q: col.min_clearance_eval_plain(model, q)
+    depth_s, depth_g = torch.clamp(-plain(torch.cat([q_s, q_g])), min=0.0).split(B)
+    args = (q_s, q_g, depth_s, depth_g, visited[:, 0], seg_idx, T, 0.5, 5e-3)
+    before = col.k3_probe_clearance.launches
+    clear, count = model.probe_clearance(qs, *args)
+    assert col.k3_probe_clearance.launches == before + 1
+    want_clear, want_count = sim.probe_clearance_plain(plain, qs, *args)
+    assert clear.shape == want_clear.shape and count.shape == (B, T) and count.dtype == torch.int32
+    assert torch.equal(torch.isnan(clear), torch.isnan(want_clear)) and torch.isnan(clear[4]).any()
+    ok = ~torch.isnan(want_clear)
+    torch.testing.assert_close(clear[ok], want_clear[ok], rtol=0, atol=1e-5)
+    floor = sim._floor_from_depths(qs, q_s, q_g, depth_s, depth_g, 0.5, 5e-3)
+    near = visited & ((want_clear - floor).abs() <= 1e-5)
+    far = sim._segment_count(seg_idx, visited & (want_clear < floor) & ~near, T)
+    assert ((far <= count) & (count <= far + sim._segment_count(seg_idx, near, T))).all()
+    assert count[1].sum() == 0 and want_count.sum() > 0 and (want_count == 0).any()
 
 
 @pytest.mark.cuda
@@ -245,10 +303,52 @@ def test_k4_matches_plain_on_card(words, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("words", [1, 2])
+@pytest.mark.parametrize("n", [1, 3, 5, 1_000_003])
+def test_k4_edges_on_card(words, n, cuda_device):
+    """K4 exact at point counts that fill no whole block or 16-byte vector and
+    on index views that start off a 16-byte boundary (``idx[1:]``,
+    ``idx[3:]``), with indices outside the table clamped; the view is neither
+    refused nor copied."""
+    ncells = 70_001
+    table = torch.arange(ncells * words, dtype=torch.int32, device=cuda_device) * 7919 + 3
+    if words == 2:
+        table = table.reshape(ncells, 2)
+    full = torch.randint(-9, ncells + 9, (n + 3,), device=cuda_device, dtype=torch.int32)
+    for off in (0, 1, 3):
+        idx = full[off:off + n]
+        before = tg.k4_gather.launches
+        got = tg.gather(table, idx)
+        assert tg.k4_gather.launches == before + 1
+        assert torch.equal(got, tg.gather_plain(table, idx)), off
+        assert got.shape == (n,) + ((2,) if words == 2 else ()) and got.is_contiguous()
+
+
+@pytest.mark.cuda
 def test_k3_k4_refuse_what_they_do_not_take(cuda_device):
     spec, model = _collision("franka", torch.float64, cuda_device)
     with pytest.raises(TypeError):
         model.min_clearance_eval(torch.zeros(4, spec.dof, dtype=torch.float64, device=cuda_device))
+    _, model32 = _collision("franka", torch.float32, cuda_device)
+    with pytest.raises(ValueError):  # wrong dof
+        col.k3_min_clearance(model32, torch.zeros(4, spec.dof - 1, device=cuda_device))
+    B, G, T = 2, 6, 3
+    good = dict(q_s=torch.zeros(B, spec.dof, device=cuda_device), q_g=torch.zeros(B, spec.dof, device=cuda_device),
+                depth_s=torch.zeros(B, device=cuda_device), depth_g=torch.zeros(B, device=cuda_device),
+                visited=torch.ones(B, dtype=torch.bool, device=cuda_device),
+                seg_idx=torch.zeros(B, G, dtype=torch.int64, device=cuda_device))
+    qs = torch.zeros(B, G, spec.dof, device=cuda_device)
+    col.k3_probe_clearance(model32, qs, *good.values(), T, 0.5, 5e-3)  # accepted
+    with pytest.raises(TypeError):  # float64 probes
+        col.k3_probe_clearance(model32, qs.double(), *good.values(), T, 0.5, 5e-3)
+    with pytest.raises(ValueError):  # wrong dof
+        col.k3_probe_clearance(model32, qs[..., 1:], *good.values(), T, 0.5, 5e-3)
+    bad = dict(good, seg_idx=good["seg_idx"].int())
+    with pytest.raises(TypeError):  # int32 segment indices
+        col.k3_probe_clearance(model32, qs, *bad.values(), T, 0.5, 5e-3)
+    bad = dict(good, depth_s=torch.zeros(B + 1, device=cuda_device))
+    with pytest.raises(ValueError):  # a per-row input of the wrong length
+        col.k3_probe_clearance(model32, qs, *bad.values(), T, 0.5, 5e-3)
     with pytest.raises(TypeError):
         tg.k4_gather(torch.zeros(8, device=cuda_device), torch.zeros(4, dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError):

@@ -154,35 +154,91 @@ std::vector<at::Tensor> k2_factor_solve_bwd(const at::Tensor& L, const at::Tenso
   return {gK, gB};
 }
 
-// grid: base offset (3), origin (3), delta; sdf carries the shape
-at::Tensor k3_min_clearance(const at::Tensor& q, const at::Tensor& robot,
-                            const at::Tensor& spheres, const at::Tensor& sdf, bool craig,
-                            std::vector<double> grid) {
-  const char* what = "k3_min_clearance";
+// K3's common checks of the configs q [n, dof], the robot and sphere tables
+// and the float32 grid; grid: base offset (3), origin (3), delta, and sdf
+// carries the shape
+K1Grid k3_checks(const at::Tensor& q, const at::Tensor& robot, const at::Tensor& spheres,
+                 const at::Tensor& sdf, const std::vector<double>& grid, const char* what) {
   check(q, at::kFloat, 2, what, "q");
   check(robot, at::kFloat, 1, what, "robot");
   check(spheres, at::kFloat, 2, what, "spheres");
   check(sdf, at::kFloat, 3, what, "sdf");
   for (const auto* t : {&robot, &spheres, &sdf}) same_device(q, *t, what);
-  const int64_t T = q.size(0), dof = q.size(1), P = spheres.size(0);
+  const int64_t dof = q.size(1);
   TORCH_CHECK_VALUE(dof == 6 || dof == 7, what, ": built for 6 or 7 joints, got ", dof);
   TORCH_CHECK_VALUE(robot.numel() == 6 * dof + 12, what, ": robot constants do not match ", dof,
                     " joints");
-  TORCH_CHECK_VALUE(P >= 1 && spheres.size(1) == 5, what, ": spheres must be [P, 5], got ",
-                    shape_str(spheres));
+  TORCH_CHECK_VALUE(spheres.size(0) >= 1 && spheres.size(1) == 5, what,
+                    ": spheres must be [P, 5], got ", shape_str(spheres));
   TORCH_CHECK_VALUE(sdf.size(0) >= 2 && sdf.size(1) >= 2 && sdf.size(2) >= 2, what,
                     ": the grid needs at least 2 cells along each axis, got ", shape_str(sdf));
+  TORCH_CHECK_VALUE(sdf.numel() < (int64_t(1) << 31), what,
+                    ": the grid must have fewer than 2^31 cells, got ", shape_str(sdf));
   TORCH_CHECK_VALUE(grid.size() == 7, what, ": grid needs 7 numbers");
-  const K1Grid g{(float)grid[0], (float)grid[1], (float)grid[2], (float)grid[3], (float)grid[4],
-                 (float)grid[5], (float)grid[6], (int)sdf.size(0), (int)sdf.size(1),
-                 (int)sdf.size(2)};
+  return K1Grid{(float)grid[0], (float)grid[1], (float)grid[2], (float)grid[3], (float)grid[4],
+                (float)grid[5], (float)grid[6], (int)sdf.size(0), (int)sdf.size(1),
+                (int)sdf.size(2)};
+}
+
+at::Tensor k3_min_clearance(const at::Tensor& q, const at::Tensor& robot,
+                            const at::Tensor& spheres, const at::Tensor& sdf, bool craig,
+                            std::vector<double> grid) {
+  const K1Grid g = k3_checks(q, robot, spheres, sdf, grid, "k3_min_clearance");
   const c10::cuda::CUDAGuard guard(q.device());
-  auto out = at::empty({T}, q.options());
+  auto out = at::empty({q.size(0)}, q.options());
   C10_CUDA_CHECK(k3_min_clearance_launch(q.data_ptr<float>(), robot.data_ptr<float>(),
                                          spheres.data_ptr<float>(), sdf.data_ptr<float>(),
-                                         out.data_ptr<float>(), T, (int)P, (int)dof, craig, g,
+                                         out.data_ptr<float>(), q.size(0), (int)spheres.size(0),
+                                         (int)q.size(1), craig, g,
                                          at::cuda::getCurrentCUDAStream()));
   return out;
+}
+
+// qs [B*G, dof] probes; q_s, q_g [B, dof]; depth_s, depth_g [B]; visited [B]
+// bool; seg_idx [B, G] int64 -> (clear [B*G], seg_count [B, T] int32)
+std::vector<at::Tensor> k3_probe_clearance(const at::Tensor& qs, const at::Tensor& robot,
+                                           const at::Tensor& spheres, const at::Tensor& sdf,
+                                           bool craig, std::vector<double> grid,
+                                           const at::Tensor& q_s, const at::Tensor& q_g,
+                                           const at::Tensor& depth_s, const at::Tensor& depth_g,
+                                           const at::Tensor& visited, const at::Tensor& seg_idx,
+                                           int64_t T, double radius, double slack) {
+  const char* what = "k3_probe_clearance";
+  const K1Grid g = k3_checks(qs, robot, spheres, sdf, grid, what);
+  check(q_s, at::kFloat, 2, what, "q_s");
+  check(q_g, at::kFloat, 2, what, "q_g");
+  check(depth_s, at::kFloat, 1, what, "depth_s");
+  check(depth_g, at::kFloat, 1, what, "depth_g");
+  check(visited, at::kBool, 1, what, "visited");
+  check(seg_idx, at::kLong, 2, what, "seg_idx");
+  for (const auto* t : {&q_s, &q_g, &depth_s, &depth_g, &visited, &seg_idx})
+    same_device(qs, *t, what);
+  const int64_t B = seg_idx.size(0), G = seg_idx.size(1), dof = qs.size(1);
+  TORCH_CHECK_VALUE(B >= 1 && G >= 1 && qs.size(0) == B * G, what, ": qs ", shape_str(qs),
+                    " does not hold the probes of seg_idx ", shape_str(seg_idx));
+  TORCH_CHECK_VALUE(q_s.size(0) == B && q_s.size(1) == dof && q_g.size(0) == B &&
+                        q_g.size(1) == dof,
+                    what, ": the endpoints must be [B, dof], got ", shape_str(q_s), " and ",
+                    shape_str(q_g));
+  TORCH_CHECK_VALUE(depth_s.size(0) == B && depth_g.size(0) == B && visited.size(0) == B, what,
+                    ": the depths and visited must be [B], got ", shape_str(depth_s), ", ",
+                    shape_str(depth_g), " and ", shape_str(visited));
+  TORCH_CHECK_VALUE(T >= 1, what, ": needs T >= 1 segments, got ", T);
+  const c10::cuda::CUDAGuard guard(qs.device());
+  auto clear = at::empty({B * G}, qs.options());
+  auto count = at::zeros({B, T}, qs.options().dtype(at::kInt));
+  // the division by the radius as PyTorch's CUDA division by a scalar takes
+  // it: a multiply by the float32 reciprocal of the float32 radius
+  const K3Probe probe{q_s.data_ptr<float>(), q_g.data_ptr<float>(), depth_s.data_ptr<float>(),
+                      depth_g.data_ptr<float>(), visited.data_ptr<bool>(),
+                      seg_idx.data_ptr<int64_t>(), count.data_ptr<int32_t>(), G, T,
+                      1.0f / (float)radius, (float)slack};
+  C10_CUDA_CHECK(k3_probe_clearance_launch(qs.data_ptr<float>(), robot.data_ptr<float>(),
+                                           spheres.data_ptr<float>(), sdf.data_ptr<float>(),
+                                           clear.data_ptr<float>(), B * G, (int)spheres.size(0),
+                                           (int)dof, craig, g, probe,
+                                           at::cuda::getCurrentCUDAStream()));
+  return {clear, count};
 }
 
 // table [ncells] (4-byte entries) or [ncells, 2] (8-byte entries), int32;
@@ -220,5 +276,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K2: backward of k2_factor_solve in one launch; (dK, dB)");
   m.def("k3_min_clearance", &k3_min_clearance,
         "K3: fused FK and trilinear SDF lookup; minimum clearance over spheres per config");
+  m.def("k3_probe_clearance", &k3_probe_clearance,
+        "K3 with the metric's tapered-floor compare and per-segment count; (clear, seg_count)");
   m.def("k4_gather", &k4_gather, "K4: out[i] = table[idx[i]] for 4-byte or 8-byte entries");
 }

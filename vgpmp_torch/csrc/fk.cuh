@@ -13,14 +13,14 @@
 #include <cuda_runtime.h>
 
 // One DH step: frame (Rn, tn) = frame (Rc, tc) composed with joint j's
-// transform at angle q_j. c points at the joint's six constants. Every FK of
-// this file goes through here, so all of them round alike.
+// transform, from co = cos and s = sin of the joint's angle q_j + twist. c
+// points at the joint's six constants. Every FK of this file goes through
+// here, so all of them round alike.
 template <bool CRAIG>
-__device__ __forceinline__ void dh_step(const float* __restrict__ c, float qj, const float (&Rc)[9],
-                                        const float (&tc)[3], float (&Rn)[9], float (&tn)[3]) {
+__device__ __forceinline__ void dh_step_cs(const float* __restrict__ c, float co, float s,
+                                           const float (&Rc)[9], const float (&tc)[3],
+                                           float (&Rn)[9], float (&tn)[3]) {
   const float ca = c[0], sa = c[1];
-  const float ang = qj + c[2];
-  const float co = cosf(ang), s = sinf(ang);
   float Tm[9], p[3];
   if (CRAIG) {
     Tm[0] = co;      Tm[1] = -s;      Tm[2] = 0.f;
@@ -42,21 +42,21 @@ __device__ __forceinline__ void dh_step(const float* __restrict__ c, float qj, c
   }
 }
 
-// Rotation R[k] (row-major 3x3) and translation t[k] of every chain frame
-// k = 0..DOF for the configuration q[0..DOF), all in the thread's registers.
-template <int DOF, bool CRAIG>
-__device__ __forceinline__ void fk_chain(const float* __restrict__ q,
-                                         const float* __restrict__ robot,
-                                         float (&R)[DOF + 1][9], float (&t)[DOF + 1][3]) {
-  const float* base = robot + 6 * DOF;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[0][3 * i + j] = base[4 * i + j];
-    t[0][i] = base[4 * i + 3];
-  }
-#pragma unroll
-  for (int j = 0; j < DOF; ++j) dh_step<CRAIG>(robot + 6 * j, q[j], R[j], t[j], R[j + 1], t[j + 1]);
+// The joint's angle, and its cos and sin, as every FK of this file takes them
+__device__ __forceinline__ void joint_cos_sin(const float* __restrict__ c, float qj, float& co,
+                                              float& s) {
+  const float ang = qj + c[2];
+  co = cosf(ang);
+  s = sinf(ang);
+}
+
+// One DH step at the joint angle q_j
+template <bool CRAIG>
+__device__ __forceinline__ void dh_step(const float* __restrict__ c, float qj, const float (&Rc)[9],
+                                        const float (&tc)[3], float (&Rn)[9], float (&tn)[3]) {
+  float co, s;
+  joint_cos_sin(c, qj, co, s);
+  dh_step_cs<CRAIG>(c, co, s, Rc, tc, Rn, tn);
 }
 
 // Block-level FK: the same chain for one configuration, with every frame
@@ -67,10 +67,11 @@ __device__ __forceinline__ void fk_chain(const float* __restrict__ q,
 // c, write and later read consecutive words. Pass frames + c.
 constexpr int FK_FRAME = 12;
 
-template <int DOF, bool CRAIG>
-__device__ __forceinline__ void fk_chain_to_shared(const float* __restrict__ q,
-                                                   const float* __restrict__ robot,
-                                                   float* __restrict__ frames, int stride) {
+// The chain from the joints' cos and sin: cos_sin(j, co, s) gives joint j's.
+template <int DOF, bool CRAIG, class CosSin>
+__device__ __forceinline__ void fk_chain_to_shared_cs(CosSin cos_sin,
+                                                      const float* __restrict__ robot,
+                                                      float* __restrict__ frames, int stride) {
   const float* base = robot + 6 * DOF;
   float Rc[9], tc[3];
 #pragma unroll
@@ -79,9 +80,6 @@ __device__ __forceinline__ void fk_chain_to_shared(const float* __restrict__ q,
     for (int j = 0; j < 3; ++j) Rc[3 * i + j] = base[4 * i + j];
     tc[i] = base[4 * i + 3];
   }
-  float qj[DOF];
-#pragma unroll
-  for (int j = 0; j < DOF; ++j) qj[j] = q[j];
 #pragma unroll
   for (int j = 0; j <= DOF; ++j) {
     float* F = frames + FK_FRAME * j * stride;
@@ -90,8 +88,9 @@ __device__ __forceinline__ void fk_chain_to_shared(const float* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 3; ++e) F[(9 + e) * stride] = tc[e];
     if (j < DOF) {
-      float Rn[9], tn[3];
-      dh_step<CRAIG>(robot + 6 * j, qj[j], Rc, tc, Rn, tn);
+      float co, s, Rn[9], tn[3];
+      cos_sin(j, co, s);
+      dh_step_cs<CRAIG>(robot + 6 * j, co, s, Rc, tc, Rn, tn);
 #pragma unroll
       for (int e = 0; e < 9; ++e) Rc[e] = Rn[e];
 #pragma unroll
@@ -100,8 +99,20 @@ __device__ __forceinline__ void fk_chain_to_shared(const float* __restrict__ q,
   }
 }
 
+template <int DOF, bool CRAIG>
+__device__ __forceinline__ void fk_chain_to_shared(const float* __restrict__ q,
+                                                   const float* __restrict__ robot,
+                                                   float* __restrict__ frames, int stride) {
+  float qj[DOF];
+#pragma unroll
+  for (int j = 0; j < DOF; ++j) qj[j] = q[j];
+  fk_chain_to_shared_cs<DOF, CRAIG>(
+      [&](int j, float& co, float& s) { joint_cos_sin(robot + 6 * j, qj[j], co, s); }, robot,
+      frames, stride);
+}
+
 // World centre of a sphere at offset (ox, oy, oz) in frame f, from the frames
-// that fk_chain_to_shared wrote; the sum runs in sphere_centre's order.
+// that fk_chain_to_shared wrote; the sum runs in the plain version's order.
 __device__ __forceinline__ void sphere_centre_shared(const float* __restrict__ frames, int stride,
                                                      int f, float ox, float oy, float oz, float& x,
                                                      float& y, float& z) {
@@ -109,28 +120,4 @@ __device__ __forceinline__ void sphere_centre_shared(const float* __restrict__ f
   x = F[0] * ox + F[stride] * oy + F[2 * stride] * oz + F[9 * stride];
   y = F[3 * stride] * ox + F[4 * stride] * oy + F[5 * stride] * oz + F[10 * stride];
   z = F[6 * stride] * ox + F[7 * stride] * oy + F[8 * stride] * oz + F[11 * stride];
-}
-
-// World centre (x, y, z) of the sphere described by s[0..5); returns its frame.
-template <int DOF>
-__device__ __forceinline__ int sphere_centre(const float* __restrict__ s,
-                                             const float (&R)[DOF + 1][9],
-                                             const float (&t)[DOF + 1][3], float& x, float& y,
-                                             float& z) {
-  const int f = (int)s[0];
-  const float ox = s[1], oy = s[2], oz = s[3];
-  float Rf[9], tf[3];
-#pragma unroll
-  for (int k = 0; k <= DOF; ++k) {
-    if (k == f) {
-#pragma unroll
-      for (int i = 0; i < 9; ++i) Rf[i] = R[k][i];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) tf[i] = t[k][i];
-    }
-  }
-  x = Rf[0] * ox + Rf[1] * oy + Rf[2] * oz + tf[0];
-  y = Rf[3] * ox + Rf[4] * oy + Rf[5] * oz + tf[1];
-  z = Rf[6] * ox + Rf[7] * oy + Rf[8] * oz + tf[2];
-  return f;
 }

@@ -11,15 +11,25 @@
 // block. A block's 227 KB of shared memory hold 58 K words, fewer than the
 // smallest benchmark table (262 144), so there is no on-chip copy of the
 // table to gather from: tables of 1 MB and 4 MB stay resident in the 50 MB L2
-// after the first touch, and a table larger than the L2 (the 222 MB packed
-// industrial scene) is gathered from device memory. What bounds it: bytes —
-// the index and the output streams plus the distinct 32-byte sectors of the
-// table that the indices touch.
+// after the first touch, and a table larger than the L2 (the 111 MB and
+// 222 MB industrial scene) is gathered from device memory.
+//
+// What bounds it on an H100: one 32-byte sector a point. The L2's rate for
+// scattered sectors where the table fits in it, the device memory's rate for
+// scattered sectors where it does not; the index and output streams are a
+// fifth of the bytes. The instructions around a gather do not bind, and the
+// threads in flight do: four or two points a thread behind one 16-byte or
+// 8-byte index load, with 16-byte stores and a grid of the resident blocks
+// striding over the points, measured slower at the L2-resident tables and no
+// faster at the largest (PERF.md), so each thread takes one point.
 //
 // Design: one thread per point, neighbouring threads on neighbouring indices
 // and outputs (coalesced streams), the table read through the read-only path
-// (__ldg) with the entry width as a template parameter. An index outside the
-// table is clamped to it, as jnp.take clamps.
+// (__ldg) with the entry width as a template parameter. The index and output
+// streams are read and written evict-first (__ldcs/__stcs), so that they
+// leave the L2 to the table. Any point count and any alignment of idx (a view
+// such as idx[1:]) is taken as it is. An index outside the table is clamped
+// to it, as jnp.take clamps.
 
 #include <cuda_runtime.h>
 
@@ -34,9 +44,9 @@ __global__ void __launch_bounds__(256) gather_kernel(const W* __restrict__ table
                                                      long long ncells) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  long long j = idx[i];
+  long long j = __ldcs(idx + i);
   j = j < 0 ? 0 : (j >= ncells ? ncells - 1 : j);
-  out[i] = __ldg(table + j);
+  __stcs(out + i, __ldg(table + j));
 }
 
 }  // namespace

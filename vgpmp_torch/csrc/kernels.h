@@ -38,11 +38,34 @@ cudaError_t k2_factor_solve_bwd_launch(const double* L, const double* X, const d
                                        int k, cudaStream_t stream);
 
 // K3 (k3_clearance.cu). q [T, dof] f32; robot and spheres as K1; sdf
-// [nx, ny, nz] f32 with every size >= 2; out [T], the minimum over spheres of
-// the trilinear clearance. dof is 6 or 7.
+// [nx, ny, nz] f32 with every size >= 2 and fewer than 2^31 cells; out [T],
+// the minimum over spheres of the trilinear clearance. dof is 6 or 7.
 cudaError_t k3_min_clearance_launch(const float* q, const float* robot, const float* spheres,
                                     const float* sdf, float* out, int64_t T, int P, int dof,
                                     bool craig, K1Grid g, cudaStream_t stream);
+
+// The metric's floor compare, fused into K3's second entry. The n = B * G
+// probes q are rows of B PD paths of G probes each; row b has the query
+// endpoints q_s, q_g [B, dof], their penetration depths depth_s, depth_g [B]
+// and visited [B]. Probe i of row b is violated when visited[b] and its
+// clearance lies below the tapered floor; seg_count [B, T] (zeroed by the
+// caller) gains one for each violated probe at seg_count[b, seg_idx[b, i]].
+struct K3Probe {
+  const float* q_s;
+  const float* q_g;
+  const float* depth_s;
+  const float* depth_g;
+  const bool* visited;
+  const int64_t* seg_idx;  // [B, G]; an index outside [0, T) is not counted
+  int32_t* seg_count;      // [B, T]
+  int64_t G, T;
+  float inv_radius;        // 1 / taper radius, rounded to float32
+  float slack;
+};
+cudaError_t k3_probe_clearance_launch(const float* q, const float* robot, const float* spheres,
+                                      const float* sdf, float* out, int64_t n, int P, int dof,
+                                      bool craig, K1Grid g, const K3Probe& probe,
+                                      cudaStream_t stream);
 
 // K4 (k4_gather.cu). table [ncells] entries of entry_bytes (4 or 8, aligned
 // to that); idx [n] int32, clamped to the table; out [n] entries.

@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from vgpmp_torch.sim import (
-    _eval_clearance_fn, _rows, _segment_or, kinematic_execute_trajectory, pd_path_configs,
+    _eval_clearance_fn, _probe_clearance_fn, _rows, kinematic_execute_trajectory, pd_path_configs,
     tapered_floor,
 )
 
@@ -138,28 +138,32 @@ def execute_and_validate(collision, traj, start, goal, limits_low, limits_high,
       not fail it).
     """
     traj, start, goal, single = _batched(traj, start, goal)
-    T = traj.shape[1]
-    min_clear_of = _eval_clearance_fn(collision)
+    B, T = traj.shape[:2]
 
     qs, visited, seg_idx, n_stops, _, _, certified = pd_path_configs(
         traj, samples_per_segment=samples_per_segment)
-    clear = min_clear_of(qs)                                         # [B, G]
-    floor = tapered_floor(min_clear_of, qs, start, goal, taper_radius, contact_slack)
+    # one clearance call for the query's start and goal, whose depths set the
+    # tapered floor, and the trajectory's first config
+    end_clear = _eval_clearance_fn(collision)(torch.cat([start, goal, traj[:, 0]]))  # [3B]
+    depth_s, depth_g = torch.clamp(-end_clear[:2 * B], min=0.0).split(B)
+    # the probes' clearance, and how many probes of each segment lie below
+    # the floor
+    clear, seg_count = _probe_clearance_fn(collision)(
+        qs, start, goal, depth_s, depth_g, visited[:, 0], seg_idx, T, taper_radius,
+        contact_slack)                                               # [B, G], [B, T]
 
-    violated = visited & (clear < floor)                             # [B, G]
-    blocked_upto = torch.cumsum(_segment_or(seg_idx, violated, T).to(torch.int32), dim=1) > 0
+    blocked_upto = torch.cumsum((seg_count > 0).to(torch.int32), dim=1) > 0
     reached_seg = (n_stops <= max_iters) & certified[:, None]
     reached_all = (reached_seg & ~blocked_upto).all(dim=1)
 
     end_err = _endpoint_err(traj, start, goal)
     endpoints_ok = end_err <= endpoint_tol
-    collision_free = ~violated.any(dim=1)
+    collision_free = seg_count.sum(dim=1) == 0
 
     # worst clearance over the visited configs and the trajectory's first
     # config, which stands in for the probes of a path without motion
     inf = torch.full_like(clear, float("inf"))
-    min_clear = torch.minimum(torch.where(visited, clear, inf).amin(dim=1),
-                              min_clear_of(traj[:, 0]))
+    min_clear = torch.minimum(torch.where(visited, clear, inf).amin(dim=1), end_clear[2 * B:])
     q_eval = torch.where(visited[:, :, None], qs, traj[:, :1])
     inside = lambda q: ((q >= limits_low) & (q <= limits_high)).flatten(1).all(dim=1)
     limits_ok = inside(q_eval) & inside(traj)

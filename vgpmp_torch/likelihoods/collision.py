@@ -9,7 +9,11 @@ same pass; on a CPU tensor it runs :func:`log_prob_plain`.
 ``min_clearance_eval`` is the success metric's clearance: the minimum over
 spheres of the trilinear-interpolated clearance. On a CUDA tensor it runs
 kernel K3 (``csrc/k3_clearance.cu``), on a CPU tensor
-:func:`min_clearance_eval_plain`.
+:func:`min_clearance_eval_plain`. ``probe_clearance`` is the metric's pass
+over the PD-path probes: the same clearance, the tapered floor's compare and
+the count of violated probes per segment. On a CUDA tensor it runs K3's fused
+entry (:func:`k3_probe_clearance`), on a CPU tensor
+:func:`vgpmp_torch.sim.probe_clearance_plain`.
 """
 
 from __future__ import annotations
@@ -22,9 +26,10 @@ from vgpmp_torch import _build
 from vgpmp_torch.kinematics.dh import FkModel, sphere_positions
 from vgpmp_torch.ops.transforms import sigmoid_box, sigmoid_box_inverse
 from vgpmp_torch.scene import Scene
+from vgpmp_torch.sim import probe_clearance_plain
 
 __all__ = ["CollisionModel", "joint_sigmoid", "joint_sigmoid_inverse", "log_prob_plain",
-           "k1_loglik", "min_clearance_eval_plain", "k3_min_clearance"]
+           "k1_loglik", "min_clearance_eval_plain", "k3_min_clearance", "k3_probe_clearance"]
 
 
 def joint_sigmoid(f: torch.Tensor, low, high) -> torch.Tensor:
@@ -74,6 +79,17 @@ class CollisionModel:
             q = configs.detach().reshape(-1, configs.shape[-1]).contiguous()
             return k3_min_clearance(self, q).reshape(configs.shape[:-1])
         return min_clearance_eval_plain(self, configs)
+
+    def probe_clearance(self, qs, q_s, q_g, depth_s, depth_g, visited, seg_idx, T: int,
+                        radius: float, slack: float):
+        """The metric's pass over the probes ``qs [B, G, L]``: ``(clear [B, G],
+        seg_count [B, T] int32)``, as :func:`vgpmp_torch.sim.probe_clearance_plain`
+        defines them. K3's fused entry on CUDA (forward only)."""
+        if qs.is_cuda:
+            return k3_probe_clearance(self, qs, q_s, q_g, depth_s, depth_g, visited, seg_idx, T,
+                                      radius, slack)
+        return probe_clearance_plain(self.min_clearance_eval, qs, q_s, q_g, depth_s, depth_g,
+                                     visited, seg_idx, T, radius, slack)
 
     def hinge_cost(self, configs: torch.Tensor) -> torch.Tensor:
         """``max(ε − clearance, 0)`` per sphere."""
@@ -150,6 +166,38 @@ def k3_min_clearance(model: CollisionModel, q: torch.Tensor) -> torch.Tensor:
 
 
 k3_min_clearance.launches = 0
+
+
+def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tensor,
+                       q_g: torch.Tensor, depth_s: torch.Tensor, depth_g: torch.Tensor,
+                       visited: torch.Tensor, seg_idx: torch.Tensor, T: int, radius: float,
+                       slack: float):
+    """K3's fused entry: ``qs [B, G, dof]`` float32 CUDA probes, per row the
+    endpoints ``q_s``/``q_g [B, dof]``, their depths ``[B]`` and ``visited [B]``
+    bool, ``seg_idx [B, G]`` int64 -> ``(clear [B, G], seg_count [B, T]
+    int32)`` in one launch (see :func:`vgpmp_torch.sim.probe_clearance_plain`)."""
+    scene, fk = model.scene, model.fk
+    if not qs.is_cuda:
+        raise ValueError(f"k3_probe_clearance: needs CUDA tensors, got qs on {qs.device}")
+    if qs.ndim != 3 or qs.shape[-1] != fk.dof:
+        raise ValueError(f"k3_probe_clearance: qs {tuple(qs.shape)} is not [B, G, {fk.dof}]")
+    if scene.has_extras:
+        raise ValueError("k3_probe_clearance: needs a scene with no extra grids or primitives")
+    B, G, L = qs.shape
+    shapes = [tuple(x.shape) for x in (q_s, q_g, depth_s, depth_g, visited, seg_idx)]
+    if shapes != [(B, L), (B, L), (B,), (B,), (B,), (B, G)]:
+        raise ValueError(f"k3_probe_clearance: q_s, q_g, depth_s, depth_g, visited and seg_idx "
+                         f"{shapes} do not match qs {tuple(qs.shape)}")
+    clear, count = _build.load().k3_probe_clearance(
+        qs.detach().reshape(B * G, L).contiguous(), fk.k1_robot, fk.k1_spheres, scene.base.data,
+        fk.craig, [*model._base_offset_host, *model._grid_host], q_s.detach().contiguous(),
+        q_g.detach().contiguous(), depth_s.detach().contiguous(), depth_g.detach().contiguous(),
+        visited.contiguous(), seg_idx.contiguous(), int(T), float(radius), float(slack))
+    k3_probe_clearance.launches += 1
+    return clear.reshape(B, G), count
+
+
+k3_probe_clearance.launches = 0
 
 
 class _K1Fn(torch.autograd.Function):

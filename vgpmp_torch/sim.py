@@ -11,16 +11,20 @@ Where the JAX functions take one trajectory and are vmapped, these take a
 leading row axis: a trajectory is ``[B, T, L]`` and every output carries
 ``B`` first. A single ``[T, L]`` trajectory runs as ``B = 1`` and comes back
 without the axis. Only the segment recurrence loops (over the ``T`` waypoints,
-never over rows). On CUDA the clearance runs kernel K3 through
+never over rows). On CUDA the clearance runs kernel K3: the probes with the
+tapered floor's compare and the per-segment count through
+``CollisionModel.probe_clearance`` (its fused entry), the endpoints through
 ``CollisionModel.min_clearance_eval``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["pd_path_configs", "tapered_floor", "kinematic_execute_trajectory",
-           "kinematic_execute_trajectory_stepped"]
+__all__ = ["pd_path_configs", "tapered_floor", "probe_clearance_plain",
+           "kinematic_execute_trajectory", "kinematic_execute_trajectory_stepped"]
 
 
 def _eval_clearance_fn(collision):
@@ -35,12 +39,33 @@ def _eval_clearance_fn(collision):
     return lambda q: per_sphere(q).min(dim=-1).values
 
 
-def _segment_or(seg_idx: torch.Tensor, violated: torch.Tensor, T: int) -> torch.Tensor:
-    """``[B, G]`` probe flags -> ``[B, T]``: whether any probe of the segment is
-    set. A count by ``scatter_add_`` on integers, then ``> 0``: the same on
+def _probe_clearance_fn(collision):
+    """The metric's pass over the probes, with the signature of
+    :func:`probe_clearance_plain` less its first argument: the model's
+    ``probe_clearance`` (K3's fused entry on CUDA), else the plain composition
+    over :func:`_eval_clearance_fn`."""
+    fused = getattr(collision, "probe_clearance", None)
+    if fused is not None:
+        return fused
+    return functools.partial(probe_clearance_plain, _eval_clearance_fn(collision))
+
+
+def _segment_count(seg_idx: torch.Tensor, violated: torch.Tensor, T: int) -> torch.Tensor:
+    """``[B, G]`` probe flags -> ``[B, T]`` int32: how many probes of each
+    segment are set. A count by ``scatter_add_`` on integers: the same on
     every device and run, which a bool scatter-reduce is not."""
     count = torch.zeros((seg_idx.shape[0], T), dtype=torch.int32, device=seg_idx.device)
-    return count.scatter_add_(1, seg_idx, violated.to(torch.int32)) > 0
+    return count.scatter_add_(1, seg_idx, violated.to(torch.int32))
+
+
+def _floor_from_depths(qs, q_s, q_g, depth_s, depth_g, radius: float, slack: float):
+    """The tapered floor ``[B, G]`` at the probes ``qs [B, G, L]`` from the
+    endpoints' penetration depths ``[B]``."""
+    dist_s = (qs - q_s[:, None]).abs().amax(dim=-1)
+    dist_g = (qs - q_g[:, None]).abs().amax(dim=-1)
+    ramp = lambda d: torch.clamp(1.0 - d / radius, min=0.0)
+    allowed = torch.maximum(depth_s[:, None] * ramp(dist_s), depth_g[:, None] * ramp(dist_g))
+    return -allowed - slack
 
 
 def tapered_floor(min_clear, qs: torch.Tensor, q_s: torch.Tensor, q_g: torch.Tensor,
@@ -48,13 +73,29 @@ def tapered_floor(min_clear, qs: torch.Tensor, q_s: torch.Tensor, q_g: torch.Ten
     """Blocking floor ``[B, G]`` at the probes ``qs [B, G, L]``: each query
     endpoint's phantom depth, falling off linearly to zero over ``radius`` rad
     of L_inf joint distance from that endpoint, plus ``slack``."""
-    depth_s = torch.clamp(-min_clear(q_s), min=0.0)[:, None]
-    depth_g = torch.clamp(-min_clear(q_g), min=0.0)[:, None]
-    dist_s = (qs - q_s[:, None]).abs().amax(dim=-1)
-    dist_g = (qs - q_g[:, None]).abs().amax(dim=-1)
-    ramp = lambda d: torch.clamp(1.0 - d / radius, min=0.0)
-    allowed = torch.maximum(depth_s * ramp(dist_s), depth_g * ramp(dist_g))
-    return -allowed - slack
+    depth_s = torch.clamp(-min_clear(q_s), min=0.0)
+    depth_g = torch.clamp(-min_clear(q_g), min=0.0)
+    return _floor_from_depths(qs, q_s, q_g, depth_s, depth_g, radius, slack)
+
+
+def probe_clearance_plain(min_clear, qs: torch.Tensor, q_s: torch.Tensor, q_g: torch.Tensor,
+                          depth_s: torch.Tensor, depth_g: torch.Tensor, visited: torch.Tensor,
+                          seg_idx: torch.Tensor, T: int, radius: float, slack: float):
+    """Plain version of K3's fused entry (``k3_probe_clearance``): the worst
+    clearance of every probe and how many probes of each segment lie below
+    the tapered floor.
+
+    ``qs [B, G, L]`` are the probes of :func:`pd_path_configs`, ``q_s``/``q_g
+    [B, L]`` the query endpoints and ``depth_s``/``depth_g [B]`` their
+    penetration depths (``clamp(-clearance, min=0)``), ``visited [B]`` whether
+    the row's path moves, ``seg_idx [B, G]`` each probe's segment. A probe is
+    violated when its row is visited and its clearance lies below the floor
+    of :func:`tapered_floor`. Returns ``(clear [B, G], seg_count [B, T]
+    int32)``."""
+    clear = min_clear(qs)
+    floor = _floor_from_depths(qs, q_s, q_g, depth_s, depth_g, radius, slack)
+    violated = visited[:, None] & (clear < floor)
+    return clear, _segment_count(seg_idx, violated, T)
 
 
 def _rows(x, like: torch.Tensor) -> torch.Tensor:
@@ -207,21 +248,25 @@ def kinematic_execute_trajectory(collision, trajectory, dt: float = 1.0 / 240.0,
     # a non-finite segment never reaches (comparisons with NaN are False);
     # an undersampled path is conservatively unreached
     reached_seg = (n_stops <= max_iters) & certified[:, None]
-    clear = min_clear(qs)                                            # [B, G]
 
     if taper is not None:
         q_s, q_g, radius = taper
-        floor = tapered_floor(min_clear, qs, _rows(q_s, traj), _rows(q_g, traj), radius,
-                              contact_slack)                         # [B, G]
+        q_s, q_g = _rows(q_s, traj), _rows(q_g, traj)
+        # both endpoints' clearances in one call
+        depth_s, depth_g = torch.clamp(-min_clear(torch.cat([q_s, q_g])), min=0.0).split(B)
+        _, seg_count = _probe_clearance_fn(collision)(qs, q_s, q_g, depth_s, depth_g,
+                                                      visited[:, 0], seg_idx, T, radius,
+                                                      contact_slack)  # [B, T]
     else:
+        clear = min_clear(qs)                                        # [B, G]
         floor0 = torch.clamp(min_clear(traj[:, 0]), max=0.0)
         if penetration_floor is not None:
             floor0 = torch.minimum(floor0, torch.as_tensor(penetration_floor, dtype=traj.dtype,
                                                            device=traj.device))
         floor = (floor0 - contact_slack)[:, None]                    # [B, 1]
+        seg_count = _segment_count(seg_idx, visited & (clear < floor), T)
 
-    violated = visited & (clear < floor)                             # [B, G]
-    blocked_upto = torch.cumsum(_segment_or(seg_idx, violated, T).to(torch.int32), dim=1) > 0
+    blocked_upto = torch.cumsum((seg_count > 0).to(torch.int32), dim=1) > 0
     reached = reached_seg & ~blocked_upto
     success = reached.all(dim=1)
     first_bad = torch.argmax((~reached).to(torch.int32), dim=1)      # first unreached segment
