@@ -28,12 +28,18 @@ Phases, any failure exits non-zero before the result line:
     kernels by device time, host time per solver span, device launches and
     K2 launches per Adam step; and a second window over one
     ``execute_and_validate`` of the round's best trajectories: device busy
-    ms, device launches, K3's device ms (run last, after (f));
+    ms, device launches, K3's device ms (run last, after (g));
 (e) the scored round: ``make_round_solver`` on the 36 queries at 200 steps
     (solve, best sample, then ``execute_and_validate`` of every row: two K3
     launches, the fused probe entry and the endpoints), with the verdicts
     held against the port's CPU plain path on the same trajectories;
-(f) the gather benchmark ``tools/gather_bench_torch.py`` (K4).
+(f) the gather benchmark ``tools/gather_bench_torch.py`` (K4);
+(g) the bench's own configuration: ``solve_adaptive`` on the 36 queries from
+    the tuned inits (round 0 from ``frand5``), 8 rounds at most, one bucket of
+    36 slots, seed 0; the merged verdicts held against the CPU plain path on
+    the same trajectories, and the free-space probe behind ``frand5`` held
+    against the CPU plain path on round 0's 36 x 64 candidates (run before
+    the profiles of (d)).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. A detailed record goes to
@@ -779,6 +785,114 @@ def round_phase(torch, sess, cpu):
             "agree_with_cpu": agree, "min_clearance_max_err_vs_cpu": clear_err, "launches": launches}
 
 
+def adaptive_phase(torch, sess, cpu):
+    """(g) the adaptive restart engine at full width, as ``bench_torch.py``
+    runs its real-set phase, with every round's executed count recorded."""
+    import numpy as np
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods.collision import k1_loglik, k3_min_clearance, k3_probe_clearance
+    from vgpmp_torch.ops import linalg as la
+
+    starts, goals = sess.queries()
+    B = len(starts)
+    inits = tuple(sess.planner_params["q_mu_inits"])
+    assert inits[0] == "frand5", inits
+    round_solve = solver.make_round_solver(sess.model, sess.train_config)
+    executed_by_round = []
+
+    def solve(params, s, g, generator):
+        best, rep = round_solve(params, s, g, generator)
+        executed_by_round.append(rep.executed)  # read after the call: no sync inside a round
+        return best, rep
+
+    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd, k3_min_clearance,
+                k3_probe_clearance)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, reps, info = solver.solve_adaptive(sess.model, sess.train_config, starts, goals,
+                                             sess.planner_params, inits=inits, max_rounds=8, seed=0,
+                                             solve=solve, round_sizes=(B,))
+    t_adaptive = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    by_round = [int(e.sum()) for e in executed_by_round]
+    executed, success = int(reps.executed.sum()), int(reps.success.sum())
+
+    with torch.no_grad():
+        ref = execute_and_validate(cpu.model.collision, torch.as_tensor(best),
+                                   torch.as_tensor(starts, dtype=torch.float32),
+                                   torch.as_tensor(goals, dtype=torch.float32),
+                                   cpu.model.limits_low, cpu.model.limits_high)
+    agree = {k: int((getattr(reps, k) == getattr(ref, k).numpy()).sum()) for k in ("executed", "success")}
+    log(f"(g) solve_adaptive, B={B}, inits {list(inits)}, max_rounds 8: {info['rounds']} rounds in "
+        f"{t_adaptive:.3f} s, k_eff {info['k_eff']:.3f}, restarts per problem "
+        f"{info['restarts_per_problem']}; executed {executed}/{B} (by round, of the round's slots: "
+        f"{by_round}), success {success}/{B}; launches {launches}")
+    log(f"    card vs CPU plain path on the merged trajectories: executed agrees on {agree['executed']}/{B}, "
+        f"success on {agree['success']}/{B}")
+
+    # the free-space probe of round 0's frand5 draw (36 x 64 candidates) on the
+    # card against the CPU plain path. The lookup is the packed nearest cell:
+    # a sphere centre a float32 rounding from a cell face may land in the
+    # neighbouring cell, so such configs are counted (their share held to
+    # 1e-3, as K1's check holds it) and the rest held to 1e-5 m. A pick may
+    # differ only in a row where a candidate lies within 1e-5 m of the 0.03 m
+    # margin, where the two clearest non-clearing candidates lie within 1e-5 m
+    # of each other, or where a candidate's cell differs.
+    from vgpmp_torch.kinematics.dh import sphere_positions
+    from vgpmp_torch.sdf.grid import _packed_flat_index
+
+    cand, ref_cfg = solver.restart_candidates(sess.model, starts, goals, "frand5")
+    n_cand, L = cand.shape[1], cand.shape[2]
+    flat = cand.reshape(-1, L)
+    cells, clears = [], []
+    for s in (sess, cpu):
+        q = torch.as_tensor(flat, dtype=torch.float32, device=s.device)
+        col = s.model.collision
+        with torch.no_grad():
+            cells.append(_packed_flat_index(col.scene.base_packed,
+                                            sphere_positions(col.fk, q) - col.scene.base_offset).cpu())
+        clears.append(solver.min_clearance_probe(col, q).cpu().numpy().astype(np.float64))
+    other = (cells[0] != cells[1]).any(dim=-1).numpy()
+    clear_d, clear_c = clears
+    perr = float(np.abs(clear_d - clear_c)[~other].max())
+    picks = [solver.pick_via_points(cand, c.reshape(B, n_cand), ref_cfg) for c in clears]
+    differ = (picks[0] != picks[1]).any(axis=-1)
+    cc = clear_c.reshape(B, n_cand)
+    near_margin = (np.abs(cc - 0.03) <= 1e-5).any(axis=1)
+    top2 = np.sort(cc, axis=1)[:, -2:]
+    near_tie = (top2[:, 1] < 0.03 + 1e-5) & (top2[:, 1] - top2[:, 0] <= 1e-5)
+    explained = near_margin | near_tie | other.reshape(B, n_cand).any(axis=1)
+    same_as_engine = bool(np.array_equal(solver.restart_waypoints(sess.model, starts, goals, "frand5"),
+                                         picks[0]))
+    log(f"    frand5 probe, {flat.shape[0]} candidates: max |d clearance| {perr:.3e} m (<= 1e-5) over those "
+        f"in the same cells; candidates in another cell {int(other.sum())} (share <= 1e-3); rows with a "
+        f"candidate within 1e-5 m of the margin {int(near_margin.sum())}, with a near tie "
+        f"{int(near_tie.sum())}; picks differ in {int(differ.sum())} rows, all explained: "
+        f"{bool((explained | ~differ).all())}; rows clearing the margin "
+        f"{int((cc >= 0.03).any(axis=1).sum())}/{B}; restart_waypoints gives the card's picks: {same_as_engine}")
+
+    assert best.shape == (B, sess.train_config.time_spacing_Xnew, 7) and np.isfinite(best).all()
+    assert info["spent"] == info["rounds"] * B and len(by_round) == info["rounds"]
+    # the merge keeps each problem's best restart, so no round-0 row is lost
+    assert executed >= by_round[0], (executed, by_round)
+    assert executed >= B - 2, f"the adaptive engine executed {executed} of {B} rows"
+    assert min(agree.values()) >= B - 2, f"verdicts disagree with the CPU plain path: {agree}"
+    assert perr <= 1e-5, "the free-space probe disagrees with the CPU plain path"
+    assert other.mean() <= 1e-3, "too many candidates in another cell than on the CPU"
+    assert bool((explained | ~differ).all()) and same_as_engine, "frand5 picks differ unexplained"
+    assert all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}"
+    return {"adaptive_s": t_adaptive, "info": info, "executed": executed, "success": success,
+            "executed_by_round": by_round, "agree_with_cpu": agree, "launches": launches,
+            "probe": {"candidates": int(flat.shape[0]), "max_abs_err_same_cell": perr,
+                      "other_cell": int(other.sum()), "rows_near_margin": int(near_margin.sum()),
+                      "rows_near_tie": int(near_tie.sum()), "picks_differ": int(differ.sum()),
+                      "rows_clearing_margin": int((cc >= 0.03).any(axis=1).sum())}}
+
+
 def metric_profile_phase(torch, sess, best):
     """A second ``torch.profiler`` window: one ``execute_and_validate`` of the
     round's best trajectories at B = 36 (after the round's own calls warmed
@@ -877,9 +991,10 @@ def main() -> int:
 
     best, scored = round_phase(torch, sess, cpu)
     gather, k4["launches"] = gather_phase(torch)
+    adaptive = adaptive_phase(torch, sess, cpu)
 
     # the profile comes last: once a profiler has traced the process, its
-    # kernel launches stay slower, which would inflate the round's seconds
+    # kernel launches stay slower, which would inflate the rounds' seconds
     prof = profile_phase(torch, sess)
     metric_prof = metric_profile_phase(torch, sess, best)
 
@@ -901,7 +1016,7 @@ def main() -> int:
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,
               "peak_memory_bytes": peak, "launches": launches, "profile": prof,
               "metric_profile": metric_prof,
-              "scored_round": scored, "gather_bench": gather,
+              "scored_round": scored, "gather_bench": gather, "adaptive": adaptive,
               "total_s": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

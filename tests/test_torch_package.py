@@ -29,7 +29,7 @@ def _imports(path: Path):
             yield node.module
 
 
-PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "gather_bench_torch.py"]
+PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "gather_bench_torch.py"]
 NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.ops.gather",
                "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver"]
 
@@ -45,7 +45,7 @@ def test_port_imports_no_jax_package():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("target", NEW_MODULES + ["chip_smoke", "tools/gather_bench_torch.py"])
+@pytest.mark.parametrize("target", NEW_MODULES + ["chip_smoke", "bench_torch", "tools/gather_bench_torch.py"])
 def test_importing_the_port_loads_no_jax(target):
     """In a fresh interpreter, importing the module (or loading the script
     without running its entry point) leaves ``sys.modules`` free of JAX and of

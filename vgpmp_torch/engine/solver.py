@@ -1,5 +1,5 @@
-"""Batched planning engine: training, extraction and the scored round (port of
-``vgpmp_tpu/engine/solver.py`` without the adaptive restart engine).
+"""Batched planning engine: training, extraction, the scored round and the
+adaptive restart engine (port of ``vgpmp_tpu/engine/solver.py``).
 
 The JAX engine vmaps a single-problem ``lax.scan`` over the batch; here the
 batch is an explicit leading axis ``B`` and the Adam loop is a Python loop.
@@ -9,7 +9,8 @@ guard must act per problem row, with a step count per row, exactly as
 ``torch.profiler`` (``elbo_forward``, ``elbo_backward``, ``adam_update``,
 then ``extract``); the labels cost nothing while no profiler runs.
 :func:`make_round_solver` adds the metric of every solved row (label
-``validate``).
+``validate``), and :func:`solve_adaptive` drives rounds of it, with restarts
+only for the problems still unsolved.
 """
 
 from __future__ import annotations
@@ -17,19 +18,23 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
-from vgpmp_torch.engine.validator import execute_and_validate
+from vgpmp_torch.convert import report_to_numpy
+from vgpmp_torch.engine.validator import ValidationReport, _min_sphere_clearance, execute_and_validate
 from vgpmp_torch.gp.pathwise import PathNoise
 from vgpmp_torch.kinematics.dh import ee_positions
 from vgpmp_torch.models import vgpmp as planner
 
 __all__ = ["TrainConfig", "SolveResult", "SolveNoise", "BatchedAdam", "default_trainable",
            "lr_schedule", "make_single_solver", "make_batch_solver", "ensemble_score",
-           "make_round_solver"]
+           "make_round_solver", "solve_adaptive", "init_slots", "init_batch",
+           "restart_waypoints", "restart_candidates", "pick_via_points", "min_clearance_probe",
+           "worst_violation_configs"]
 
 
 @dataclass(frozen=True)
@@ -286,3 +291,261 @@ def make_round_solver(model: planner.PlannerModel, cfg: TrainConfig,
         return res.best, reports
 
     return solve
+
+
+def min_clearance_probe(collision, flat: torch.Tensor) -> torch.Tensor:
+    """Worst sphere clearance per configuration, ``[n, L] -> [n]``, by the
+    session's training lookup (``collision.sphere_clearance``: the packed
+    nearest cell on a packed session), not the metric's trilinear one."""
+    with torch.no_grad():
+        return _min_sphere_clearance(collision)(flat)
+
+
+def worst_violation_configs(collision, trajs: np.ndarray) -> np.ndarray:
+    """Deepest-violation configuration along each trajectory, ``[n, T, L] ->
+    [n, L]`` float64: the config at the ``argmin`` over ``T`` of the worst
+    sphere clearance. A NaN clearance counts as the minimum, as in
+    ``jnp.argmin``."""
+    fk = collision.fk
+    q = torch.as_tensor(np.asarray(trajs), dtype=fk.sphere_radii.dtype, device=fk.sphere_radii.device)
+    n, T, L = q.shape
+    clear = min_clearance_probe(collision, q.reshape(n * T, L)).reshape(n, T)
+    worst = q[torch.arange(n, device=q.device), clear.argmin(dim=1)]
+    return worst.cpu().numpy().astype(np.float64)
+
+
+def restart_candidates(model: planner.PlannerModel, starts: np.ndarray, goals: np.ndarray,
+                       interp: str, n_cand: int = 64, anchors: Optional[np.ndarray] = None):
+    """The numpy draws of via-point mode ``interp`` (see :func:`restart_waypoints`).
+
+    ``rand<i>``: ``(via-points [B, L], None)``. ``frand<i>`` and ``detour<i>``:
+    ``(candidates [B, n_cand, L], ref [B, L])``, where ``ref`` is the
+    configuration the pick stays close to (the midpoint, or the anchor of a
+    detour). ``None`` for a mode that is not a via-point mode.
+    """
+    detour = False
+    if interp.startswith("detour"):
+        suffix, biased, detour = interp[6:], True, anchors is not None
+    elif interp.startswith("frand"):
+        suffix, biased = interp[5:], True
+    elif interp.startswith("rand"):
+        suffix, biased = interp[4:], False
+    else:
+        return None
+    if suffix and not suffix.isdigit():
+        raise ValueError(
+            f"via-point init mode {interp!r}: expected 'rand<i>'/'frand<i>'/"
+            f"'detour<i>' with an integer suffix (e.g. 'rand0', 'frand3'), "
+            f"got suffix {suffix!r}"
+        )
+    seed = int(suffix or 0)
+    rng = np.random.default_rng((0xF00D if biased else 0xC0FFEE) + seed)
+    lo = model.limits_low.cpu().numpy().astype(np.float64)
+    hi = model.limits_high.cpu().numpy().astype(np.float64)
+    pad = 0.15 * (hi - lo)
+    B, L = len(starts), lo.shape[0]
+    if not biased:
+        return rng.uniform(lo + pad, hi - pad, size=(B, L)), None
+    if detour:
+        anc = np.asarray(anchors, np.float64)
+        # successive detour restarts explore progressively wider deviations
+        sigma = 0.35 + 0.1 * (seed % 5)
+        cand = np.clip(anc[:, None, :] + rng.normal(scale=sigma, size=(B, n_cand, L)),
+                       lo + pad, hi - pad)
+        cand[:, 0] = np.clip(anc, lo + pad, hi - pad)  # keep the anchor itself
+        return cand, anc
+    cand = rng.uniform(lo + pad, hi - pad, size=(B, n_cand, L))
+    return cand, 0.5 * (np.asarray(starts, np.float64) + np.asarray(goals, np.float64))
+
+
+def pick_via_points(cand: np.ndarray, clear: np.ndarray, ref: np.ndarray,
+                    margin: float = 0.03) -> np.ndarray:
+    """One candidate per row, ``[B, n, L] -> [B, L]``: among candidates whose
+    clearance ``clear [B, n]`` reaches ``margin``, the one closest to ``ref``;
+    where none does, the clearest."""
+    dist = np.linalg.norm(cand - ref[:, None, :], axis=-1)
+    score = np.where(clear >= margin, -dist, -1e6 + clear)
+    return np.take_along_axis(cand, np.argmax(score, axis=1)[:, None, None], axis=1)[:, 0, :]
+
+
+def restart_waypoints(model: planner.PlannerModel, starts: np.ndarray, goals: np.ndarray,
+                      interp: str, n_cand: int = 64, margin: float = 0.03,
+                      anchors: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
+    """Per-problem via-points ``[B, L]`` (float64) for restart init mode ``interp``.
+
+    - ``"rand<i>"``: uniform draw inside the 15 %-shrunk joint box, seeded by i;
+    - ``"frand<i>"``: free-space-biased: ``n_cand`` uniform candidates per
+      problem, their clearance in one :func:`min_clearance_probe` call, then
+      :func:`pick_via_points` from the midpoint;
+    - ``"detour<i>"``: Gaussian perturbations of ``anchors`` (the incumbent's
+      deepest-violation configs, :func:`worst_violation_configs`), the anchor
+      itself kept as candidate 0, picked from the anchor; without anchors
+      it is ``frand``;
+    - anything else: ``None``.
+
+    The draws are numpy's (``default_rng``), so one suffix gives the same
+    candidates in every package and on every device.
+    """
+    drawn = restart_candidates(model, starts, goals, interp, n_cand, anchors)
+    if drawn is None:
+        return None
+    cand, ref = drawn
+    if ref is None:
+        return cand
+    B, n, L = cand.shape
+    flat = torch.as_tensor(cand.reshape(B * n, L), dtype=model.dtype, device=model.device)
+    clear = min_clearance_probe(model.collision, flat).cpu().numpy().astype(np.float64)
+    return pick_via_points(cand, clear.reshape(B, n), ref, margin)
+
+
+def init_slots(model: planner.PlannerModel, starts: np.ndarray, goals: np.ndarray,
+               planner_params: dict, modes: list,
+               anchors: Optional[np.ndarray] = None) -> planner.PlannerParams:
+    """Initial state with the q_mu init mode per row (``modes[j]`` for problem
+    ``j``): ``linear``, ``zeros``, ``waypoint`` (the midpoint) or a via-point
+    mode of :func:`restart_waypoints`, which draws once per distinct mode.
+    ``anchors [B, L]`` feed the ``detour<i>`` rows. One
+    :func:`planner.init_params_batch` call builds the batch."""
+    starts = np.asarray(starts)
+    goals = np.asarray(goals)
+    mode_ids = np.zeros(len(starts), dtype=np.int64)
+    wps = 0.5 * (starts + goals)  # an in-box via-point for the rows that need none
+    groups: dict = {}
+    for j, m in enumerate(modes):
+        groups.setdefault(m, []).append(j)
+    for m, idxs in groups.items():
+        if m in planner.INIT_MODES:
+            mode_ids[idxs] = planner.INIT_MODES[m]
+            continue
+        w = restart_waypoints(model, starts[idxs], goals[idxs], m,
+                              anchors=None if anchors is None else anchors[idxs])
+        if w is None:
+            raise ValueError(f"unknown q_mu init mode {m!r}")
+        mode_ids[idxs] = planner.INIT_MODES["waypoint"]
+        wps[idxs] = w
+    return planner.init_params_batch(
+        model, starts, goals, mode_ids, wps,
+        np.asarray(planner_params["lengthscales"], np.float64), float(planner_params["variance"]),
+        float(planner_params["sigma_obs"]), float(planner_params["alpha"]))
+
+
+def init_batch(model: planner.PlannerModel, starts: np.ndarray, goals: np.ndarray,
+               planner_params: dict) -> planner.PlannerParams:
+    """:func:`init_slots` with the linear q_mu init on every row."""
+    return init_slots(model, starts, goals, planner_params, ["linear"] * len(np.asarray(starts)))
+
+
+def _round_seed(seed: int, rnd: int) -> int:
+    """The generator seed of round ``rnd`` of a run seeded ``seed``."""
+    return int(np.random.SeedSequence((seed, rnd)).generate_state(1)[0])
+
+
+def solve_adaptive(model: planner.PlannerModel, cfg: TrainConfig, starts: np.ndarray,
+                   goals: np.ndarray, planner_params: dict,
+                   inits: Tuple[str, ...] = ("linear", "zeros"), max_rounds: int = 6,
+                   seed: int = 0, trainable: Optional[dict] = None, solve=None,
+                   round_sizes: Optional[Tuple[int, ...]] = None, slots_per_unsolved: int = 1):
+    """Adaptive restart engine: rounds of one scored round solver
+    (:func:`make_round_solver`), restarts only for problems still unsolved.
+
+    - round 0 solves every problem from ``inits[0]``;
+    - each later round fills a bucket of slots with restarts of the unsolved
+      problems (the smallest of ``round_sizes`` that gives each of them
+      ``slots_per_unsolved`` slots, capped at the largest; the packing offset
+      rotates per round so that every unsolved problem gets slots): first the
+      next of the first four configured inits, then failure-informed
+      ``detour`` via-points around the incumbent's deepest violation in turn
+      with the remaining inits and fresh ``frand`` draws;
+    - per problem the best restart under :func:`ensemble_score` is kept; the
+      loop ends once every problem has an executed trajectory.
+
+    ``round_sizes`` defaults to ``(B, max(16, B // 4))``; every size is
+    rounded up to a multiple of ``solve.dp_size`` where the solver has one.
+    Round ``rnd`` draws from one generator on the model's device seeded from
+    ``(seed, rnd)``, so one seed gives one result.
+
+    Returns ``(best [B, Nnew, L] np.ndarray, reports, info)``: a
+    :class:`ValidationReport` of numpy fields, and ``info = {"rounds",
+    "spent", "k_eff", "restarts_per_problem"}``.
+    """
+    starts = np.asarray(starts)
+    goals = np.asarray(goals)
+    B = len(starts)
+    if solve is None:
+        solve = make_round_solver(model, cfg, trainable)
+    mult = int(getattr(solve, "dp_size", 1) or 1)
+    if round_sizes is None:
+        tail = min(B, max(16, B // 4))
+        round_sizes = (B, -(-tail // mult) * mult)
+    else:
+        round_sizes = tuple(min(-(-c // mult) * mult, -(-B // mult) * mult) for c in round_sizes)
+    round_sizes = tuple(sorted(set(round_sizes), reverse=True))
+
+    counters = np.zeros(B, dtype=int)  # restarts consumed per problem
+    best_traj = best_score = merged = None
+    spent = rounds = 0
+    for rnd in range(max_rounds):
+        anchors = None
+        if rnd == 0:
+            slot_prob = np.arange(B)
+            modes = [inits[0]] * B
+            counters[:] = 1
+        else:
+            unsolved = np.nonzero(~merged["executed"])[0]
+            if unsolved.size == 0:
+                break
+            want = min(unsolved.size * slots_per_unsolved, round_sizes[0])
+            C = next((c for c in sorted(round_sizes) if c >= want), round_sizes[0])
+            slot_prob = unsolved[(np.arange(C) + rnd * C) % unsolved.size]
+            modes = []
+            need_anchor = False
+            # the first few configured inits, then detours in turn with the rest
+            head = min(len(inits), 4)
+            for p_idx in slot_prob:
+                r = int(counters[p_idx])
+                if r < head:
+                    modes.append(inits[r])
+                else:
+                    extra = r - head
+                    if extra % 2 == 0:
+                        # unique per (restart index, run seed)
+                        modes.append(f"detour{1000 + 101 * seed + r}")
+                        need_anchor = True
+                    else:
+                        rest = head + extra // 2
+                        modes.append(inits[rest] if rest < len(inits)
+                                     else f"frand{1000 + 101 * seed + r}")
+                counters[p_idx] += 1
+            if need_anchor:
+                anchors = worst_violation_configs(model.collision, best_traj[slot_prob])
+        params = init_slots(model, starts[slot_prob], goals[slot_prob], planner_params, modes,
+                            anchors=anchors)
+        gen = torch.Generator(device=model.device).manual_seed(_round_seed(seed, rnd))
+        best_r, reps_r = solve(params, starts[slot_prob], goals[slot_prob], gen)
+        spent += len(slot_prob)
+        rounds += 1
+        reps_r = report_to_numpy(reps_r)
+        best_r = best_r.detach().cpu().numpy()
+        score_r = ensemble_score(reps_r["executed"], reps_r["success"],
+                                 reps_r["min_clearance"]).numpy().astype(np.float64)
+        if merged is None:
+            best_traj, best_score = best_r.copy(), score_r
+            merged = {k: None if v is None else v.copy() for k, v in reps_r.items()}
+            continue
+        # ascending score, so that each problem's best slot lands last
+        prob_best: dict = {}
+        for j in np.argsort(score_r, kind="stable"):
+            prob_best[int(slot_prob[j])] = int(j)
+        probs = np.fromiter(prob_best.keys(), dtype=int)
+        slots = np.fromiter(prob_best.values(), dtype=int)
+        improve = score_r[slots] > best_score[probs]
+        up, us = probs[improve], slots[improve]
+        if up.size:
+            best_score[up] = score_r[us]
+            best_traj[up] = best_r[us]
+            for k, m in merged.items():
+                if m is not None:
+                    m[up] = reps_r[k][us]
+    info = {"rounds": rounds, "spent": spent, "k_eff": spent / B,
+            "restarts_per_problem": counters.tolist()}
+    return best_traj, ValidationReport(**merged), info
