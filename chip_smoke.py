@@ -12,7 +12,9 @@ Phases, any failure exits non-zero before the result line:
     main path's shapes (franka/industrial: the real packed table and franka
     FK for K1; [252, 12, 12] Grams for K2's factorisation, solves and fused
     pair ([252, 12, 71] right-hand sides in a training step, [252, 12, 251]
-    in the extraction); 36 x 6400 PD-path probes against
+    in the extraction; the lone solves timed at the extraction's 1 and 100
+    columns, lower and transposed, and both lone kernels at the widest
+    problemset's n = 26); 36 x 6400 PD-path probes against
     the real float32 grid for K3, and for its fused entry (the floor compare
     and the per-segment count) the same paths plus a row without motion, a
     NaN row and two random rows; the gather benchmark's tables for K4, and
@@ -26,9 +28,12 @@ Phases, any failure exits non-zero before the result line:
     small-input ELBO check against the CPU's plain path;
 (d) a ``torch.profiler`` window over a 20-step solve: device busy share,
     kernels by device time, host time per solver span, device launches and
-    K2 launches per Adam step; and a second window over one
+    K2 launches per Adam step; a second window over one
     ``execute_and_validate`` of the round's best trajectories: device busy
-    ms, device launches, K3's device ms (run last, after (g));
+    ms, device launches, K3's device ms; and a third over lone launches of
+    ``k2_chol``, ``k2_trsm`` (k = 1 and 100, lower and transposed) and K4 at
+    one point: each kernel's device-only time beside its event time (run
+    last, after (g));
 (e) the scored round: ``make_round_solver`` on the 36 queries at 200 steps
     (solve, best sample, then ``execute_and_validate`` of every row: two K3
     launches, the fused probe entry and the endpoints), with the verdicts
@@ -38,8 +43,8 @@ Phases, any failure exits non-zero before the result line:
     the tuned inits (round 0 from ``frand5``), 8 rounds at most, one bucket of
     36 slots, seed 0; the merged verdicts held against the CPU plain path on
     the same trajectories, and the free-space probe behind ``frand5`` held
-    against the CPU plain path on round 0's 36 x 64 candidates (run before
-    the profiles of (d)).
+    against the CPU plain path on round 0's 36 x 64 candidates, and the lone
+    K2 launches per round counted (run before the profiles of (d)).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. A detailed record goes to
@@ -236,22 +241,51 @@ def k2_phase(torch, sess, flush):
     log("K2 check (relative / absolute): "
         + ", ".join(f"{k} {v:.2e} / {worst_abs[k]:.2e}" for k, v in worst.items()))
 
+    def time_chol(K):
+        """``k2_chol`` at ``[T, n, n]`` beside the plain version,
+        ``torch.linalg.cholesky`` and the bound."""
+        Tt, nt = K.shape[0], K.shape[-1]
+        b_ms, b_by = bound_ms(2 * Tt * nt * nt * 8, Tt * nt ** 3 / 3, F64_FLOPS)
+        return {"ms": time_ms(lambda: la.k2_chol(K), flush=flush),
+                "plain_ms": time_ms(lambda: la.cholesky_unrolled(K), flush=flush),
+                "library_ms": time_ms(lambda: torch.linalg.cholesky(K), flush=flush),
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    def time_trsm(L, k):
+        """``k2_trsm`` at ``[T, n, k]``, lower and transposed, beside the plain
+        version, ``solve_triangular`` and the bound."""
+        Tt, nt = L.shape[0], L.shape[-1]
+        Bm = torch.randn((Tt, nt, k), generator=gen, device=dev, dtype=torch.float64)
+        b_ms, b_by = bound_ms((Tt * nt * nt + 2 * Tt * nt * k) * 8, Tt * nt * nt * k, F64_FLOPS)
+        return {"ms": time_ms(lambda: la.k2_trsm(L, Bm, False), flush=flush),
+                "plain_ms": time_ms(lambda: la.solve_lower_unrolled(L, Bm), flush=flush),
+                "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bm, upper=False),
+                                      flush=flush),
+                "upper_t_ms": time_ms(lambda: la.k2_trsm(L, Bm, True), flush=flush),
+                "upper_t_plain_ms": time_ms(lambda: la.solve_upper_T_unrolled(L, Bm), flush=flush),
+                "upper_t_library_ms": time_ms(
+                    lambda: torch.linalg.solve_triangular(L.mT, Bm, upper=True), flush=flush),
+                "bound_ms": b_ms, "bound_by": b_by}
+
     Kc = rand[ok].contiguous()
-    L = la.k2_chol(Kc)
-    chol = {"ms": time_ms(lambda: la.k2_chol(Kc), flush=flush),
-            "plain_ms": time_ms(lambda: la.cholesky_unrolled(Kc), flush=flush),
-            "library_ms": time_ms(lambda: torch.linalg.cholesky(Kc), flush=flush)}
     Tm = Kc.shape[0]
-    chol["bound_ms"], chol["bound_by"] = bound_ms(2 * Tm * n * n * 8, Tm * n ** 3 / 3, F64_FLOPS)
-    trsm = {}
-    for k in (1, 20, 50, 100, 150):
-        Bm = torch.randn((Tm, n, k), generator=gen, device=dev, dtype=torch.float64)
-        b_ms, b_by = bound_ms((Tm * n * n + 2 * Tm * n * k) * 8, Tm * n * n * k, F64_FLOPS)
-        trsm[k] = {"ms": time_ms(lambda: la.k2_trsm(L, Bm, False), flush=flush),
-                   "plain_ms": time_ms(lambda: la.solve_lower_unrolled(L, Bm), flush=flush),
-                   "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bm, upper=False),
-                                         flush=flush),
-                   "bound_ms": b_ms, "bound_by": b_by}
+    L = la.k2_chol(Kc)
+    chol = time_chol(Kc)
+    # the main path's widths: the extraction's mean (k = 1) and its grid of
+    # 100 times, lower and transposed; 20, 50 and 150 beside them
+    trsm = {k: time_trsm(L, k) for k in (1, 20, 50, 100, 150)}
+    # the widest problemset's Mc (26, num_inducing 24), random SPD
+    n26 = 26
+    G26 = torch.randn((Tm, n26, n26), generator=gen, device=dev, dtype=torch.float64)
+    K26 = G26 @ G26.mT + n26 * torch.eye(n26, device=dev, dtype=torch.float64)
+    L26 = la.k2_chol(K26)
+    at26 = {"chol": time_chol(K26), "trsm": {k: time_trsm(L26, k) for k in (1, 100)}}
+    B26 = torch.randn((Tm, n26, 100), generator=gen, device=dev, dtype=torch.float64)
+    err26 = max([errs(L26, la.cholesky_unrolled(K26))[1]]
+                + [errs(la.k2_trsm(L26, B26, up), fp(L26, B26))[1]
+                   for up, fp in ((False, la.solve_lower_unrolled), (True, la.solve_upper_T_unrolled))])
+    assert err26 <= 1e-9, f"K2 at n = 26: {err26}"
+    at26["max_rel_err"] = err26
     # the fused pair at the main path's widths. A training step: the draw's 20
     # columns, the time grid's 50 and the variational mean's one. The
     # extraction (forward only): 150 draws, 100 times and the mean. The library
@@ -287,7 +321,11 @@ def k2_phase(torch, sess, flush):
         (3 * Tm * n * n + 3 * Tm * n * kf) * 8, Tm * (2 * n * n * kf + 7 * n ** 3 / 3), F64_FLOPS)
     log(f"K2 chol [{Tm},{n},{n}]: " + json.dumps(chol))
     for k, v in trsm.items():
-        log(f"K2 trsm lower [{Tm},{n},{k}]: " + json.dumps(v))
+        log(f"K2 trsm [{Tm},{n},{k}] (lower, and upper_t): " + json.dumps(v))
+    log(f"K2 chol [{Tm},{n26},{n26}]: " + json.dumps(at26["chol"]))
+    for k, v in at26["trsm"].items():
+        log(f"K2 trsm [{Tm},{n26},{k}] (lower, and upper_t): " + json.dumps(v))
+    log(f"K2 at n = {n26}: max relative error {err26:.2e} (<= 1e-9)")
     for k, v in fused_by_k.items():
         log(f"K2 fused forward [{Tm},{n},{n}] + [{Tm},{n},{k}]: " + json.dumps(v))
     log(f"K2 fused backward, same shapes: " + json.dumps(fused_bwd))
@@ -299,10 +337,11 @@ def k2_phase(torch, sess, flush):
     return [
         {"name": "k2_chol", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
          "replaces": "vgpmp_tpu/ops/linalg.py:30", **worst_of("chol"), **chol,
-         "shape": [Tm, n, n]},
+         "shape": [Tm, n, n], "at_n26": at26["chol"]},
+        # the row at the extraction's grid of 100 times (gp/posterior.py)
         {"name": "k2_trsm", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
-         "replaces": "vgpmp_tpu/ops/linalg.py:52", **worst_of("trsm"), **trsm[50],
-         "shape": [Tm, n, 50], "by_k": trsm},
+         "replaces": "vgpmp_tpu/ops/linalg.py:52", **worst_of("trsm"), **trsm[100],
+         "shape": [Tm, n, 100], "by_k": trsm, "at_n26": at26["trsm"]},
         {"name": "k2_factor_solve", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
          "replaces": "vgpmp_tpu/ops/linalg.py:30", **worst_of("fused"), **fused,
          "shape": [Tm, n, kf], "by_k": fused_by_k},
@@ -809,7 +848,7 @@ def adaptive_phase(torch, sess, cpu):
 
     counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd, k3_min_clearance,
                 k3_probe_clearance)
-    for c in counters:
+    for c in (*counters, la.k2_chol):
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -818,6 +857,9 @@ def adaptive_phase(torch, sess, cpu):
                                              solve=solve, round_sizes=(B,))
     t_adaptive = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    # the lone factorisation and solves a round: the extraction's three solves,
+    # and no factorisation (only the escalation path launches one)
+    lone_per_round = {c.__name__: c.launches / info["rounds"] for c in (la.k2_trsm, la.k2_chol)}
     by_round = [int(e.sum()) for e in executed_by_round]
     executed, success = int(reps.executed.sum()), int(reps.success.sum())
 
@@ -830,7 +872,8 @@ def adaptive_phase(torch, sess, cpu):
     log(f"(g) solve_adaptive, B={B}, inits {list(inits)}, max_rounds 8: {info['rounds']} rounds in "
         f"{t_adaptive:.3f} s, k_eff {info['k_eff']:.3f}, restarts per problem "
         f"{info['restarts_per_problem']}; executed {executed}/{B} (by round, of the round's slots: "
-        f"{by_round}), success {success}/{B}; launches {launches}")
+        f"{by_round}), success {success}/{B}; launches {launches}; lone K2 launches per round "
+        f"{lone_per_round}")
     log(f"    card vs CPU plain path on the merged trajectories: executed agrees on {agree['executed']}/{B}, "
         f"success on {agree['success']}/{B}")
 
@@ -887,6 +930,7 @@ def adaptive_phase(torch, sess, cpu):
     assert all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}"
     return {"adaptive_s": t_adaptive, "info": info, "executed": executed, "success": success,
             "executed_by_round": by_round, "agree_with_cpu": agree, "launches": launches,
+            "lone_k2_launches_per_round": lone_per_round,
             "probe": {"candidates": int(flat.shape[0]), "max_abs_err_same_cell": perr,
                       "other_cell": int(other.sum()), "rows_near_margin": int(near_margin.sum()),
                       "rows_near_tie": int(near_tie.sum()), "picks_differ": int(differ.sum()),
@@ -926,6 +970,59 @@ def metric_profile_phase(torch, sess, best):
     for t in rec["top_kernels"]:
         log(f"  {t['device_ms']:9.4f} ms  x{t['count']:<6d} {t['name']}")
     assert k3_us > 0, "the metric's profile shows no K3 launch"
+    return rec
+
+
+def kernel_profile_phase(torch, sess, k2, k4, reps: int = 20):
+    """A third ``torch.profiler`` window, the last of the run: the device-only
+    duration (CUPTI) of ``k2_chol`` at [251, 12, 12], ``k2_trsm`` at the main
+    path's [251, 12, 1] and [251, 12, 100], lower and transposed, and K4 at one
+    point, each launched ``reps`` times after an L2 flush, beside their
+    event-timed ms from (b), which include the launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.ops.gather import k4_gather
+    from vgpmp_torch.timing import l2_flush_buffer
+
+    dev = sess.device
+    gen = torch.Generator(device=dev).manual_seed(23)
+    T, n = 251, 12
+    G = torch.randn((T, n, n), generator=gen, device=dev, dtype=torch.float64)
+    K = G @ G.mT + n * torch.eye(n, device=dev, dtype=torch.float64)
+    L = la.k2_chol(K)
+    B1, B100 = (torch.randn((T, n, k), generator=gen, device=dev, dtype=torch.float64) for k in (1, 100))
+    table = torch.arange(1024, dtype=torch.int32, device=dev)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    trsm = k2[1]["by_k"]
+    cases = [("k2_chol [251,12,12]", "chol_kernel", lambda: la.k2_chol(K), k2[0]["ms"]),
+             ("k2_trsm [251,12,1] lower", "trsm_kernel", lambda: la.k2_trsm(L, B1, False), trsm[1]["ms"]),
+             ("k2_trsm [251,12,1] upper_t", "trsm_kernel", lambda: la.k2_trsm(L, B1, True),
+              trsm[1]["upper_t_ms"]),
+             ("k2_trsm [251,12,100] lower", "trsm_kernel", lambda: la.k2_trsm(L, B100, False),
+              trsm[100]["ms"]),
+             ("k2_trsm [251,12,100] upper_t", "trsm_kernel", lambda: la.k2_trsm(L, B100, True),
+              trsm[100]["upper_t_ms"]),
+             ("k4_gather at one point", "gather_kernel", lambda: k4_gather(table, one), k4["timer_floor_ms"])]
+    flush = l2_flush_buffer(dev)
+    rec = {}
+    for label, kernel, fn, event_ms in cases:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and kernel in e.key]
+        count = sum(e.count for e in ev)
+        device_ms = sum(e.self_device_time_total for e in ev) / 1e3 / max(count, 1)
+        rec[label] = {"device_ms": device_ms, "event_ms": event_ms, "launches": count}
+        log(f"(d) device-only {label}: {device_ms:.4f} ms a launch over {count} launches (event-timed "
+            f"{event_ms:.4f} ms with the launch)")
+        assert count == reps, f"the profile of {label} shows {count} launches of {kernel}, not {reps}"
     return rec
 
 
@@ -997,6 +1094,7 @@ def main() -> int:
     # kernel launches stay slower, which would inflate the rounds' seconds
     prof = profile_phase(torch, sess)
     metric_prof = metric_profile_phase(torch, sess, best)
+    kernel_prof = kernel_profile_phase(torch, sess, k2, k4)
 
     k1["launches"] = launches["k1_loglik"]
     k2[0]["launches"] = escalating["launches"]["k2_chol"]
@@ -1015,7 +1113,7 @@ def main() -> int:
               "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,
               "peak_memory_bytes": peak, "launches": launches, "profile": prof,
-              "metric_profile": metric_prof,
+              "metric_profile": metric_prof, "kernel_device_profile": kernel_prof,
               "scored_round": scored, "gather_bench": gather, "adaptive": adaptive,
               "total_s": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"

@@ -94,20 +94,36 @@ def test_k1_matches_plain_on_card(robot, cuda_device):
         torch.testing.assert_close(model.log_prob(q, sigma), lik_k.detach())
 
 
+# (n, T, k): the main path's [252, 12, k] first; then every unroll bucket's
+# edge and every problemset Mc (9, 12, 14, 16, 17, 20, 26 are num_inducing + 2),
+# at matrix counts that leave a packed warp or block part-filled (T = 3, 253)
+# or hold one matrix alone, and at column counts either side of the solve's
+# packing (16 | 17) and of its 128-column tile
+K2_CASES = [(12, 252, 1), (12, 252, 20), (12, 252, 50), (12, 252, 100),
+            (1, 3, 1), (2, 253, 2), (4, 1, 12), (5, 251, 16), (8, 253, 17), (9, 3, 100),
+            (12, 251, 1), (12, 251, 100), (13, 253, 128), (14, 251, 12), (16, 3, 129),
+            (17, 251, 300), (20, 253, 1), (24, 1, 2), (26, 251, 100), (26, 253, 12), (28, 3, 16),
+            (29, 251, 17), (32, 253, 300)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 20, 50, 100])
-def test_k2_matches_plain_on_card(cuda_device, k):
-    """K2 forward and backward against the plain versions at main-path shapes
-    ([252, 12, 12]); float64 on well-conditioned input, so 1e-9 relative."""
-    rng = np.random.default_rng(k)
-    K = torch.as_tensor(_spd(rng, 252, 12), device=cuda_device)
-    K[7] = -K[7]  # one non-SPD matrix: NaN on both sides
-    Bm = torch.as_tensor(rng.normal(size=(252, 12, k)), device=cuda_device)
+@pytest.mark.parametrize("n,T,k", K2_CASES)
+def test_k2_matches_plain_on_card(cuda_device, n, T, k):
+    """K2's lone factorisation and solves, forward and backward (``_CholFn``,
+    ``_TrsmFn``), against the plain versions; float64 on well-conditioned
+    input, so 1e-9 relative. One non-SPD matrix (where T > 1) gives NaN in
+    itself and in no neighbour packed into its warp or block."""
+    rng = np.random.default_rng(1000 * n + T + k)
+    K = torch.as_tensor(_spd(rng, T, n), device=cuda_device)
+    Bm = torch.as_tensor(rng.normal(size=(T, n, k)), device=cuda_device)
+    ok = torch.ones(T, dtype=torch.bool, device=cuda_device)
+    if T > 1:
+        K[T // 2] = -K[T // 2]  # NaN on both sides, in this matrix only
+        ok[T // 2] = False
     L_k = la.chol(K)
     L_p = la.cholesky_unrolled(K)
-    assert torch.isnan(L_k[7]).any() and torch.isnan(L_p[7]).any()
-    ok = torch.ones(252, dtype=torch.bool, device=cuda_device)
-    ok[7] = False
+    if T > 1:
+        assert torch.isnan(L_k[T // 2]).any() and torch.isnan(L_p[T // 2]).any()
     torch.testing.assert_close(L_k[ok], L_p[ok], rtol=1e-9, atol=1e-12)
     for fn, plain in [(la.solve_lower, la.solve_lower_unrolled),
                       (la.solve_upper_T, la.solve_upper_T_unrolled)]:
@@ -119,7 +135,11 @@ def test_k2_matches_plain_on_card(cuda_device, k):
         g_p = torch.autograd.grad(ref.square().sum(), [Kp, Bp])
         torch.testing.assert_close(out, ref, rtol=1e-9, atol=1e-12)
         for a, b in zip(g_k, g_p):
-            torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10 * b.abs().max().item())
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-10 * b.abs().max().item())
+        X = fn(L_k, Bm)  # the non-SPD matrix's factor among the others
+        if T > 1:
+            assert torch.isnan(X[T // 2]).any()
+        torch.testing.assert_close(X[ok], ref.detach(), rtol=1e-9, atol=1e-12)
 
 
 @pytest.mark.cuda

@@ -67,7 +67,8 @@ def test_kernels_match_jax(kernel):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-14)
 
 
-@pytest.mark.parametrize("n", [2, 12, 26])
+# n: 2 and every problemset's Mc (num_inducing + 2): the kernel's unroll buckets
+@pytest.mark.parametrize("n", [2, 9, 12, 14, 16, 17, 20, 26])
 def test_plain_linalg_matches_jax(n):
     rng = np.random.default_rng(n)
     K = _spd(rng, 5, n)

@@ -29,7 +29,8 @@ def _imports(path: Path):
             yield node.module
 
 
-PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "gather_bench_torch.py"]
+PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "gather_bench_torch.py",
+                ROOT / "tools" / "k2_designs.py"]
 NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.ops.gather",
                "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver"]
 
@@ -45,7 +46,8 @@ def test_port_imports_no_jax_package():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("target", NEW_MODULES + ["chip_smoke", "bench_torch", "tools/gather_bench_torch.py"])
+@pytest.mark.parametrize("target", NEW_MODULES + ["chip_smoke", "bench_torch", "tools/gather_bench_torch.py",
+                                                   "tools/k2_designs.py"])
 def test_importing_the_port_loads_no_jax(target):
     """In a fresh interpreter, importing the module (or loading the script
     without running its entry point) leaves ``sys.modules`` free of JAX and of
@@ -78,6 +80,16 @@ def test_gather_benchmark_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         gather_bench_torch.main()
+
+
+def test_k2_designs_refuses_without_cuda(monkeypatch, capsys):
+    """The K2 design comparison has no CPU mode: it exits non-zero."""
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import k2_designs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert k2_designs.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_round_solver_runs_where_its_model_lives(monkeypatch):
