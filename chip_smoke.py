@@ -44,9 +44,23 @@ Phases, any failure exits non-zero before the result line:
     36 slots, seed 0; the merged verdicts held against the CPU plain path on
     the same trajectories, and the free-space probe behind ``frand5`` held
     against the CPU plain path on round 0's 36 x 64 candidates, and the lone
-    K2 launches per round counted (run before the profiles of (d)).
+    K2 launches per round counted (run before the profiles of (d));
+(h) every other combo of the matrix (``benchmarking_torch.ALL_COMBOS``: kuka,
+    wam and ur10 FK through K1 and K3, M up to 24, which is Mc 26 in K2's
+    fused pair, the bookshelves and lab grids, B up to 91): the tuned packed
+    session, one ``make_round_solver`` round at the problemset's own B, steps,
+    S, N and M from its first tuned init, its verdicts held against the CPU
+    plain path on the same trajectories;
+(i) ``PlanningSession.from_config`` on a reference-schema YAML with σ_obs and
+    alpha trainable: K1's d/dσ (the forward that also writes h², then
+    ``k1_dsigma``) held against its plain version at 36 000 x 37 and timed
+    beside the frozen forward, then a 200-step B = 36 solve through it,
+    whose σ_obs and alpha must move and stay finite;
+(j) the scored round of (e) with ``randomize_timesteps`` (each row's own
+    sorted uniform training grid).
 
-Prints the card's name and power limit, a ``kernels`` JSON line, and as the
+(d)'s profiles run last. Prints the card's name and power limit, a
+``kernels`` JSON line (K1 and its d/dσ pair, K2, K3, K4), and as the
 last line ``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
 """
@@ -78,6 +92,23 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_inputs(torch, sess):
+    """K1's inputs at the main path's shape: configs ``[B, S, N, L]`` near
+    the straight lines between the queries, half of the samples uniform over
+    the joint box (so that many spheres sit inside obstacles and the hinge and
+    its gradient are exercised), clipped to the limits."""
+    dev = sess.device
+    starts, goals = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in sess.queries())
+    B, S, N, L = starts.shape[0], 20, 50, starts.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    frac = torch.linspace(0, 1, N, device=dev)[None, None, :, None]
+    q = starts[:, None, None] + (goals - starts)[:, None, None] * frac
+    q = q + 0.15 * torch.randn((B, S, N, L), generator=gen, device=dev)
+    lo, hi = sess.model.limits_low, sess.model.limits_high
+    q[:, S // 2:] = lo + (hi - lo) * torch.rand((B, S - S // 2, N, L), generator=gen, device=dev)
+    return torch.minimum(torch.maximum(q, lo), hi).contiguous()
+
+
 def k1_phase(torch, sess, flush):
     """K1 against ``log_prob_plain``, which on the card is plain PyTorch end to
     end (FK, ``packed_lookup_plain``'s gather and unpack, the hinge)."""
@@ -88,17 +119,8 @@ def k1_phase(torch, sess, flush):
 
     model = sess.model.collision
     dev = sess.device
-    starts, goals = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in sess.queries())
-    B, S, N, L = starts.shape[0], 20, 50, starts.shape[1]
-    gen = torch.Generator(device=dev).manual_seed(11)
-    frac = torch.linspace(0, 1, N, device=dev)[None, None, :, None]
-    q = starts[:, None, None] + (goals - starts)[:, None, None] * frac
-    q = q + 0.15 * torch.randn((B, S, N, L), generator=gen, device=dev)
-    # half the samples uniform over the joint box, so that many spheres sit
-    # inside obstacles and the hinge and its gradient are exercised
-    lo, hi = sess.model.limits_low, sess.model.limits_high
-    q[:, S // 2:] = lo + (hi - lo) * torch.rand((B, S - S // 2, N, L), generator=gen, device=dev)
-    q = torch.minimum(torch.maximum(q, lo), hi).contiguous()
+    q = k1_inputs(torch, sess)
+    B, S, N, L = q.shape
     sigma = torch.full((B, model.fk.sphere_radii.shape[0]), 0.005, device=dev)
 
     qk = q.clone().requires_grad_()
@@ -152,7 +174,8 @@ def k1_phase(torch, sess, flush):
             "max_rel_err": err / lik_p.abs().max().item(), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "other_voxel_share": share, "hinge_active_share": active, "max_grad_err": gerr,
-            "grad_scale": gscale, "ms_forward_only": ms_fwd, "sectors": sectors}
+            "grad_scale": gscale, "ms_forward_only": ms_fwd, "sectors": sectors, "nbytes": nbytes,
+            "flops": flops}
 
 
 def k2_phase(torch, sess, flush):
@@ -937,6 +960,282 @@ def adaptive_phase(torch, sess, cpu):
                       "rows_clearing_margin": int((cc >= 0.03).any(axis=1).sum())}}
 
 
+def combos_phase(torch):
+    """(h) every other robot x environment combo of the matrix at full width,
+    one scored round each: the tuned, packed session, one
+    ``make_round_solver`` round at the problemset's own B, steps, S, N and M
+    from its first tuned init (seed 0), its verdicts held against the port's
+    CPU plain path on the same trajectories. The CPU session skips the packed
+    table (``sdf_mode="nearest"``): the metric reads only the trilinear grid."""
+    from benchmarking_torch import ALL_COMBOS
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods.collision import k1_loglik, k3_min_clearance, k3_probe_clearance
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.session import PlanningSession
+
+    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd, k3_min_clearance,
+                k3_probe_clearance)
+    rec = {}
+    for robot, ps in ALL_COMBOS[1:]:
+        t0 = time.perf_counter()
+        sess = PlanningSession(robot, ps)
+        torch.cuda.synchronize()
+        t_sess = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = PlanningSession(robot, ps, sdf_mode="nearest", device="cpu")
+        t_cpu_sess = time.perf_counter() - t0
+        starts, goals = sess.queries()
+        B, pp, cfg, m = len(starts), sess.planner_params, sess.train_config, sess.model
+        init = pp["q_mu_inits"][0]
+        params = solver.init_slots(m, starts, goals, pp, [init] * B)
+        solve = solver.make_round_solver(m, cfg)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best, rep = solve(params, starts, goals, torch.Generator(device=sess.device).manual_seed(0))
+        torch.cuda.synchronize()
+        t_round = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        st, gl = (torch.as_tensor(x, dtype=torch.float32) for x in (starts, goals))
+        with torch.no_grad():
+            ref = execute_and_validate(cpu.model.collision, best.cpu(), st, gl, cpu.model.limits_low,
+                                       cpu.model.limits_high)
+        counts = {k: int(getattr(rep, k).sum()) for k in
+                  ("executed", "success", "collision_free", "endpoints_ok", "limits_ok")}
+        agree = {k: int((getattr(rep, k).cpu() == getattr(ref, k)).sum()) for k in ("executed", "success")}
+        clear_err = (rep.min_clearance.cpu() - ref.min_clearance).abs().max().item()
+        shape = dict(B=B, steps=cfg.num_steps, S=m.num_samples, N=cfg.time_spacing_X, M=m.num_inducing,
+                     Xnew=cfg.time_spacing_Xnew, dof=m.num_latent,
+                     spheres=int(m.collision.fk.sphere_radii.shape[0]),
+                     sigma_anneal=cfg.sigma_anneal, epsilon=m.collision.epsilon)
+        log(f"(h) {robot}/{ps} {json.dumps(shape)}: session {t_sess:.2f} s (CPU twin {t_cpu_sess:.2f} s), "
+            f"round from {init} {t_round:.3f} s; of {B} rows: "
+            + ", ".join(f"{k} {v}" for k, v in counts.items())
+            + f"; card vs CPU plain path: executed agrees on {agree['executed']}/{B}, success on "
+            f"{agree['success']}/{B}, max |d min_clearance| {clear_err:.3e} m; launches {launches}")
+        assert list(best.shape) == [B, cfg.time_spacing_Xnew, m.num_latent] and torch.isfinite(best).all()
+        assert counts["endpoints_ok"] == B and counts["limits_ok"] == B, counts
+        assert counts["executed"] >= 1, f"{robot}/{ps}: no row of the round was executed"
+        assert min(agree.values()) >= B - 2, f"{robot}/{ps}: verdicts disagree with the CPU plain path: {agree}"
+        assert clear_err <= 1e-4, f"{robot}/{ps}: min_clearance disagrees with the CPU plain path: {clear_err}"
+        assert launches["k1_loglik"] >= cfg.num_steps and all(v > 0 for v in launches.values()), launches
+        assert launches["k3_min_clearance"] == 1 and launches["k3_probe_clearance"] == 1, launches
+        rec[f"{robot}/{ps}"] = {"shape": shape, "init": init, "session_s": t_sess, "cpu_session_s": t_cpu_sess,
+                                "round_s": t_round, "counts": counts, "agree_with_cpu": agree,
+                                "min_clearance_max_err_vs_cpu": clear_err, "launches": launches}
+        del sess, cpu, m, solve, params, best, rep
+        torch.cuda.empty_cache()
+    return rec
+
+
+# A reference-schema parameters.yaml: franka in the industrial scene, benchmark
+# mode, with the likelihood variance (sigma_obs) and alpha trainable.
+TRAINABLE_YAML = """\
+- robot:
+    robot_name: "franka"
+- scene:
+    position: [0.0, 0.0, 0.0]
+    orientation: [0.0, 0.0, 0.0, 1.0]
+    environment_name: "industrial"
+    environment_file_name: "industrial"
+    sdf_file_name: "industrial"
+    objects: []
+    benchmark: True
+    benchmark_attributes:
+      problemset_name: "industrial"
+    non_benchmark_attributes:
+- trainable_params:
+    q_mu: True
+    q_sqrt: True
+    lengthscales: True
+    kernel_variance: True
+    sigma_obs: True
+    inducing_variable: False
+    alpha: True
+- graphics:
+    visuals: False
+"""
+
+
+def trainable_phase(torch, flush, k1):
+    """(i) the YAML entry with σ_obs and alpha trainable: K1's d/dσ (the
+    forward that also writes h², then ``k1_dsigma``) held against its plain
+    version at the main path's 36 000 x 37, timed beside the frozen forward,
+    then a 200-step B = 36 solve from ``PlanningSession.from_config``."""
+    import tempfile
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.session import PlanningSession
+    from vgpmp_torch.timing import time_ms
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "parameters.yaml"
+        path.write_text(TRAINABLE_YAML)
+        t0 = time.perf_counter()
+        sess = PlanningSession.from_config(path)
+        t_sess = time.perf_counter() - t0
+    assert sess.trainable["sigma_obs_u"] and sess.trainable["alpha_u"], sess.trainable
+    model, dev = sess.model.collision, sess.device
+    q = k1_inputs(torch, sess)
+    B, S, N, L = q.shape
+    P = model.fk.sphere_radii.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    sigma = 0.003 + 0.005 * torch.rand((B, P), generator=gen, device=dev)
+    g = torch.randn((B, S, N), generator=gen, device=dev)
+
+    def grads(fn, weight):
+        qq, ss = q.clone().requires_grad_(), sigma.clone().requires_grad_()
+        lik = fn(qq, ss)
+        return (lik.detach(), *torch.autograd.grad((weight * lik).sum(), [qq, ss]))
+
+    lik_k, dq_k, ds_k = grads(model.log_prob, g)
+    lik_p, dq_p, _ = grads(lambda a, b: col.log_prob_plain(model, a, b), g)
+    # as in (b): a config whose sphere lands in the neighbouring voxel on one
+    # side only is left out (weight 0) of the d/dσ comparison
+    close = torch.isclose(lik_k, lik_p, rtol=1e-5, atol=1e-3)
+    gm = g * close
+    _, _, ds_km = grads(model.log_prob, gm)
+    _, _, ds_pm = grads(lambda a, b: col.log_prob_plain(model, a, b), gm)
+    q2, g2 = q.reshape(-1, L), gm.reshape(-1)
+    lik_h, dq_h, h2 = col.k1_loglik(model, q2, sigma, True, True)
+    lik_f, dq_f, _ = col.k1_loglik(model, q2, sigma, True)
+    torch.cuda.synchronize()
+    same_forward = bool(torch.equal(lik_h, lik_f) and torch.equal(dq_h, dq_f))
+    # the reduction alone: the kernel on its own h² against the float64 sum of
+    # the same terms; tolerance 1e-5 of Σ|g| h² / (2σ²), the float32 sum of
+    # 1 000 terms of either sign in another order
+    ds_dev = col.k1_dsigma(g2, h2, sigma)
+    ref64 = col.dsigma_plain(g2.double(), h2.double(), sigma.double())
+    scale = col.dsigma_plain(g2.abs().double(), h2.double(), sigma.double())
+    red_err = ((ds_dev.double() - ref64).abs() / scale.clamp(min=1e-30)).max().item()
+    # end to end against autograd through the plain version (float32 both):
+    # 1e-4 of the same scale (h from float32 FK in both, summed in other orders)
+    e2e_err = ((ds_km - ds_pm).abs().double() / scale.clamp(min=1e-30)).max().item()
+    err = (lik_k - lik_p)[close].abs().max().item()
+    gerr = (dq_k - dq_p)[close].abs().max().item()
+    gscale = dq_p.abs().max().item()
+    no_contact = int((scale == 0).all(dim=1).sum())
+    log(f"(i) K1 d/dσ check at {B * S * N} x {P}: forward with h² equal to the frozen forward (lik and "
+        f"d/dq): {same_forward}; max |dlik| {err:.3e}, max |d grad_q| {gerr:.3e} of {gscale:.3e} "
+        f"(other-voxel share {(~close).float().mean().item():.2e}); d/dσ: reduction vs float64 "
+        f"{red_err:.2e} of the absolute sum (<= 1e-5), end to end vs the plain version {e2e_err:.2e} "
+        f"(<= 1e-4), max |dσ| {ds_km.abs().max().item():.4e}, rows without contact {no_contact}")
+    assert same_forward, "K1's σ-grad forward differs from the frozen forward"
+    assert (~close).float().mean().item() <= 1e-3 and gerr <= 1e-3 * gscale + 1e-6
+    assert torch.isfinite(ds_k).all() and torch.isfinite(ds_dev).all()
+    assert red_err <= 1e-5, f"k1_dsigma disagrees with the float64 sum: {red_err}"
+    assert e2e_err <= 1e-4, f"K1's d/dσ disagrees with the plain version: {e2e_err}"
+
+    T = q2.shape[0]
+    ms = time_ms(lambda: col.k1_dsigma(g2, h2, sigma), reps=100, flush=flush)
+    plain_ms = time_ms(lambda: col.dsigma_plain(g2, h2, sigma), flush=flush)
+    ms_h2 = time_ms(lambda: col.k1_loglik(model, q2, sigma, True, True), reps=100, flush=flush)
+    ms_frozen = time_ms(lambda: col.k1_loglik(model, q2, sigma, True), reps=100, flush=flush)
+
+    def plain_fwd_bwd():
+        qq, ss = q.clone().requires_grad_(), sigma.clone().requires_grad_()
+        torch.autograd.grad(col.log_prob_plain(model, qq, ss).sum(), [qq, ss])
+
+    plain_h2_ms = time_ms(plain_fwd_bwd, reps=5, flush=flush)
+    # k1_dsigma reads h² and g once and writes [B, P]; 2 operations a term
+    b_ms, b_by = bound_ms((T * P + T + 2 * B * P) * 4, 2 * T * P, F32_FLOPS)
+    # the σ-grad forward: K1's bytes and operations plus h² written
+    bh_ms, bh_by = bound_ms(k1["nbytes"] + T * P * 4, k1["flops"], F32_FLOPS)
+    log(f"(i) K1 d/dσ time: k1_dsigma {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+        f"{(T * P + T) * 4 / 1e6:.2f} MB read); forward with h² {ms_h2:.4f} ms against the frozen forward "
+        f"{ms_frozen:.4f} ms (plain forward and backward with σ {plain_h2_ms:.4f} ms, bound {bh_ms:.4f} ms "
+        f"by {bh_by}: {T * P * 4 / 1e6:.2f} MB of h² written)")
+
+    # the solve: 200 steps at B = 36 from the linear init, the file's mask
+    starts, goals = sess.queries()
+    pp, cfg = sess.planner_params, sess.train_config
+    params = solver.init_batch(sess.model, starts, goals, pp)
+    solve = solver.make_batch_solver(sess.model, cfg, sess.trainable)
+    counters = (col.k1_loglik, col.k1_dsigma, la.k2_factor_solve, la.k2_factor_solve_bwd)
+    for c in counters:
+        c.launches = 0
+    col.k1_loglik.launches_h2 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, res = solve(params, starts, goals, torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    launches["k1_loglik_h2"] = col.k1_loglik.launches_h2
+    c0 = planner.constrain(params, sess.model.variance_lower)
+    c1 = planner.constrain(trained, sess.model.variance_lower)
+    s_rel = (c1["sigma_obs"] / c0["sigma_obs"] - 1).abs()
+    a_rel = (c1["alpha"] / c0["alpha"] - 1).abs()
+    e = res.elbo_history
+    finite = bool(torch.isfinite(e).all() and torch.isfinite(c1["sigma_obs"]).all()
+                  and torch.isfinite(c1["alpha"]).all() and torch.isfinite(res.best).all())
+    rows_moved = int((s_rel > 0).any(dim=1).sum())
+    log(f"(i) from_config session {t_sess:.2f} s; {cfg.num_steps}-step solve at B={len(starts)} with σ_obs "
+        f"and alpha trainable: {t_solve:.3f} s, ELBO mean {e[:, 0].mean().item():.6g} -> "
+        f"{e[:, -1].mean().item():.6g}, all finite {finite}; σ_obs moved in {rows_moved}/{len(starts)} rows, "
+        f"|σ/σ0 - 1| max {s_rel.max().item():.3e} median {s_rel.median().item():.3e}; |alpha/alpha0 - 1| "
+        f"max {a_rel.max().item():.3e}; failed rows {int(res.failed.sum())}; launches {launches}")
+    assert finite, "non-finite ELBO, σ_obs, alpha or trajectory in the trainable solve"
+    assert rows_moved == len(starts) and a_rel.max() > 0, "σ_obs or alpha did not move"
+    assert launches["k1_loglik_h2"] == cfg.num_steps and launches["k1_dsigma"] == cfg.num_steps, launches
+    dsig = {"name": "k1_dsigma", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cu",
+            "replaces": "vgpmp_tpu/likelihoods/collision.py:85", "launches": launches["k1_dsigma"],
+            "max_abs_err": (ds_dev.double() - ref64).abs().max().item(), "max_rel_err": red_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "e2e_rel_err": e2e_err, "shape": [T, P, B]}
+    fwd = {"name": "k1_collision_loglik_h2", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cu",
+           "replaces": "vgpmp_tpu/likelihoods/collision.py:76", "launches": launches["k1_loglik_h2"],
+           "max_abs_err": err, "ms": ms_h2, "plain_ms": plain_h2_ms, "bound_ms": bh_ms, "bound_by": bh_by,
+           "library_ms": None, "frozen_forward_ms": ms_frozen, "equal_to_frozen_forward": same_forward,
+           "max_grad_err": gerr}
+    return dsig, fwd, {"session_s": t_sess, "solve_s": t_solve, "launches": launches, "finite": finite,
+                       "elbo_first_mean": e[:, 0].mean().item(), "elbo_last_mean": e[:, -1].mean().item(),
+                       "sigma_rel_change_max": s_rel.max().item(),
+                       "sigma_rel_change_median": s_rel.median().item(),
+                       "alpha_rel_change_max": a_rel.max().item(), "failed_rows": int(res.failed.sum()),
+                       "no_contact_rows_in_check": no_contact}
+
+
+def randomize_phase(torch, sess, cpu):
+    """(j) ``randomize_timesteps``: the scored round of (e) (linear init, seed
+    0, 200 steps at B = 36) with each row training on its own sorted uniform
+    grid, and its verdicts against the CPU plain path."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods.collision import k1_loglik
+
+    starts, goals = sess.queries()
+    B = len(starts)
+    cfg = dataclasses.replace(sess.train_config, randomize_timesteps=True)
+    solve = solver.make_round_solver(sess.model, cfg)
+    params = solver.init_batch(sess.model, starts, goals, sess.planner_params)
+    k1_loglik.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, rep = solve(params, starts, goals, torch.Generator(device=sess.device).manual_seed(0))
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    launches = k1_loglik.launches
+    st, gl = (torch.as_tensor(x, dtype=torch.float32) for x in (starts, goals))
+    with torch.no_grad():
+        ref = execute_and_validate(cpu.model.collision, best.cpu(), st, gl, cpu.model.limits_low,
+                                   cpu.model.limits_high)
+    counts = {k: int(getattr(rep, k).sum()) for k in ("executed", "success", "endpoints_ok", "limits_ok")}
+    agree = {k: int((getattr(rep, k).cpu() == getattr(ref, k)).sum()) for k in ("executed", "success")}
+    log(f"(j) randomize_timesteps round, B={B} steps={cfg.num_steps}: {t_round:.3f} s; of {B} rows: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f"; verdicts agree with the CPU plain path on {agree}; K1 launches {launches}")
+    assert torch.isfinite(best).all() and counts["endpoints_ok"] == B and counts["limits_ok"] == B, counts
+    assert counts["executed"] >= 1 and min(agree.values()) >= B - 2, (counts, agree)
+    assert launches >= cfg.num_steps, launches
+    return {"round_s": t_round, "counts": counts, "agree_with_cpu": agree, "k1_launches": launches}
+
+
 def metric_profile_phase(torch, sess, best):
     """A second ``torch.profiler`` window: one ``execute_and_validate`` of the
     round's best trajectories at B = 36 (after the round's own calls warmed
@@ -1089,6 +1388,11 @@ def main() -> int:
     best, scored = round_phase(torch, sess, cpu)
     gather, k4["launches"] = gather_phase(torch)
     adaptive = adaptive_phase(torch, sess, cpu)
+    combos = combos_phase(torch)
+    flush = l2_flush_buffer(sess.device)
+    dsigma, k1_h2, trainable = trainable_phase(torch, flush, k1)
+    del flush
+    randomized = randomize_phase(torch, sess, cpu)
 
     # the profile comes last: once a profiler has traced the process, its
     # kernel launches stay slower, which would inflate the rounds' seconds
@@ -1107,9 +1411,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kernels = [{k: v for k, v in d.items() if k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")} for d in [k1, *k2, k3, k3p, k4]]
+        "bound_ms", "bound_by", "library_ms")} for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
-    record = {"card": smi, "build_s": secs, "kernels": [k1, *k2, k3, k3p, k4], "k2_errors": k2_errs,
+    record = {"card": smi, "build_s": secs, "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4],
+              "k2_errors": k2_errs, "combos": combos, "trainable": trainable, "randomized": randomized,
               "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,
               "peak_memory_bytes": peak, "launches": launches, "profile": prof,

@@ -209,6 +209,77 @@ def test_k1_tail_tile_and_sigma_rows_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k1_sigma_grad_forward_equals_frozen_forward_on_card(robot, cuda_device):
+    """The forward that also writes h² gives the frozen forward's lik and
+    d/dq bit for bit, and its h² is the plain version's squared hinge."""
+    spec, model = _collision(robot, torch.float32, cuda_device)
+    rng = np.random.default_rng(21)
+    q = torch.as_tensor(_configs(spec, rng, (3 * 333,)), dtype=torch.float32, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.002, 0.02, size=(3, spec.num_spheres)), dtype=torch.float32,
+                            device=cuda_device)
+    lik_h, dq_h, h2 = col.k1_loglik(model, q, sigma, True, True)
+    lik_f, dq_f, none = col.k1_loglik(model, q, sigma, True)
+    assert none is None and h2.shape == (spec.num_spheres, q.shape[0])
+    assert torch.equal(lik_h, lik_f) and torch.equal(dq_h, dq_f)
+    h = model.hinge_cost(q)  # plain version, [T, P]
+    same = torch.isclose(col.log_prob_plain(model, q, sigma.repeat_interleave(333, 0)), lik_f,
+                         rtol=1e-5, atol=1e-3)
+    assert (~same).sum().item() <= 1  # at most one config in a neighbouring voxel
+    torch.testing.assert_close(h2.T[same], (h * h)[same], rtol=1e-4, atol=1e-7)
+    with pytest.raises(ValueError):  # h² only beside the gradient
+        col.k1_loglik(model, q, sigma, False, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k1_dsigma_matches_plain_on_card(robot, cuda_device):
+    """``k1_dsigma`` on K1's own h² against the float64 sum of the same terms,
+    and K1's d/dσ through autograd against autograd through the plain
+    version (float32 both). Rows of 1 000 configs straddle the 32-config
+    tiles; row 2 holds configs with no sphere in contact (dσ exactly 0); a
+    NaN upstream gradient in row 4 stays in ``dσ[4, :]``. Tolerances: 1e-5
+    of ``Σ|g| h²/(2σ²)`` for the reduction (float32 sums of 1 000 terms of
+    either sign), 1e-4 end to end (h from float32 FK on both sides)."""
+    spec, model = _collision(robot, torch.float32, cuda_device)
+    rng = np.random.default_rng(31)
+    R, K, P = 6, 1000, spec.num_spheres
+    q = _configs(spec, rng, (R, K))
+    pool = torch.as_tensor(_configs(spec, rng, (40000,)), dtype=torch.float32, device=cuda_device)
+    clear = pool[(model.hinge_cost(pool) == 0).all(dim=-1)]
+    assert clear.shape[0] >= K, "too few configs clear of the scene to fill a row"
+    q = torch.as_tensor(q, dtype=torch.float32, device=cuda_device)
+    q[2] = clear[:K]
+    sigma = torch.as_tensor(rng.uniform(0.002, 0.02, size=(R, P)), dtype=torch.float32, device=cuda_device)
+    g = torch.as_tensor(rng.normal(size=(R, K)), dtype=torch.float32, device=cuda_device)
+
+    _, _, h2 = col.k1_loglik(model, q.reshape(-1, spec.dof), sigma, True, True)
+    got = col.k1_dsigma(g.reshape(-1), h2, sigma)
+    ref = col.dsigma_plain(g.reshape(-1).double(), h2.double(), sigma.double())
+    scale = col.dsigma_plain(g.reshape(-1).abs().double(), h2.double(), sigma.double())
+    assert (got[2] == 0).all() and (scale[2] == 0).all() and (scale[[0, 1, 3]] > 0).any()
+    assert ((got.double() - ref).abs() <= 1e-5 * scale).all()
+
+    # end to end through autograd, configs in a neighbouring voxel weighted 0
+    lik_p = col.log_prob_plain(model, q, sigma)
+    sk = sigma.clone().requires_grad_()
+    lik_k = model.log_prob(q, sk)
+    w = g * torch.isclose(lik_k.detach(), lik_p, rtol=1e-5, atol=1e-3)
+    (ds_k,) = torch.autograd.grad((w * lik_k).sum(), sk)
+    sp = sigma.clone().requires_grad_()
+    (ds_p,) = torch.autograd.grad((w * col.log_prob_plain(model, q, sp)).sum(), sp)
+    assert ((ds_k - ds_p).abs().double() <= 1e-4 * scale + 1e-30).all()
+
+    # a NaN upstream gradient stays in its row
+    gn = g.clone()
+    gn[4, 517] = float("nan")
+    out = col.k1_dsigma(gn.reshape(-1), h2, sigma)
+    assert torch.isnan(out[4]).all() and torch.isfinite(out[torch.arange(R, device=cuda_device) != 4]).all()
+    with pytest.raises(ValueError):
+        col.k1_dsigma(g.reshape(-1), h2[:, :-1], sigma)
+
+
+@pytest.mark.cuda
 def test_k2_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         la.chol(torch.eye(4, device=cuda_device)[None])  # float32

@@ -30,9 +30,10 @@ def _imports(path: Path):
 
 
 PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "gather_bench_torch.py",
-                ROOT / "tools" / "k2_designs.py"]
+                ROOT / "tools" / "k2_designs.py", ROOT / "benchmarking_torch.py"]
 NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.ops.gather",
-               "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver"]
+               "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver",
+               "vgpmp_torch.config", "vgpmp_torch.engine.analysis", "vgpmp_torch.session"]
 
 
 def test_port_imports_no_jax_package():
@@ -47,7 +48,7 @@ def test_port_imports_no_jax_package():
 
 
 @pytest.mark.parametrize("target", NEW_MODULES + ["chip_smoke", "bench_torch", "tools/gather_bench_torch.py",
-                                                   "tools/k2_designs.py"])
+                                                   "tools/k2_designs.py", "benchmarking_torch"])
 def test_importing_the_port_loads_no_jax(target):
     """In a fresh interpreter, importing the module (or loading the script
     without running its entry point) leaves ``sys.modules`` free of JAX and of

@@ -39,10 +39,11 @@ void same_device(const at::Tensor& a, const at::Tensor& b, const char* what) {
                     b.device());
 }
 
-// grid: base offset (3), origin (3), delta; shape: nx, ny, nz
+// grid: base offset (3), origin (3), delta; shape: nx, ny, nz. h2: also
+// return the squared hinges [P, T] (needs grad)
 std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
                                   const at::Tensor& robot, const at::Tensor& spheres,
-                                  const at::Tensor& words, bool craig, bool grad,
+                                  const at::Tensor& words, bool craig, bool grad, bool h2,
                                   std::vector<double> grid, std::vector<int64_t> shape,
                                   double eps) {
   const char* what = "k1_loglik";
@@ -61,6 +62,7 @@ std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
   TORCH_CHECK_VALUE(R > 0 && T % R == 0, what, ": sigma ", shape_str(sigma), " does not match q ",
                     shape_str(q));
   TORCH_CHECK_VALUE(words.size(1) == 2, what, ": words must be [ncells, 2]");
+  TORCH_CHECK_VALUE(grad || !h2, what, ": h2 is written only beside the gradient");
   TORCH_CHECK_VALUE(grid.size() == 7 && shape.size() == 3, what, ": grid needs 7 numbers and 3 sizes");
   TORCH_CHECK_VALUE(words.size(0) == shape[0] * shape[1] * shape[2], what,
                     ": words do not match the grid shape");
@@ -68,15 +70,38 @@ std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
                  (float)grid[5], (float)grid[6], (int)shape[0], (int)shape[1], (int)shape[2]};
   const c10::cuda::CUDAGuard guard(q.device());
   auto lik = at::empty({T}, q.options());
-  at::Tensor dlik;
+  at::Tensor dlik, sq;
   if (grad) dlik = at::empty({T, dof}, q.options());
+  if (h2) sq = at::empty({P, T}, q.options());
   C10_CUDA_CHECK(k1_loglik_launch(q.data_ptr<float>(), sigma.data_ptr<float>(),
                                   robot.data_ptr<float>(), spheres.data_ptr<float>(),
                                   words.data_ptr(), lik.data_ptr<float>(),
-                                  grad ? dlik.data_ptr<float>() : nullptr, T, T / R, (int)P,
+                                  grad ? dlik.data_ptr<float>() : nullptr,
+                                  h2 ? sq.data_ptr<float>() : nullptr, T, T / R, (int)P,
                                   (int)dof, craig, grad, g, (float)eps,
                                   at::cuda::getCurrentCUDAStream()));
-  return {lik, dlik};
+  return {lik, dlik, sq};
+}
+
+// g [T], h2 [P, T], sigma [R, P] with T a multiple of R -> dL/dsigma [R, P]
+at::Tensor k1_dsigma(const at::Tensor& g, const at::Tensor& h2, const at::Tensor& sigma) {
+  const char* what = "k1_dsigma";
+  check(g, at::kFloat, 1, what, "g");
+  check(h2, at::kFloat, 2, what, "h2");
+  check(sigma, at::kFloat, 2, what, "sigma");
+  same_device(g, h2, what);
+  same_device(g, sigma, what);
+  const int64_t T = g.size(0), R = sigma.size(0), P = sigma.size(1);
+  TORCH_CHECK_VALUE(h2.size(0) == P && h2.size(1) == T, what, ": h2 ", shape_str(h2),
+                    " is not [P, T] for g ", shape_str(g), " and sigma ", shape_str(sigma));
+  TORCH_CHECK_VALUE(R > 0 && T % R == 0 && R < (int64_t(1) << 31), what, ": sigma ",
+                    shape_str(sigma), " does not match g ", shape_str(g));
+  const c10::cuda::CUDAGuard guard(g.device());
+  auto out = at::empty({R, P}, sigma.options());
+  C10_CUDA_CHECK(k1_dsigma_launch(g.data_ptr<float>(), h2.data_ptr<float>(),
+                                  sigma.data_ptr<float>(), out.data_ptr<float>(), T, T / R,
+                                  (int)P, at::cuda::getCurrentCUDAStream()));
+  return out;
 }
 
 int64_t square_n(const at::Tensor& L, const char* what) {
@@ -267,7 +292,9 @@ at::Tensor k4_gather(const at::Tensor& table, const at::Tensor& idx) {
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("k1_loglik", &k1_loglik, "K1: fused FK, packed-SDF gather and hinge; (lik, dlik/dq)");
+  m.def("k1_loglik", &k1_loglik,
+        "K1: fused FK, packed-SDF gather and hinge; (lik, dlik/dq, squared hinges [P, T])");
+  m.def("k1_dsigma", &k1_dsigma, "K1's d/dsigma: row sums of g * h^2 scaled by 1/2 / sigma^2");
   m.def("k2_chol", &k2_chol, "K2: batched float64 lower Cholesky");
   m.def("k2_trsm", &k2_trsm, "K2: batched float64 triangular solve, L X = B or L^T X = B");
   m.def("k2_factor_solve", &k2_factor_solve,

@@ -37,6 +37,17 @@
 // No thread holds a configuration's frames in registers: the kernel takes 64
 // registers a thread with the gradient, 48 without, and spills nothing, so
 // eight warps of a block and several blocks share an SM (PERF.md).
+//
+// d/dsigma, where sigma_obs is trained: lik_t = -1/2 sum_p h_tp^2 / sigma_rp
+// (r the row of config t), so dL/dsigma_rp = 1/2 sum_{t in r} g_t h_tp^2 /
+// sigma_rp^2 for the upstream gradient g. The forward's H2 instantiation also
+// writes h_tp^2, sphere-major ([P, T]: a warp holds 32 consecutive configs of
+// one sphere, so its store is one 128-byte line, and the backward reads each
+// (row, sphere) segment contiguously); the frozen path's instantiations are
+// unchanged and write nothing more. k1_dsigma then reduces g * h^2 over each
+// row's configs: reading h^2 back replaces a second gather from the table.
+// It moves T (P + 1) floats and does 2 T P operations, so it is bound by the
+// bytes it reads.
 // The compiler may contract the FK's products and sums into fused
 // multiply-adds, so a sphere near a voxel face can land in the neighbouring
 // voxel of the one the plain version picks; the checks bound that share.
@@ -67,16 +78,18 @@ __device__ __forceinline__ long long flat_index(float px, float py, float pz, fl
 constexpr int C = 32, THREADS = 256, NI = 5;
 
 // robot and spheres: the constant tables described in fk.cuh.
-template <int DOF, bool CRAIG, bool GRAD>
+// H2: also write h^2 [P, T] (only with GRAD).
+template <int DOF, bool CRAIG, bool GRAD, bool H2>
 __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ sigma,
     const float* __restrict__ robot, const float* __restrict__ spheres,
     const uint2* __restrict__ words, float* __restrict__ lik, float* __restrict__ dlik,
-    long long T, long long K, int P, K1Grid g, float eps) {
+    float* __restrict__ h2, long long T, long long K, int P, K1Grid g, float eps) {
   constexpr int G = THREADS / C;
   constexpr int NF = FK_FRAME * (DOF + 1);
   constexpr int SLOTS = 8;  // 1 + DOF <= 8 partial sums per thread
   static_assert(THREADS % C == 0 && C % 32 == 0 && DOF + 1 <= SLOTS, "tile shape");
+  static_assert(GRAD || !H2, "h^2 is written only beside the gradient");
   extern __shared__ float smem[];
   float* frames = smem;                // [NF][C]
   float* red = frames + NF * C;        // [G][SLOTS][C]
@@ -124,6 +137,7 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
         const float dist = unpack_hi(w[i].x);
         const float h = fmaxf(eps - (dist - s[4]), 0.f);
         acc += h * h / sg[i];
+        if (H2) h2[(long long)sp * T + cfg] = h * h;
         if (GRAD && h > 0.f) {
           const int f = (int)s[0];
           float x, y, z;
@@ -174,35 +188,93 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
 template <int DOF, bool CRAIG>
 cudaError_t launch_tile(bool grad, cudaStream_t st, const float* q, const float* sigma,
                         const float* robot, const float* spheres, const uint2* words, float* lik,
-                        float* dlik, long long T, long long K, int P, K1Grid g, float eps) {
+                        float* dlik, float* h2, long long T, long long K, int P, K1Grid g,
+                        float eps) {
   const size_t smem =
       sizeof(float) * ((size_t)FK_FRAME * (DOF + 1) * C + (size_t)(THREADS / C) * 8 * C + 5 * (size_t)P);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;  // more spheres than the tile has room for
   const dim3 grid((unsigned)((T + C - 1) / C)), block(THREADS);
-  if (grad)
-    loglik_tile_kernel<DOF, CRAIG, true>
-        <<<grid, block, smem, st>>>(q, sigma, robot, spheres, words, lik, dlik, T, K, P, g, eps);
+  if (h2 != nullptr)
+    loglik_tile_kernel<DOF, CRAIG, true, true><<<grid, block, smem, st>>>(
+        q, sigma, robot, spheres, words, lik, dlik, h2, T, K, P, g, eps);
+  else if (grad)
+    loglik_tile_kernel<DOF, CRAIG, true, false><<<grid, block, smem, st>>>(
+        q, sigma, robot, spheres, words, lik, dlik, h2, T, K, P, g, eps);
   else
-    loglik_tile_kernel<DOF, CRAIG, false>
-        <<<grid, block, smem, st>>>(q, sigma, robot, spheres, words, lik, dlik, T, K, P, g, eps);
+    loglik_tile_kernel<DOF, CRAIG, false, false><<<grid, block, smem, st>>>(
+        q, sigma, robot, spheres, words, lik, dlik, h2, T, K, P, g, eps);
   return cudaGetLastError();
+}
+
+// k1_dsigma: block (r, y) holds DS_WARPS warps, warp w sphere p = y * DS_WARPS
+// + w of row r. Its lanes stride over the row's K configs (coalesced reads of
+// g and of the sphere's h^2 segment), DS_UNROLL loads of each in flight before
+// the first use (a row is ~1 000 configs, so a lane makes a few such rounds
+// and the time is a few memory latencies, not ~30), a shuffle tree joins the
+// 32 lanes, and lane 0 scales by 1/2 / sigma^2.
+constexpr int DS_WARPS = 8, DS_UNROLL = 8;
+
+__global__ void __launch_bounds__(DS_WARPS * 32) dsigma_kernel(
+    const float* __restrict__ g, const float* __restrict__ h2, const float* __restrict__ sigma,
+    float* __restrict__ out, long long T, long long K, int P) {
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.y * DS_WARPS + threadIdx.x / 32;
+  if (p >= P) return;  // the whole warp
+  const long long r = blockIdx.x;
+  const float* gr = g + r * K;
+  const float* hp = h2 + (long long)p * T + r * K;
+  float a0 = 0.f, a1 = 0.f;
+  for (long long k = lane; k < K; k += 32 * DS_UNROLL) {
+    float gv[DS_UNROLL], hv[DS_UNROLL];
+#pragma unroll
+    for (int j = 0; j < DS_UNROLL; ++j) {
+      const bool in = k + 32 * j < K;
+      gv[j] = in ? __ldg(gr + k + 32 * j) : 0.f;
+      hv[j] = in ? __ldg(hp + k + 32 * j) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < DS_UNROLL; j += 2) {
+      a0 += gv[j] * hv[j];
+      a1 += gv[j + 1] * hv[j + 1];
+    }
+  }
+  float acc = a0 + a1;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const float s = sigma[r * P + p];
+    out[r * P + p] = 0.5f * acc / (s * s);
+  }
 }
 
 }  // namespace
 
 cudaError_t k1_loglik_launch(const float* q, const float* sigma, const float* robot,
                              const float* spheres, const void* words, float* lik, float* dlik,
-                             int64_t T, int64_t K, int P, int dof, bool craig, bool grad,
-                             K1Grid g, float eps, cudaStream_t st) {
+                             float* h2, int64_t T, int64_t K, int P, int dof, bool craig,
+                             bool grad, K1Grid g, float eps, cudaStream_t st) {
   if (T == 0) return cudaSuccess;
+  if (h2 != nullptr && !grad) return cudaErrorInvalidValue;
   const uint2* w = (const uint2*)words;
   if (dof == 7 && craig)
-    return launch_tile<7, true>(grad, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
+    return launch_tile<7, true>(grad, st, q, sigma, robot, spheres, w, lik, dlik, h2, T, K, P, g,
+                                eps);
   if (dof == 7)
-    return launch_tile<7, false>(grad, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
+    return launch_tile<7, false>(grad, st, q, sigma, robot, spheres, w, lik, dlik, h2, T, K, P, g,
+                                 eps);
   if (dof == 6 && craig)
-    return launch_tile<6, true>(grad, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
+    return launch_tile<6, true>(grad, st, q, sigma, robot, spheres, w, lik, dlik, h2, T, K, P, g,
+                                eps);
   if (dof == 6)
-    return launch_tile<6, false>(grad, st, q, sigma, robot, spheres, w, lik, dlik, T, K, P, g, eps);
+    return launch_tile<6, false>(grad, st, q, sigma, robot, spheres, w, lik, dlik, h2, T, K, P, g,
+                                 eps);
   return cudaErrorInvalidValue;
+}
+
+cudaError_t k1_dsigma_launch(const float* g, const float* h2, const float* sigma, float* out,
+                             int64_t T, int64_t K, int P, cudaStream_t st) {
+  if (T == 0) return cudaSuccess;
+  const dim3 grid((unsigned)(T / K), (unsigned)((P + DS_WARPS - 1) / DS_WARPS));
+  dsigma_kernel<<<grid, DS_WARPS * 32, 0, st>>>(g, h2, sigma, out, T, K, P);
+  return cudaGetLastError();
 }

@@ -16,11 +16,18 @@ struct K1Grid {
 
 // K1 (k1_collision.cu). q [T, dof] f32; sigma [T/K, P] f32 (config t uses row
 // t / K); robot [6*dof + 12] and spheres [P, 5] f32; words [ncells, 2] packed
-// table; lik [T]; dlik [T, dof], not written when grad is false. dof is 6 or 7.
+// table; lik [T]; dlik [T, dof], not written when grad is false; h2 [P, T],
+// the squared hinge per sphere and config, written only when not null (and
+// then grad must be true). dof is 6 or 7.
 cudaError_t k1_loglik_launch(const float* q, const float* sigma, const float* robot,
                              const float* spheres, const void* words, float* lik, float* dlik,
-                             int64_t T, int64_t K, int P, int dof, bool craig, bool grad,
-                             K1Grid g, float eps, cudaStream_t stream);
+                             float* h2, int64_t T, int64_t K, int P, int dof, bool craig,
+                             bool grad, K1Grid g, float eps, cudaStream_t stream);
+// K1's d/dsigma from the forward's h2 [P, T] and the upstream gradient g [T]:
+// out [T/K, P], out[r, p] = 1/2 sum over row r's K configs t of g[t] h2[p, t]
+// / sigma[r, p]^2.
+cudaError_t k1_dsigma_launch(const float* g, const float* h2, const float* sigma, float* out,
+                             int64_t T, int64_t K, int P, cudaStream_t stream);
 
 // K2 (k2_linalg.cu), float64, 1 <= n <= 32. A, L [T, n, n]; B, X [T, n, k].
 cudaError_t k2_chol_launch(const double* A, double* L, int64_t T, int n, cudaStream_t stream);

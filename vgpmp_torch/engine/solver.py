@@ -31,7 +31,7 @@ from vgpmp_torch.kinematics.dh import ee_positions
 from vgpmp_torch.models import vgpmp as planner
 
 __all__ = ["TrainConfig", "SolveResult", "SolveNoise", "BatchedAdam", "default_trainable",
-           "lr_schedule", "make_single_solver", "make_batch_solver", "ensemble_score",
+           "lr_schedule", "random_timesteps", "make_single_solver", "make_batch_solver", "ensemble_score",
            "make_round_solver", "solve_adaptive", "init_slots", "init_batch",
            "restart_waypoints", "restart_candidates", "pick_via_points", "min_clearance_probe",
            "worst_violation_configs"]
@@ -134,10 +134,26 @@ class BatchedAdam:
 
 class SolveNoise(NamedTuple):
     """Injected draws for one batched solve: one :class:`PathNoise` per Adam
-    step, and the posterior extraction's."""
+    step, the posterior extraction's and, under ``randomize_timesteps``, each
+    row's training grid ``[B, N]`` (sorted, on ``[X[0], X[-1]]``)."""
 
     steps: List[PathNoise]
     posterior: PathNoise
+    timesteps: Optional[torch.Tensor] = None
+
+
+def random_timesteps(X: torch.Tensor, B: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One sorted uniform training grid per row, ``[B, N]`` on ``[X[0], X[-1])``:
+    what the JAX solver draws once per solve from each row's own key (the
+    reference's ``training_loop(randomize=True)``). The endpoints are not
+    pinned."""
+    u = torch.rand((B, X.shape[0]), dtype=X.dtype, device=X.device, generator=generator)
+    return torch.sort(X[0] + (X[-1] - X[0]) * u, dim=1).values
+
+
+def _normal_log_prob(x: torch.Tensor, mu: torch.Tensor, s: float) -> torch.Tensor:
+    """Elementwise ``log N(x; mu, s²)``."""
+    return -0.5 * ((x - mu) / s) ** 2 - math.log(s) - 0.5 * math.log(2 * math.pi)
 
 
 class SolveResult(NamedTuple):
@@ -158,18 +174,35 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
 
     Each Adam step draws fresh pathwise samples from ``generator`` (one stream
     for the whole batch), unless ``noise`` (:class:`SolveNoise`) supplies them.
+    With ``cfg.randomize_timesteps`` each row trains on its own sorted uniform
+    grid (:func:`random_timesteps`), drawn once per solve before the steps'
+    draws, or ``noise.timesteps``.
+
+    A trainable σ_obs or alpha adds its log-prior to the ELBO (as GPflow adds
+    ``log_prior_density`` to the training loss): Normal(init, 1e-4) on the
+    constrained σ_obs, Normal(init, 5) on alpha, anchored at each row's
+    initial constrained value.
     """
-    if cfg.randomize_timesteps:
-        raise NotImplementedError("randomize_timesteps is not ported yet")
     trainable = trainable or default_trainable()
-    if trainable.get("sigma_obs_u") or trainable.get("alpha_u"):
-        raise NotImplementedError("trainable sigma_obs/alpha (their log-priors) are not ported yet")
+    prior_sigma, prior_alpha = bool(trainable.get("sigma_obs_u")), bool(trainable.get("alpha_u"))
     dtype, dev = model.dtype, model.device
     X = torch.linspace(0.0, 1.0, cfg.time_spacing_X, dtype=dtype, device=dev)
     Xnew = torch.linspace(0.0, 1.0, cfg.time_spacing_Xnew, dtype=dtype, device=dev)
-    # leaves whose gradient is taken: all but the frozen σ (K1 does not
-    # differentiate σ); the mask then zeroes the frozen ones, NaN*0 included
-    grad_leaves = [k for k in planner.PlannerParams.names() if k != "sigma_obs_u"]
+    # leaves whose gradient is taken: all but a frozen σ (whose gradient only
+    # the mask would zero); the mask then zeroes the other frozen leaves,
+    # NaN*0 included, so that a NaN gradient skips the row's step as in JAX
+    grad_leaves = [k for k in planner.PlannerParams.names()
+                   if k != "sigma_obs_u" or prior_sigma]
+
+    def log_prior(p: planner.PlannerParams, anchors) -> torch.Tensor:
+        """``[B]`` log-priors of the trainable σ_obs and alpha."""
+        c = planner.constrain(p, model.variance_lower)
+        lp = torch.zeros(p.q_mu.shape[0], dtype=dtype, device=dev)
+        if prior_sigma:
+            lp = lp + _normal_log_prob(c["sigma_obs"], anchors[0], 1e-4).sum(dim=-1)
+        if prior_alpha:
+            lp = lp + _normal_log_prob(c["alpha"], anchors[1], 5.0)
+        return lp
 
     def sigma_scale(i: int) -> float:
         if cfg.sigma_anneal <= 1.0:
@@ -185,6 +218,18 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
         params = params.map(lambda x: x.detach().clone())
         mask = _mask_pytree(params, trainable)
         opt = BatchedAdam(cfg, params)
+        anchors = None
+        if prior_sigma or prior_alpha:
+            c0 = planner.constrain(params, model.variance_lower)
+            anchors = (c0["sigma_obs"], c0["alpha"])
+        X_train = X
+        if cfg.randomize_timesteps:
+            if noise is not None:
+                if noise.timesteps is None:
+                    raise ValueError("randomize_timesteps: the injected noise has no timesteps")
+                X_train = torch.as_tensor(noise.timesteps, dtype=dtype, device=dev)
+            else:
+                X_train = random_timesteps(X, starts.shape[0], generator)
         hist, logs = [], []
         for i in range(cfg.num_steps):
             p = params.map(lambda x: x.detach())
@@ -193,12 +238,14 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
             step_noise = noise.steps[i] if noise is not None else None
             with record_function("elbo_forward"):
                 if cfg.log_level >= 1:
-                    value, aux = planner.elbo_with_aux(p, model, starts, goals, X, generator,
+                    value, aux = planner.elbo_with_aux(p, model, starts, goals, X_train, generator,
                                                        step_noise, sigma_scale(i))
                     logs.append({k: v.detach() for k, v in aux.items()})
                 else:
-                    value = planner.elbo(p, model, starts, goals, X, generator, step_noise,
+                    value = planner.elbo(p, model, starts, goals, X_train, generator, step_noise,
                                          sigma_scale(i))
+                if anchors is not None:
+                    value = value + log_prior(p, anchors)
             with record_function("elbo_backward"):
                 gl = torch.autograd.grad(-value.sum(), [getattr(p, k) for k in grad_leaves])
             with record_function("adam_update"):

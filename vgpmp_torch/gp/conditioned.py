@@ -14,7 +14,7 @@ import torch
 
 from vgpmp_torch.ops import linalg
 
-__all__ = ["zy", "kuu", "kuf", "cholesky_kuu"]
+__all__ = ["zy", "grid_rows", "kuu", "kuf", "cholesky_kuu"]
 
 KernelFn = Callable[..., torch.Tensor]
 
@@ -24,6 +24,15 @@ def zy(ny: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     L = Z.shape[-1]
     ny_b = ny.expand(Z.shape[:-2] + (L, ny.shape[0]))
     return torch.cat([ny_b, Z.transpose(-1, -2)], dim=-1)
+
+
+def grid_rows(X: torch.Tensor, batch: tuple, L: int) -> torch.Tensor:
+    """The time grid per latent row, ``[..., L, N]``: ``X [N]`` is shared by
+    every problem; ``X [B, N]`` gives each problem (the leading axis of
+    ``batch``) its own grid."""
+    if X.ndim > 1:
+        X = X[..., None, :]
+    return X.expand(batch + (L, X.shape[-1]))
 
 
 def kuu(kernel: KernelFn, ny, Z, lengthscales, variance, jitter: float = 1e-6,
@@ -39,13 +48,12 @@ def kuu(kernel: KernelFn, ny, Z, lengthscales, variance, jitter: float = 1e-6,
 
 
 def kuf(kernel: KernelFn, ny, Z, X, lengthscales, variance, solve_dtype=None) -> torch.Tensor:
-    """Cross-covariance ``k(Zy, X)``: ``[..., L, Mc, N]`` for the time grid ``X [N]``."""
+    """Cross-covariance ``k(Zy, X)``: ``[..., L, Mc, N]`` for the time grid
+    ``X [N]`` or one grid per problem, ``X [B, N]`` (:func:`grid_rows`)."""
     if solve_dtype is not None:
         ny, Z, X = ny.to(solve_dtype), Z.to(solve_dtype), X.to(solve_dtype)
         lengthscales, variance = lengthscales.to(solve_dtype), variance.to(solve_dtype)
-    L = Z.shape[-1]
-    Xb = X.expand(Z.shape[:-2] + (L, X.shape[0]))
-    return kernel(zy(ny, Z), Xb, lengthscales, variance)
+    return kernel(zy(ny, Z), grid_rows(X, Z.shape[:-2], Z.shape[-1]), lengthscales, variance)
 
 
 def cholesky_kuu(kernel: KernelFn, ny, Z, lengthscales, variance, jitter: float = 1e-6,

@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from vgpmp_torch.gp.conditioned import zy as zy_fn
+from vgpmp_torch.gp.conditioned import grid_rows, zy as zy_fn
 from vgpmp_torch.ops import linalg
 
 __all__ = ["PathNoise", "PathState", "student_t", "whitened_scale", "draw_paths", "eval_paths",
@@ -170,7 +170,7 @@ def draw_paths(ny, Z, lengthscales, variance, chol_kuu, q_mu_full, q_sqrt, num_s
 def _eval_whitened(state: PathState, A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """:func:`eval_paths` from ``A = L⁻¹ kuf [..., L, Mc, N]``."""
     bulk = state.omega.dtype
-    Xb = X.to(bulk).expand(state.omega.shape[:-1] + (X.shape[0],))
+    Xb = grid_rows(X.to(bulk), state.omega.shape[:-2], state.omega.shape[-2])
     phi_x = _rff_features(Xb, state.omega, state.phase) * state.rff_scale[..., None]
     f_prior = torch.einsum("...lnb,...slb->...sln", phi_x, state.w)
     update = torch.einsum("...lmn,...slm->...sln", A.to(bulk), state.a)
@@ -178,8 +178,8 @@ def _eval_whitened(state: PathState, A: torch.Tensor, X: torch.Tensor) -> torch.
 
 
 def eval_paths(state: PathState, kuf: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """Evaluate drawn paths on the grid ``X [N]``: ``kuf [..., L, Mc, N]`` ->
-    latent samples ``[..., S, N, L]``."""
+    """Evaluate drawn paths on the grid ``X [N]`` (or ``[B, N]``, one per
+    problem): ``kuf [..., L, Mc, N]`` -> latent samples ``[..., S, N, L]``."""
     return _eval_whitened(state, linalg.solve_lower(state.chol, kuf.to(state.chol.dtype)), X)
 
 

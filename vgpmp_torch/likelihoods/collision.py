@@ -4,7 +4,9 @@ Port of ``vgpmp_tpu/likelihoods/collision.py``. ``log_prob`` is
 ``-0.5 Σ_P max(ε − (sdf − r), 0)² / σ`` (first-power σ division). On a CUDA
 tensor with a packed scene it runs kernel K1 (``csrc/k1_collision.cu``), which
 fuses FK, the packed-table gather and the hinge and computes ``∂/∂q`` in the
-same pass; on a CPU tensor it runs :func:`log_prob_plain`.
+same pass; where σ_obs is trained it also keeps the squared hinges, and the
+backward's :func:`k1_dsigma` reduces them to ``∂/∂σ``. On a CPU tensor it
+runs :func:`log_prob_plain`.
 
 ``min_clearance_eval`` is the success metric's clearance: the minimum over
 spheres of the trilinear-interpolated clearance. On a CUDA tensor it runs
@@ -29,7 +31,7 @@ from vgpmp_torch.scene import Scene
 from vgpmp_torch.sim import probe_clearance_plain
 
 __all__ = ["CollisionModel", "joint_sigmoid", "joint_sigmoid_inverse", "log_prob_plain",
-           "k1_loglik", "min_clearance_eval_plain", "k3_min_clearance", "k3_probe_clearance"]
+           "k1_loglik", "k1_dsigma", "dsigma_plain", "min_clearance_eval_plain", "k3_min_clearance", "k3_probe_clearance"]
 
 
 def joint_sigmoid(f: torch.Tensor, low, high) -> torch.Tensor:
@@ -119,10 +121,13 @@ def log_prob_plain(model: CollisionModel, configs: torch.Tensor, sigma_obs: torc
     return -0.5 * (cost * cost / _sigma_rows(sigma_obs, configs)).sum(dim=-1)
 
 
-def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad: bool):
+def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad: bool,
+              h2: bool = False):
     """K1 launch: ``q [T, dof]`` float32 CUDA, ``sigma [R, P]`` float32 with
     ``T`` a multiple of ``R`` (config ``t`` uses row ``t // (T/R)``) ->
-    ``(lik [T], dlik/dq [T, dof] or None)``."""
+    ``(lik [T], dlik/dq [T, dof] or None, h² [P, T] or None)``; ``h2`` (with
+    ``grad``) also returns the squared hinges that :func:`k1_dsigma` reads.
+    ``launches_h2`` counts the launches that wrote them."""
     scene, fk = model.scene, model.fk
     if not q.is_cuda:
         raise ValueError(f"k1_loglik: needs CUDA tensors, got q on {q.device}")
@@ -130,16 +135,47 @@ def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad:
         raise ValueError(f"k1_loglik: q has {q.shape[-1]} joints, the robot {fk.dof}")
     if scene.mode != "packed" or scene.has_extras:
         raise ValueError("k1_loglik: needs a packed scene with no extra grids or primitives")
+    if h2 and not grad:
+        raise ValueError("k1_loglik: h2 is written only beside the gradient")
     packed = scene.base_packed
-    lik, dlik = _build.load().k1_loglik(
-        q, sigma, fk.k1_robot, fk.k1_spheres, packed.words, fk.craig, grad,
+    lik, dlik, sq = _build.load().k1_loglik(
+        q, sigma, fk.k1_robot, fk.k1_spheres, packed.words, fk.craig, grad, h2,
         [*model._base_offset_host, *packed.host_origin, packed.host_delta], list(packed.shape),
         model.epsilon)
     k1_loglik.launches += 1
-    return lik, dlik
+    k1_loglik.launches_h2 += int(h2)
+    return lik, dlik, sq
 
 
 k1_loglik.launches = 0
+k1_loglik.launches_h2 = 0
+
+
+def dsigma_plain(g: torch.Tensor, h2: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`k1_dsigma`: ``g [T]``, ``h2 [P, T]``,
+    ``sigma [R, P]`` -> ``[R, P]``, ``½ Σ_{t in row r} g_t h2_pt / σ_rp²``
+    (the gradient of ``−½ Σ_p h²/σ`` that autograd through
+    :func:`log_prob_plain` gives)."""
+    R, P = sigma.shape
+    rows = (g[None, :] * h2).reshape(P, R, -1).sum(dim=-1).T
+    return 0.5 * rows / (sigma * sigma)
+
+
+def k1_dsigma(g: torch.Tensor, h2: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """K1's d/dσ launch: the upstream gradient ``g [T]``, the forward's squared
+    hinges ``h2 [P, T]`` and ``sigma [R, P]``, float32 CUDA -> ``[R, P]``
+    (see :func:`dsigma_plain`)."""
+    if not g.is_cuda:
+        raise ValueError(f"k1_dsigma: needs CUDA tensors, got g on {g.device}")
+    if g.ndim != 1 or h2.shape != (sigma.shape[-1], g.shape[0]):
+        raise ValueError(f"k1_dsigma: g {tuple(g.shape)}, h2 {tuple(h2.shape)} and sigma "
+                         f"{tuple(sigma.shape)} are not [T], [P, T] and [R, P]")
+    out = _build.load().k1_dsigma(g.contiguous(), h2, sigma.contiguous())
+    k1_dsigma.launches += 1
+    return out
+
+
+k1_dsigma.launches = 0
 
 
 def min_clearance_eval_plain(model: CollisionModel, configs: torch.Tensor) -> torch.Tensor:
@@ -201,29 +237,34 @@ k3_probe_clearance.launches = 0
 
 
 class _K1Fn(torch.autograd.Function):
-    """K1 forward; backward multiplies the saved ``∂lik/∂q`` (no second gather)."""
+    """K1 forward; backward multiplies the saved ``∂lik/∂q`` (no second gather)
+    and, where σ needs a gradient, reduces the saved ``h²`` with
+    :func:`k1_dsigma`."""
 
     @staticmethod
-    def forward(ctx, configs, sigma, model, need_grad):
+    def forward(ctx, configs, sigma, model, need_grad_q, need_grad_sigma):
         q = configs.reshape(-1, configs.shape[-1]).contiguous()
-        sig = sigma.reshape(-1, sigma.shape[-1]).contiguous()
-        lik, dlik = k1_loglik(model, q, sig, need_grad)
+        sig = sigma.contiguous()
+        need_grad = need_grad_q or need_grad_sigma
+        lik, dlik, h2 = k1_loglik(model, q, sig, need_grad, need_grad_sigma)
         if need_grad:
-            ctx.save_for_backward(dlik.reshape(configs.shape))
+            ctx.save_for_backward(dlik.reshape(configs.shape), h2, sig)
+        ctx.need_grad_q = need_grad_q
         return lik.reshape(configs.shape[:-1])
 
     @staticmethod
     def backward(ctx, g):
-        (dlik,) = ctx.saved_tensors
-        return g[..., None] * dlik, None, None, None
+        dlik, h2, sig = ctx.saved_tensors
+        dq = g[..., None] * dlik if ctx.need_grad_q else None
+        dsig = k1_dsigma(g.reshape(-1), h2, sig) if h2 is not None else None
+        return dq, dsig, None, None, None
 
 
 def _k1_log_prob(model: CollisionModel, configs: torch.Tensor, sigma_obs: torch.Tensor) -> torch.Tensor:
     grad_on = torch.is_grad_enabled()
-    if grad_on and sigma_obs.requires_grad:
-        raise NotImplementedError("K1 does not differentiate σ; freeze sigma_obs_u on CUDA")
     if sigma_obs.ndim == 1:
         sigma_obs = sigma_obs[None]
     elif sigma_obs.shape[0] != configs.shape[0]:
         raise ValueError(f"sigma_obs {tuple(sigma_obs.shape)} has no row per config row")
-    return _K1Fn.apply(configs, sigma_obs, model, grad_on and configs.requires_grad)
+    return _K1Fn.apply(configs, sigma_obs, model, grad_on and configs.requires_grad,
+                       grad_on and sigma_obs.requires_grad)

@@ -208,7 +208,8 @@ def elbo(params: PlannerParams, model: PlannerModel, start: torch.Tensor, goal: 
          noise: Optional[PathNoise] = None, sigma_scale: float = 1.0) -> torch.Tensor:
     """Monte-Carlo ELBO per problem, ``[B]``.
 
-    ``start``/``goal [B, L]``, ``X [N]``; the sample draws come from
+    ``start``/``goal [B, L]``, ``X [N]`` or one grid per problem ``[B, N]``
+    (``randomize_timesteps``); the sample draws come from
     ``generator`` unless ``noise`` gives them. ``sigma_scale`` multiplies
     σ_obs (the solver's annealing factor; 1.0 is the exact objective).
     """

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from vgpmp_torch import resolve_device
+from vgpmp_torch.config import load_parameters_yaml
 from vgpmp_torch.engine.solver import TrainConfig
 from vgpmp_torch.kinematics.dh import FkModel
 from vgpmp_torch.likelihoods.collision import CollisionModel
@@ -67,6 +68,28 @@ class PlanningSession:
     extra_offsets: Optional[Any] = None
     primitives: Optional[Primitives] = None
     device: Any = None
+
+    @classmethod
+    def from_config(cls, path, dtype: Any = torch.float32, sdf_mode: str = "packed",
+                    device=None) -> "PlanningSession":
+        """A session from a reference-schema ``parameters.yaml``
+        (:func:`vgpmp_torch.config.load_parameters_yaml`): benchmark mode builds
+        from the problemset, non-benchmark mode from the file's states, base
+        pose and planner parameters. ``trainable`` is the file's mask."""
+        cfg = load_parameters_yaml(path)
+        if cfg.benchmark:
+            sess = cls(cfg.robot_name, cfg.problemset_name, dtype=dtype, sdf_mode=sdf_mode,
+                       device=device)
+        else:
+            pos, orn = cfg.robot_pos_and_orn or ([0, 0, 0], [0, 0, 0, 1])
+            sess = cls(cfg.robot_name, cfg.environment_name, dtype=dtype, sdf_mode=sdf_mode,
+                       device=device,
+                       explicit=dict(states=cfg.states, robot_position=pos,
+                                     robot_orientation_xyzw=orn,
+                                     environment_position=cfg.scene_position,
+                                     planner_params=cfg.planner_params))
+        sess.trainable = cfg.trainable_mask()
+        return sess
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
