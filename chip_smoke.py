@@ -57,11 +57,27 @@ Phases, any failure exits non-zero before the result line:
     beside the frozen forward, then a 200-step B = 36 solve through it,
     whose σ_obs and alpha must move and stay finite;
 (j) the scored round of (e) with ``randomize_timesteps`` (each row's own
-    sorted uniform training grid).
+    sorted uniform training grid);
+(k) the velocity-constrained GP through the session overlay: K2's fused pair
+    on the real velocity Grams (n = 14 here, n = 28 at franka/bookshelves'
+    M = 24) against its plain version and timed, then a 200-step B = 36
+    solve: finite ELBO, both ends of every best trajectory at rest, a draw's
+    latent paths clamped in position and velocity at both ends, 2 K2
+    launches a step, verdicts against the CPU plain path;
+(l) the same 200-step solve as 4 chunks of 50 with ``save_train_state`` /
+    ``restore_train_state`` between them, against one chunk of 200 from the
+    same generator seed, bit for bit;
+(m) ``run_receding_horizon`` at B = 36 (200 steps, then 40-step replans, 3
+    cycles advancing 20 waypoints), without and with a 0.15 rad disturbance,
+    each cycle timed;
+(n) ``make_ensemble_solver`` over the 6 tuned inits (216 rows in one solve
+    and one metric), its chosen inits against the CPU plain metric's argmax
+    on the card's member trajectories, and its peak memory.
 
-(d)'s profiles run last. Prints the card's name and power limit, a
-``kernels`` JSON line (K1 and its d/dσ pair, K2, K3, K4), and as the
-last line ``{"ok": true, "device": {...}}``. A detailed record goes to
+(d)'s profiles run last. Prints one JSON line for each of (k)–(n), the
+card's name and power limit, a ``kernels`` JSON line (K1 and its d/dσ pair,
+K2 with the fused pair's velocity shapes, K3, K4), and as the last line
+``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
 """
 
@@ -1236,6 +1252,380 @@ def randomize_phase(torch, sess, cpu):
     return {"round_s": t_round, "counts": counts, "agree_with_cpu": agree, "k1_launches": launches}
 
 
+def velocity_grams(torch, robot: str, ps: str):
+    """The velocity-constrained Grams of a combo's queries at the tuned
+    init, ``[B·L, 2C+M, 2C+M]`` float64, and the columns of a training step's
+    fused solve (S draws, N times and the mean)."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.session import PlanningSession
+
+    s = PlanningSession(robot, ps, overrides={"velocity_constrained": True})
+    starts, goals = s.queries()
+    params = solver.init_batch(s.model, starts, goals, s.planner_params)
+    with torch.no_grad():
+        K, _ = planner._gram(s.model, planner.constrain(params, s.model.variance_lower))
+    cols = s.model.num_samples + s.train_config.time_spacing_X + 1
+    return K.reshape(-1, *K.shape[-2:]).contiguous(), cols
+
+
+def velocity_phase(torch, sess, cpu, flush):
+    """(k) the velocity-constrained GP (``velocity_constrained`` through the
+    session overlay): K2's fused pair on the real velocity Grams (n = 14 at
+    the bench's M = 10, n = 28 at franka/bookshelves' M = 24) against its
+    plain version and timed, then a 200-step B = 36 solve, its endpoint
+    clamps and its verdicts against the CPU plain path."""
+    import numpy as np
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods.collision import k1_loglik
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.session import PlanningSession
+    from vgpmp_torch.timing import time_ms
+
+    dev = sess.device
+    gen = torch.Generator(device=dev).manual_seed(29)
+    shapes = {}
+    # tolerance: the real Grams' condition numbers reach ~1e10 at n = 28, so
+    # two summation orders differ by up to ~1e-7 of the largest entry; held
+    # to 1e-6, the existing K2 phase's bound on real Grams
+    for label, (robot, ps) in (("n14", ("franka", "industrial")), ("n28", ("franka", "bookshelves"))):
+        K, k = velocity_grams(torch, robot, ps)
+        T, n = K.shape[0], K.shape[-1]
+        Bm = torch.randn((T, n, k), generator=gen, device=dev, dtype=torch.float64)
+        Lk, Xk = la.k2_factor_solve(K, Bm)
+        Lp, Xp = la.factor_solve_plain(K, Bm)
+        err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in ((Lk, Lp), (Xk, Xp)))
+        assert torch.isfinite(Lk).all() and torch.isfinite(Xk).all(), f"K2 on velocity Grams {label}: NaN"
+        assert err <= 1e-6, f"K2 fused pair on velocity Grams {label}: {err}"
+
+        def library():
+            Ll = torch.linalg.cholesky(K)
+            return Ll, torch.linalg.solve_triangular(Ll, Bm, upper=False)
+
+        b_ms, b_by = bound_ms((2 * T * n * n + 2 * T * n * k) * 8, T * (n ** 3 / 3 + n * n * k), F64_FLOPS)
+        shapes[label] = {"combo": f"{robot}/{ps}", "shape": [T, n, k], "max_rel_err": err,
+                         "ms": time_ms(lambda: la.k2_factor_solve(K, Bm), flush=flush),
+                         "plain_ms": time_ms(lambda: la.factor_solve_plain(K, Bm), flush=flush),
+                         "library_ms": time_ms(library, flush=flush), "bound_ms": b_ms, "bound_by": b_by}
+        log(f"(k) K2 fused pair on {robot}/{ps}'s velocity Grams [{T},{n},{n}] + [{T},{n},{k}]: "
+            + json.dumps(shapes[label]))
+        del K, Bm, Lk, Xk, Lp, Xp
+
+    vsess = PlanningSession("franka", "industrial", overrides={"velocity_constrained": True})
+    m, cfg = vsess.model, vsess.train_config
+    assert m.velocity_constrained and m.num_inducing == 10
+    starts, goals = vsess.queries()
+    B = len(starts)
+    params = solver.init_batch(m, starts, goals, vsess.planner_params)
+    solve = solver.make_batch_solver(m, cfg)
+    counters = (k1_loglik, la.k2_factor_solve, la.k2_factor_solve_bwd, la.k2_chol, la.k2_trsm)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, res = solve(params, starts, goals, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    # the extraction makes one fused forward and the posterior mean's three solves
+    k2_per_step = (launches["k2_factor_solve"] - 1 + launches["k2_factor_solve_bwd"]) / cfg.num_steps
+    e = res.elbo_history
+    best = res.best.cpu().numpy()
+    dt = 1.0 / (best.shape[1] - 1)
+    v_mid = np.abs(np.diff(best, axis=1)).max(axis=(1, 2)) / dt
+    v_start = np.abs(best[:, 1] - best[:, 0]).max(axis=1) / dt
+    v_end = np.abs(best[:, -1] - best[:, -2]).max(axis=1) / dt
+    bound = 0.35 * np.maximum(v_mid, 1e-6) + 0.05
+
+    # one step's draw of the latent paths next to both ends, at the first step
+    # and after training, held to the bounds of tests/test_velocity.py's clamp
+    # test (positions 2e-2, velocities 0.12). Its one-sided difference over
+    # h = 1e-3 reads f'(0) + h/2·f'', and the mean path of a real query bends
+    # hard near the ends, so the velocity is read by the second-order
+    # one-sided difference (error h²/3 times the third derivative); the
+    # first-order one is recorded
+    h = 1e-3
+    X = torch.tensor([0.0, h, 2 * h, 1.0 - 2 * h, 1.0 - h, 1.0], device=dev)
+    st = torch.as_tensor(starts, dtype=torch.float32, device=dev)
+    gl = torch.as_tensor(goals, dtype=torch.float32, device=dev)
+
+    def ends(p):
+        with torch.no_grad():
+            c = planner.constrain(p, m.variance_lower)
+            q_lat = planner.query_latent(m, st, gl)
+            _, _, f, _ = planner._draw_eval(m, c, planner._q_mu_full(m, c, q_lat), planner._kuf(m, c, X), X,
+                                            m.num_samples, torch.Generator(device=dev).manual_seed(3), None)
+        f, q_lat = f.double(), q_lat.double()
+        big = lambda a, b: torch.maximum(a.abs(), b.abs()).max().item()
+        return {"pos": big(f[:, :, 0] - q_lat[:, None, 0], f[:, :, 5] - q_lat[:, None, 1]),
+                "vel": big((f[:, :, 1] - f[:, :, 0]) / h, (f[:, :, 5] - f[:, :, 4]) / h),
+                "vel2": big((4 * f[:, :, 1] - 3 * f[:, :, 0] - f[:, :, 2]) / (2 * h),
+                            (3 * f[:, :, 5] - 4 * f[:, :, 4] + f[:, :, 3]) / (2 * h))}
+
+    first, after = ends(params), ends(trained)
+
+    with torch.no_grad():
+        rep = execute_and_validate(m.collision, res.best, st, gl, m.limits_low, m.limits_high)
+        ref = execute_and_validate(cpu.model.collision, res.best.cpu(), st.cpu(), gl.cpu(),
+                                   cpu.model.limits_low, cpu.model.limits_high)
+    counts = {k: int(getattr(rep, k).sum()) for k in ("executed", "success", "endpoints_ok", "limits_ok")}
+    agree = {k: int((getattr(rep, k).cpu() == getattr(ref, k)).sum()) for k in ("executed", "success")}
+    rec = {"solve_s": t_solve, "elbo_first_mean": e[:, 0].mean().item(), "elbo_last_mean": e[:, -1].mean().item(),
+           "failed_rows": int(res.failed.sum()), "launches": launches, "k2_launches_per_step": k2_per_step,
+           "v_start_over_bound_max": float((v_start / bound).max()),
+           "v_end_over_bound_max": float((v_end / bound).max()),
+           "latent_ends_first_step": first, "latent_ends_trained": after,
+           "counts": counts, "agree_with_cpu": agree, "k2_velocity_grams": shapes}
+    log(f"(k) velocity-constrained solve, B={B} steps={cfg.num_steps} (Mc = {2 * 2 + m.num_inducing}): "
+        f"{t_solve:.3f} s, ELBO mean {rec['elbo_first_mean']:.6g} -> {rec['elbo_last_mean']:.6g}, failed rows "
+        f"{rec['failed_rows']}; K2 launches per step {k2_per_step:g}, launches {launches}; best's first / last "
+        f"step over its bound (< 1): {rec['v_start_over_bound_max']:.3f} / {rec['v_end_over_bound_max']:.3f}; "
+        f"latent draw at the ends (position error, velocity to second order (< 2e-2, 0.12), to first "
+        f"order): first step {first['pos']:.3e}, {first['vel2']:.3e}, {first['vel']:.3e}; trained "
+        f"{after['pos']:.3e}, {after['vel2']:.3e}, {after['vel']:.3e}; of {B} rows "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f"; verdicts agree with the CPU plain path on {agree}")
+    assert torch.isfinite(e).all(), "velocity mode: non-finite ELBO"
+    assert (v_start < bound).all() and (v_end < bound).all(), "velocity mode: an endpoint is not at rest"
+    for r in (first, after):
+        assert r["pos"] < 2e-2 and r["vel2"] < 0.12, f"velocity mode: the latent paths do not clamp: {r}"
+    assert k2_per_step == 2 and launches["k2_chol"] == 0, f"velocity mode escalated: {launches}"
+    assert launches["k1_loglik"] >= cfg.num_steps, launches
+    assert min(agree.values()) >= B - 2, f"velocity verdicts disagree with the CPU plain path: {agree}"
+    del vsess, trained, res
+    torch.cuda.empty_cache()
+    return rec
+
+
+def resumable_phase(torch, sess):
+    """(l) the 200-step B = 36 solve as 4 chunks of 50 steps, the state and
+    the generator's written and read back between chunks, against one chunk
+    of 200 from the same seed: ELBO history and best trajectories bit for
+    bit. Where they are not, the largest differences are reported, the ops
+    that PyTorch flags as nondeterministic on the first step are named, and
+    the ELBO history is held to 1e-6 relative."""
+    import tempfile
+    import warnings
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.utils.checkpoint import restore_train_state, save_train_state
+
+    dev = sess.device
+    starts, goals = sess.queries()
+    cfg = sess.train_config
+    params = solver.init_batch(sess.model, starts, goals, sess.planner_params)
+    init_state, train_chunk, extract = solver.make_resumable_solver(sess.model, cfg)
+
+    def run(chunks, tmp=None):
+        gen = torch.Generator(device=dev).manual_seed(6)
+        state, hist = init_state(params, gen), []
+        for i, n in enumerate(chunks):
+            state, h, _ = train_chunk(state, starts, goals, gen, n=n)
+            hist.append(h)
+            if tmp is not None:
+                path = Path(tmp) / f"chunk{i}.pt"
+                save_train_state(path, state, gen)
+                gen = torch.Generator(device=dev)
+                state = restore_train_state(path, device=dev, generator=gen)
+        hist = torch.cat(hist, dim=1)
+        return hist, extract(state, starts, goals, gen, elbo_history=hist).best
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h1, b1 = run([cfg.num_steps])
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        h4, b4 = run([cfg.num_steps // 4] * 4, tmp)
+        torch.cuda.synchronize()
+        t_chunked = time.perf_counter() - t0
+        ckpt_bytes = (Path(tmp) / "chunk0.pt").stat().st_size
+    equal = bool(torch.equal(h1, h4) and torch.equal(b1, b4))
+    rec = {"one_chunk_s": t_one, "four_chunks_s": t_chunked, "checkpoint_bytes": ckpt_bytes,
+           "bit_equal": equal, "elbo_max_abs_diff": (h1 - h4).abs().max().item(),
+           "elbo_max_rel_diff": ((h1 - h4).abs() / h1.abs()).max().item(),
+           "best_max_abs_diff": (b1 - b4).abs().max().item()}
+    if not equal:
+        first = torch.nonzero((h1 != h4).any(dim=0)).flatten()
+        rec["first_differing_step"] = int(first[0]) if len(first) else None
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            run([1])
+            torch.use_deterministic_algorithms(False)
+        rec["nondeterministic_ops"] = sorted({str(w.message).split(" does not")[0] for w in caught
+                                              if "deterministic" in str(w.message)})
+    log(f"(l) resumable: one chunk of {cfg.num_steps} steps {t_one:.3f} s, 4 chunks with a checkpoint "
+        f"({ckpt_bytes} bytes) between them {t_chunked:.3f} s; bit for bit equal: {equal}; ELBO max |d| "
+        f"{rec['elbo_max_abs_diff']:.3e} ({rec['elbo_max_rel_diff']:.3e} relative), best max |d| "
+        f"{rec['best_max_abs_diff']:.3e}" + ("" if equal else f"; first differing step "
+                                            f"{rec['first_differing_step']}, nondeterministic ops "
+                                            f"{rec['nondeterministic_ops']}"))
+    assert torch.isfinite(h1).all() and torch.isfinite(b1).all()
+    assert equal or rec["elbo_max_rel_diff"] <= 1e-6, "chunked run differs from the one-shot run"
+    return rec
+
+
+def replan_phase(torch, sess):
+    """(m) ``run_receding_horizon`` at B = 36: the tuned 200-step solve, then
+    40-step warm-started replans, 3 cycles executing 20 waypoints each, with
+    no disturbance and with 0.15 rad. Every cycle is timed (a synchronised
+    wrapper of the replanner), and its executed prefix checked against its
+    best trajectory."""
+    from vgpmp_torch.engine import replan, solver
+    from vgpmp_torch.likelihoods.collision import k1_loglik
+
+    dev = sess.device
+    starts, goals = sess.queries()
+    B = len(starts)
+    full = sess.train_config
+    quick = dataclasses.replace(full, num_steps=40)
+    cycles, advance, tol = 3, 20, 0.05
+    made = replan.make_replanner
+    rec = {}
+    for noise_scale in (0.0, 0.15):
+        cycle_s, bests, currents = [], [], []
+
+        def timed(model, cfg, trainable=None):
+            solve = made(model, cfg, trainable)
+
+            def run(params, current, g, generator=None, noise=None):
+                currents.append(current)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = solve(params, current, g, generator, noise)
+                torch.cuda.synchronize()
+                cycle_s.append(time.perf_counter() - t0)
+                bests.append(out[1].best)
+                return out
+
+            return run
+
+        params = solver.init_batch(sess.model, starts, goals, sess.planner_params)
+        k1_loglik.launches = 0
+        replan.make_replanner = timed
+        try:
+            t0 = time.perf_counter()
+            res = replan.run_receding_horizon(sess.model, full, quick, params, starts, goals,
+                                              torch.Generator(device=dev).manual_seed(8), cycles=cycles,
+                                              advance=advance, goal_tol=tol, noise_scale=noise_scale)
+            torch.cuda.synchronize()
+            t_all = time.perf_counter() - t0
+        finally:
+            replan.make_replanner = made
+        path, T = res.executed, bests[0].shape[1]
+        gap = 1 if noise_scale > 0 else 0
+        prefix_ok, pos = True, 1
+        for c, best in enumerate(bests):
+            upto = T if c == cycles - 1 else advance + 1
+            prefix_ok &= bool(torch.equal(path[:, pos:pos + upto - 1].nan_to_num(7.0),
+                                          best[:, 1:upto].nan_to_num(7.0)))
+            pos += upto - 1 + (gap if c < cycles - 1 else 0)
+        st = torch.as_tensor(starts, dtype=path.dtype, device=dev)
+        reached = int(res.reached_goal.sum())
+        # a reached state on a joint limit (a disturbance clipped onto it, or
+        # a float32 sigmoid that saturates there) puts that joint's latent
+        # start at ±inf (the sigmoid's inverse), in JAX as here: the row's
+        # later plans are NaN
+        lo, hi = sess.model.limits_low, sess.model.limits_high
+        on_limit = torch.zeros(B, dtype=torch.bool, device=dev)
+        for cur in currents[1:]:
+            on_limit |= ((cur == lo) | (cur == hi)).any(dim=1)
+        nonfinite = ~torch.isfinite(path).flatten(1).all(dim=1)
+        r = {"total_s": t_all, "cycle_s": cycle_s, "reached_goal": reached,
+             "final_error_max_finite": res.final_error[~nonfinite].max().item(),
+             "nonfinite_rows": int(nonfinite.sum()), "rows_reaching_a_joint_limit": int(on_limit.sum()),
+             "path_shape": list(path.shape), "k1_launches": k1_loglik.launches,
+             "elbo_last_mean_finite": res.elbo_last[~nonfinite].mean(dim=0).tolist()}
+        rec[f"noise_{noise_scale}"] = r
+        log(f"(m) receding horizon, B={B}, {cycles} cycles ({full.num_steps}, then {quick.num_steps} steps), "
+            f"advance {advance}, noise {noise_scale}: {t_all:.3f} s, cycles "
+            + ", ".join(f"{s:.3f}" for s in cycle_s) + f" s; reached goal {reached}/{B}, final error max "
+            f"{r['final_error_max_finite']:.3e} over the finite rows; rows with a NaN path "
+            f"{r['nonfinite_rows']}, rows whose reached state lies on a joint limit "
+            f"{r['rows_reaching_a_joint_limit']}; path "
+            f"{r['path_shape']}; K1 launches {r['k1_launches']}")
+        assert pos == path.shape[1] and prefix_ok, "an executed prefix is not its cycle's best trajectory"
+        assert torch.equal(path[:, 0], st), "the stitched path does not start at the starts"
+        assert len(cycle_s) == cycles and not (nonfinite & ~on_limit).any(), "a NaN path without a cause"
+        assert noise_scale > 0 or reached == int((~nonfinite).sum()), "a finite row missed its goal"
+        assert bool((res.final_error[res.reached_goal] <= tol).all())
+        assert k1_loglik.launches >= full.num_steps + (cycles - 1) * quick.num_steps
+    return rec
+
+
+def ensemble_phase(torch, sess, cpu):
+    """(n) ``make_ensemble_solver`` over the overlay's 6 tuned inits at
+    B = 36 (216 rows in one solve, one ``execute_and_validate``): the chosen
+    inits against the argmax of ``ensemble_score`` over the members' reports
+    recomputed by the CPU plain metric on the card's member trajectories."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods.collision import k1_loglik, k3_min_clearance, k3_probe_clearance
+
+    dev = sess.device
+    starts, goals = sess.queries()
+    B = len(starts)
+    inits = tuple(sess.planner_params["q_mu_inits"])
+    members = []
+    validate = solver.execute_and_validate
+
+    def recording(collision, best, *args):
+        members.append(best)
+        return validate(collision, best, *args)
+
+    t0 = time.perf_counter()
+    params = solver.init_ensemble(sess.model, starts, goals, sess.planner_params, inits)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    counters = (k1_loglik, k3_min_clearance, k3_probe_clearance)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    solve = solver.make_ensemble_solver(sess.model, sess.train_config, keep_member_reports=True)
+    solver.execute_and_validate = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best, rep, chosen, reps_kb = solve(params, starts, goals, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+    finally:
+        solver.execute_and_validate = validate
+    peak = torch.cuda.max_memory_allocated()
+    launches = {c.__name__: c.launches for c in counters}
+    K = len(inits)
+    st = torch.as_tensor(starts, dtype=torch.float32).repeat(K, 1)
+    gl = torch.as_tensor(goals, dtype=torch.float32).repeat(K, 1)
+    with torch.no_grad():
+        ref = execute_and_validate(cpu.model.collision, members[0].cpu(), st, gl, cpu.model.limits_low,
+                                   cpu.model.limits_high)
+    ref_score = solver.ensemble_score(ref.executed, ref.success, ref.min_clearance).reshape(K, B)
+    ref_chosen = torch.argmax(ref_score, dim=0)
+    agree = int((ref_chosen == chosen.cpu()).sum())
+    by_init = torch.bincount(chosen.cpu(), minlength=K).tolist()
+    executed = int(rep.executed.sum())
+    rec = {"inits": list(inits), "rows": K * B, "init_s": t_init, "solve_s": t_solve, "executed": executed,
+           "success": int(rep.success.sum()), "members_executed": reps_kb.executed.sum(dim=1).tolist(),
+           "chosen_by_init": by_init, "chosen_agree_with_cpu": agree, "peak_memory_bytes": peak,
+           "launches": launches}
+    log(f"(n) ensemble of {K} inits {list(inits)} at B={B} ({K * B} rows, {sess.train_config.num_steps} steps): "
+        f"init {t_init:.3f} s, solve + metric {t_solve:.3f} s, peak memory {peak / 2**20:.1f} MiB; executed "
+        f"{executed}/{B}, success {rec['success']}/{B}; executed per member {rec['members_executed']}; chosen "
+        f"per init {by_init}; chosen equal to the CPU plain metric's argmax on {agree}/{B}; launches {launches}")
+    assert best.shape == (B, sess.train_config.time_spacing_Xnew, 7) and torch.isfinite(best).all()
+    assert len(members) == 1 and members[0].shape[0] == K * B
+    assert agree == B, "a chosen init is not the argmax of the CPU plain metric's scores"
+    assert torch.equal(rep.executed, reps_kb.executed.any(dim=0)), "executed is not 'some member executed'"
+    assert launches["k3_min_clearance"] == 1 and launches["k3_probe_clearance"] == 1, launches
+    assert launches["k1_loglik"] >= sess.train_config.num_steps, launches
+    return rec
+
+
 def metric_profile_phase(torch, sess, best):
     """A second ``torch.profiler`` window: one ``execute_and_validate`` of the
     round's best trajectories at B = 36 (after the round's own calls warmed
@@ -1393,6 +1783,14 @@ def main() -> int:
     dsigma, k1_h2, trainable = trainable_phase(torch, flush, k1)
     del flush
     randomized = randomize_phase(torch, sess, cpu)
+    flush = l2_flush_buffer(sess.device)
+    velocity = velocity_phase(torch, sess, cpu, flush)
+    del flush
+    resumable = resumable_phase(torch, sess)
+    replanned = replan_phase(torch, sess)
+    ensemble = ensemble_phase(torch, sess, cpu)
+    for rec in (velocity, resumable, replanned, ensemble):
+        print(json.dumps(rec))
 
     # the profile comes last: once a profiler has traced the process, its
     # kernel launches stay slower, which would inflate the rounds' seconds
@@ -1405,13 +1803,16 @@ def main() -> int:
     k2[1]["launches"] = launches["k2_trsm"]
     k2[2]["launches"] = launches["k2_factor_solve"]
     k2[3]["launches"] = launches["k2_factor_solve_bwd"]
+    # the fused pair on the velocity Grams of (k), with (k)'s launches
+    k2[2]["velocity"] = {**velocity["k2_velocity_grams"],
+                         "launches": velocity["launches"]["k2_factor_solve"]}
     k3["launches"] = scored["launches"]["k3_min_clearance"]
     k3p["launches"] = scored["launches"]["k3_probe_clearance"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kernels = [{k: v for k, v in d.items() if k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")} for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4]]
+        "bound_ms", "bound_by", "library_ms", "velocity")} for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
     record = {"card": smi, "build_s": secs, "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4],
               "k2_errors": k2_errs, "combos": combos, "trainable": trainable, "randomized": randomized,
@@ -1420,6 +1821,7 @@ def main() -> int:
               "peak_memory_bytes": peak, "launches": launches, "profile": prof,
               "metric_profile": metric_prof, "kernel_device_profile": kernel_prof,
               "scored_round": scored, "gather_bench": gather, "adaptive": adaptive,
+              "velocity": velocity, "resumable": resumable, "replan": replanned, "ensemble": ensemble,
               "total_s": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

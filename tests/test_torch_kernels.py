@@ -445,3 +445,73 @@ def test_k3_k4_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         tg.k4_gather(torch.zeros(8, 3, dtype=torch.int32, device=cuda_device),
                      torch.zeros(4, dtype=torch.int32, device=cuda_device))
+
+
+def _velocity_grams(robot, ps, device):
+    """A combo's velocity-constrained Grams at its tuned init, ``[B·L, n, n]``
+    float64, and a training step's columns (S draws, N times, the mean)."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.session import PlanningSession
+
+    s = PlanningSession(robot, ps, overrides={"velocity_constrained": True}, device=device)
+    starts, goals = s.queries()
+    params = solver.init_batch(s.model, starts, goals, s.planner_params)
+    K, _ = planner._gram(s.model, planner.constrain(params, s.model.variance_lower))
+    cols = s.model.num_samples + s.train_config.time_spacing_X + 1
+    return K.detach().reshape(-1, *K.shape[-2:]).contiguous(), cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot,ps,n", [("franka", "industrial", 14), ("franka", "bookshelves", 28)])
+def test_k2_fused_pair_on_velocity_grams_on_card(cuda_device, robot, ps, n):
+    """The fused pair on real velocity-constrained Grams (Mc = 2C + M at the
+    problemset's M), forward and backward, against its plain versions. Their
+    condition numbers reach ~1e10, so two summation orders differ by up to
+    cond·eps ≈ 1e-6 of the largest entry: the forward is held to 1e-6 of it,
+    the backward (three solves deep) to 1e-5."""
+    K, k = _velocity_grams(robot, ps, cuda_device)
+    assert K.shape[-1] == n
+    rng = np.random.default_rng(n)
+    Bm = torch.as_tensor(rng.normal(size=(K.shape[0], n, k)), device=cuda_device)
+    WL = torch.as_tensor(rng.normal(size=K.shape), device=cuda_device)
+    WX = torch.as_tensor(rng.normal(size=Bm.shape), device=cuda_device)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    L_k, X_k = la.factor_solve(K, Bm)
+    L_p, X_p = la.factor_solve_plain(K, Bm)
+    assert torch.isfinite(L_k).all() and torch.isfinite(X_k).all()
+    assert rel(L_k, L_p) <= 1e-6 and rel(X_k, X_p) <= 1e-6
+    Kt, Bt = K.clone().requires_grad_(), Bm.clone().requires_grad_()
+    Lf, Xf = la.factor_solve(Kt, Bt)
+    g_k = torch.autograd.grad((WL * Lf).sum() + (WX * Xf).sum(), [Kt, Bt])
+    Kp, Bp = K.clone().requires_grad_(), Bm.clone().requires_grad_()
+    Lg, Xg = la.factor_solve_plain(Kp, Bp)
+    g_p = torch.autograd.grad((WL * Lg).sum() + (WX * Xg).sum(), [Kp, Bp])
+    for a, b in zip(g_k, g_p):
+        assert torch.isfinite(a).all() and rel(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_velocity_step_launches_on_card(cuda_device):
+    """One velocity-mode ELBO and its gradient: one K1 launch, the fused K2
+    pair once each way, no lone factorisation or solve."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.session import PlanningSession
+
+    s = PlanningSession("franka", "industrial", overrides={"velocity_constrained": True},
+                        device=cuda_device)
+    starts, goals = (x[:4] for x in s.queries())
+    params = solver.init_batch(s.model, starts, goals, s.planner_params)
+    for k in ("q_mu", "q_sqrt", "lengthscales_u", "variance_u"):
+        getattr(params, k).requires_grad_(True)
+    counters = (col.k1_loglik, la.k2_factor_solve, la.k2_factor_solve_bwd, la.k2_chol, la.k2_trsm)
+    before = [c.launches for c in counters]
+    X = torch.linspace(0, 1, s.train_config.time_spacing_X, device=cuda_device)
+    value = planner.elbo(params, s.model, torch.as_tensor(starts, dtype=torch.float32, device=cuda_device),
+                         torch.as_tensor(goals, dtype=torch.float32, device=cuda_device), X,
+                         torch.Generator(device=cuda_device).manual_seed(0))
+    grads = torch.autograd.grad(value.sum(), [params.q_mu, params.lengthscales_u])
+    torch.cuda.synchronize()
+    assert torch.isfinite(value).all() and all(torch.isfinite(g).all() for g in grads)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0]

@@ -30,10 +30,13 @@ def _imports(path: Path):
 
 
 PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "gather_bench_torch.py",
-                ROOT / "tools" / "k2_designs.py", ROOT / "benchmarking_torch.py"]
+                ROOT / "tools" / "k2_designs.py", ROOT / "benchmarking_torch.py",
+                ROOT / "tools" / "solve_digest_torch.py"]
 NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.ops.gather",
                "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver",
-               "vgpmp_torch.config", "vgpmp_torch.engine.analysis", "vgpmp_torch.session"]
+               "vgpmp_torch.config", "vgpmp_torch.engine.analysis", "vgpmp_torch.session",
+               "vgpmp_torch.gp.velocity", "vgpmp_torch.engine.replan", "vgpmp_torch.engine.repl",
+               "vgpmp_torch.utils.checkpoint", "vgpmp_torch.utils.profiling"]
 
 
 def test_port_imports_no_jax_package():
@@ -48,7 +51,8 @@ def test_port_imports_no_jax_package():
 
 
 @pytest.mark.parametrize("target", NEW_MODULES + ["chip_smoke", "bench_torch", "tools/gather_bench_torch.py",
-                                                   "tools/k2_designs.py", "benchmarking_torch"])
+                                                   "tools/k2_designs.py", "benchmarking_torch",
+                                                   "tools/solve_digest_torch.py"])
 def test_importing_the_port_loads_no_jax(target):
     """In a fresh interpreter, importing the module (or loading the script
     without running its entry point) leaves ``sys.modules`` free of JAX and of
@@ -81,6 +85,16 @@ def test_gather_benchmark_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         gather_bench_torch.main()
+
+
+def test_solve_digest_raises_without_cuda(monkeypatch):
+    """The solve digest has no CPU mode."""
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import solve_digest_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_digest_torch.main([])
 
 
 def test_k2_designs_refuses_without_cuda(monkeypatch, capsys):
@@ -130,7 +144,7 @@ def test_session_matches_jax_session():
     ts = PlanningSession("franka", "industrial", dtype=torch.float32, sdf_mode="nearest",
                          device="cpu")
     for name in ("num_samples", "num_bases", "num_inducing", "jitter", "jitter_escalations",
-                 "kernel", "antithetic", "variance_lower"):
+                 "kernel", "antithetic", "variance_lower", "velocity_constrained"):
         assert getattr(ts.model, name) == getattr(js.model, name), name
     assert ts.model.solve_dtype == torch.float64 and js.model.solve_dtype == jnp.float64
     for name in ("num_steps", "learning_rate", "lr_peak", "warmup_steps", "sigma_anneal",

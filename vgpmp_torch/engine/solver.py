@@ -8,9 +8,13 @@ guard must act per problem row, with a step count per row, exactly as
 ``_guarded_step`` does under ``vmap``. Each step is labelled for
 ``torch.profiler`` (``elbo_forward``, ``elbo_backward``, ``adam_update``,
 then ``extract``); the labels cost nothing while no profiler runs.
-:func:`make_round_solver` adds the metric of every solved row (label
-``validate``), and :func:`solve_adaptive` drives rounds of it, with restarts
-only for the problems still unsolved.
+:func:`make_resumable_solver` splits a solve into ``init_state``, chunks of
+steps on a checkpointable :class:`TrainState` and ``extract``;
+:func:`make_batch_solver` is those three with one chunk, so both run one step
+body. :func:`make_round_solver` adds the metric of every solved row (label
+``validate``), :func:`make_ensemble_solver` keeps the best of K restarts per
+problem, and :func:`solve_adaptive` drives rounds of the round solver, with
+restarts only for the problems still unsolved.
 """
 
 from __future__ import annotations
@@ -30,9 +34,10 @@ from vgpmp_torch.gp.pathwise import PathNoise
 from vgpmp_torch.kinematics.dh import ee_positions
 from vgpmp_torch.models import vgpmp as planner
 
-__all__ = ["TrainConfig", "SolveResult", "SolveNoise", "BatchedAdam", "default_trainable",
-           "lr_schedule", "random_timesteps", "make_single_solver", "make_batch_solver", "ensemble_score",
-           "make_round_solver", "solve_adaptive", "init_slots", "init_batch",
+__all__ = ["TrainConfig", "SolveResult", "SolveNoise", "BatchedAdam", "TrainState", "default_trainable",
+           "lr_schedule", "random_timesteps", "make_single_solver", "make_batch_solver",
+           "make_resumable_solver", "ensemble_score", "make_round_solver", "make_ensemble_solver",
+           "solve_adaptive", "init_slots", "init_batch", "init_ensemble",
            "restart_waypoints", "restart_candidates", "pick_via_points", "min_clearance_probe",
            "worst_violation_configs"]
 
@@ -167,16 +172,45 @@ class SolveResult(NamedTuple):
     ee_uncertainty: Optional[torch.Tensor] = None  # [B, Nnew, 3]
 
 
-def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
-                      trainable: Optional[dict] = None, keep_samples: int = 0):
-    """Build ``solve_batch(params0, starts, goals, generator=None, noise=None)
-    -> (params, SolveResult)`` over a leading problem axis ``B``.
+class TrainState(NamedTuple):
+    """A batched solve between two Adam steps, checkpointable with
+    :func:`vgpmp_torch.utils.checkpoint.save_train_state`: the parameters,
+    :class:`BatchedAdam`'s moments and per-row step counts (which set the
+    learning rate), the absolute step (which anneals σ_obs), each row's
+    training grid and the log-prior anchors of a trainable σ_obs or alpha."""
 
-    Each Adam step draws fresh pathwise samples from ``generator`` (one stream
-    for the whole batch), unless ``noise`` (:class:`SolveNoise`) supplies them.
-    With ``cfg.randomize_timesteps`` each row trains on its own sorted uniform
-    grid (:func:`random_timesteps`), drawn once per solve before the steps'
-    draws, or ``noise.timesteps``.
+    params: planner.PlannerParams
+    mu: planner.PlannerParams
+    nu: planner.PlannerParams
+    count: torch.Tensor                   # [B] int64 Adam steps taken per row
+    step: int                             # absolute step index
+    X_train: torch.Tensor                 # [N], or [B, N] under randomize_timesteps
+    anchors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # (σ_obs [B, P], alpha [B])
+
+
+def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
+                          trainable: Optional[dict] = None, keep_samples: int = 0):
+    """The batched solve split into chunks that can be checkpointed mid-run
+    (port of JAX's ``make_resumable_solver``), as three functions:
+
+    - ``init_state(params0, generator=None, noise=None) -> TrainState``; under
+      ``cfg.randomize_timesteps`` it draws each row's grid
+      (:func:`random_timesteps`) from ``generator``, or takes
+      ``noise.timesteps``;
+    - ``train_chunk(state, starts, goals, generator=None, noise=None, n=None)
+      -> (TrainState, elbo_history [B, n], logs)`` runs ``n`` Adam steps, by
+      default ``len(noise.steps)``, drawing each step's paths from
+      ``generator`` unless ``noise.steps`` gives them; ``logs`` holds the
+      per-step metrics ``[B, n]`` when ``cfg.log_level >= 1``, else ``None``;
+    - ``extract(state, starts, goals, generator=None, noise=None,
+      elbo_history=None) -> SolveResult``, the posterior extraction (from
+      ``noise.posterior`` when given); a row fails where its best trajectory,
+      or the last entry of ``elbo_history``, is not finite.
+
+    :func:`make_batch_solver` is these three with one chunk of
+    ``cfg.num_steps`` steps, so the chunked and the one-shot solve run the
+    same step: chunks of one run, with the same draws in the same order,
+    give the one-shot result bit for bit.
 
     A trainable σ_obs or alpha adds its log-prior to the ELBO (as GPflow adds
     ``log_prior_density`` to the training loss): Normal(init, 1e-4) on the
@@ -193,6 +227,7 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
     # NaN*0 included, so that a NaN gradient skips the row's step as in JAX
     grad_leaves = [k for k in planner.PlannerParams.names()
                    if k != "sigma_obs_u" or prior_sigma]
+    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
 
     def log_prior(p: planner.PlannerParams, anchors) -> torch.Tensor:
         """``[B]`` log-priors of the trainable σ_obs and alpha."""
@@ -210,13 +245,9 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
         frac = i / max(cfg.num_steps - 1, 1)
         return float(cfg.sigma_anneal) ** (1.0 - frac)
 
-    def solve_batch(params: planner.PlannerParams, starts, goals,
-                    generator: Optional[torch.Generator] = None,
-                    noise: Optional[SolveNoise] = None):
-        starts = torch.as_tensor(starts, dtype=dtype, device=dev)
-        goals = torch.as_tensor(goals, dtype=dtype, device=dev)
+    def init_state(params: planner.PlannerParams, generator: Optional[torch.Generator] = None,
+                   noise: Optional[SolveNoise] = None) -> TrainState:
         params = params.map(lambda x: x.detach().clone())
-        mask = _mask_pytree(params, trainable)
         opt = BatchedAdam(cfg, params)
         anchors = None
         if prior_sigma or prior_alpha:
@@ -227,25 +258,39 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
             if noise is not None:
                 if noise.timesteps is None:
                     raise ValueError("randomize_timesteps: the injected noise has no timesteps")
-                X_train = torch.as_tensor(noise.timesteps, dtype=dtype, device=dev)
+                X_train = as_t(noise.timesteps)
             else:
-                X_train = random_timesteps(X, starts.shape[0], generator)
+                X_train = random_timesteps(X, params.q_mu.shape[0], generator)
+        return TrainState(params, opt.mu, opt.nu, opt.count, 0, X_train, anchors)
+
+    def train_chunk(state: TrainState, starts, goals, generator: Optional[torch.Generator] = None,
+                    noise: Optional[SolveNoise] = None, n: Optional[int] = None):
+        if n is None:
+            if noise is None:
+                raise ValueError("train_chunk: pass n, the number of steps, or noise.steps")
+            n = len(noise.steps)
+        starts, goals = as_t(starts), as_t(goals)
+        params = state.params
+        mask = _mask_pytree(params, trainable)
+        opt = BatchedAdam(cfg, params)
+        opt.mu, opt.nu, opt.count = state.mu, state.nu, state.count
         hist, logs = [], []
-        for i in range(cfg.num_steps):
+        for j in range(n):
+            i = state.step + j
             p = params.map(lambda x: x.detach())
             for k in grad_leaves:
                 getattr(p, k).requires_grad_(True)
-            step_noise = noise.steps[i] if noise is not None else None
+            step_noise = noise.steps[j] if noise is not None else None
             with record_function("elbo_forward"):
                 if cfg.log_level >= 1:
-                    value, aux = planner.elbo_with_aux(p, model, starts, goals, X_train, generator,
-                                                       step_noise, sigma_scale(i))
+                    value, aux = planner.elbo_with_aux(p, model, starts, goals, state.X_train,
+                                                       generator, step_noise, sigma_scale(i))
                     logs.append({k: v.detach() for k, v in aux.items()})
                 else:
-                    value = planner.elbo(p, model, starts, goals, X_train, generator, step_noise,
-                                         sigma_scale(i))
-                if anchors is not None:
-                    value = value + log_prior(p, anchors)
+                    value = planner.elbo(p, model, starts, goals, state.X_train, generator,
+                                         step_noise, sigma_scale(i))
+                if state.anchors is not None:
+                    value = value + log_prior(p, state.anchors)
             with record_function("elbo_backward"):
                 gl = torch.autograd.grad(-value.sum(), [getattr(p, k) for k in grad_leaves])
             with record_function("adam_update"):
@@ -256,24 +301,59 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
                 })
                 params = opt.step(params, grads)
             hist.append(value.detach())
-        elbo_hist = torch.stack(hist, dim=1)
+        state = state._replace(params=params, mu=opt.mu, nu=opt.nu, count=opt.count,
+                               step=state.step + n)
+        logs = {k: torch.stack([l[k] for l in logs], dim=1) for k in logs[0]} if logs else None
+        return state, torch.stack(hist, dim=1), logs
 
+    def extract(state: TrainState, starts, goals, generator: Optional[torch.Generator] = None,
+                noise: Optional[SolveNoise] = None,
+                elbo_history: Optional[torch.Tensor] = None) -> SolveResult:
+        starts, goals = as_t(starts), as_t(goals)
         with torch.no_grad(), record_function("extract"):
             mean, best, samples, scores = planner.sample_from_posterior(
-                params, model, starts, goals, Xnew, cfg.num_posterior_samples, generator,
+                state.params, model, starts, goals, Xnew, cfg.num_posterior_samples, generator,
                 noise.posterior if noise is not None else None)
-            failed = ~(torch.isfinite(best).flatten(1).all(dim=1) & torch.isfinite(elbo_hist[:, -1]))
+            ok = torch.isfinite(best).flatten(1).all(dim=1)
+            if elbo_history is not None:
+                ok = ok & torch.isfinite(elbo_history[:, -1])
             ee_unc = None
             if cfg.ee_uncertainty:
                 ee = ee_positions(model.collision.fk, samples)  # [B, S, Nnew, 3]
                 ee_unc = 2.0 * ee.std(dim=1, unbiased=False)
-        result = SolveResult(
-            best=best, mean=mean, best_score=scores.max(dim=1).values, elbo_history=elbo_hist,
-            failed=failed, samples=samples[:, :keep_samples] if keep_samples else None,
-            logs={k: torch.stack([l[k] for l in logs], dim=1) for k in logs[0]} if logs else None,
+        if elbo_history is None:
+            elbo_history = torch.zeros((best.shape[0], 0), dtype=dtype, device=dev)
+        return SolveResult(
+            best=best, mean=mean, best_score=scores.max(dim=1).values, elbo_history=elbo_history,
+            failed=~ok, samples=samples[:, :keep_samples] if keep_samples else None,
             ee_uncertainty=ee_unc,
         )
-        return params, result
+
+    return init_state, train_chunk, extract
+
+
+def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
+                      trainable: Optional[dict] = None, keep_samples: int = 0):
+    """Build ``solve_batch(params0, starts, goals, generator=None, noise=None)
+    -> (params, SolveResult)`` over a leading problem axis ``B``: the
+    resumable solver's three functions (:func:`make_resumable_solver`) with
+    one chunk of ``cfg.num_steps`` steps.
+
+    Each Adam step draws fresh pathwise samples from ``generator`` (one stream
+    for the whole batch), unless ``noise`` (:class:`SolveNoise`) supplies them.
+    With ``cfg.randomize_timesteps`` each row trains on its own sorted uniform
+    grid (:func:`random_timesteps`), drawn once per solve before the steps'
+    draws, or ``noise.timesteps``.
+    """
+    init_state, train_chunk, extract = make_resumable_solver(model, cfg, trainable, keep_samples)
+
+    def solve_batch(params: planner.PlannerParams, starts, goals,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[SolveNoise] = None):
+        state = init_state(params, generator, noise)
+        state, hist, logs = train_chunk(state, starts, goals, generator, noise, n=cfg.num_steps)
+        res = extract(state, starts, goals, generator, noise, hist)
+        return state.params, res._replace(logs=logs)
 
     return solve_batch
 
@@ -336,6 +416,56 @@ def make_round_solver(model: planner.PlannerModel, cfg: TrainConfig,
             reports = execute_and_validate(model.collision, res.best, starts, goals,
                                            model.limits_low, model.limits_high)
         return res.best, reports
+
+    return solve
+
+
+def _flatten_noise(noise: SolveNoise, K: int, B: int) -> SolveNoise:
+    """``[K, B, ...]`` draws as ``[K·B, ...]`` rows, member-major."""
+    flat = lambda x: None if x is None else x.reshape((K * B,) + tuple(x.shape[2:]))
+    path = lambda pn: PathNoise(*(flat(x) for x in pn))
+    return SolveNoise(steps=[path(n) for n in noise.steps], posterior=path(noise.posterior),
+                      timesteps=flat(noise.timesteps))
+
+
+def make_ensemble_solver(model: planner.PlannerModel, cfg: TrainConfig,
+                         trainable: Optional[dict] = None, keep_member_reports: bool = False):
+    """Multi-restart solver: K inits per problem, the best *executed* one wins.
+
+    Returns ``solve(params_kb, starts, goals, generator=None, noise=None) ->
+    (best [B, Nnew, L], reports, chosen_init [B])``, where ``params_kb`` has a
+    leading ``[K, B]`` axis (:func:`init_ensemble`) and ``noise`` (optional)
+    a :class:`SolveNoise` whose draws lead with ``[K, B]`` too. The K·B rows
+    are one batch solve, one :func:`execute_and_validate` and one
+    :func:`ensemble_score` (float32); each problem keeps the member of
+    highest score, the first init on a tie (as ``jnp.argmax``).
+    ``reports`` are the chosen members', every field ``[B]``. With
+    ``keep_member_reports`` the members' reports, every field ``[K, B]``, are
+    appended to the returned tuple.
+    """
+    solve_batch = make_batch_solver(model, dataclasses.replace(cfg, ee_uncertainty=False), trainable)
+
+    def solve(params_kb: planner.PlannerParams, starts, goals,
+              generator: Optional[torch.Generator] = None, noise: Optional[SolveNoise] = None):
+        K, B = params_kb.q_mu.shape[:2]
+        starts = torch.as_tensor(starts, dtype=model.dtype, device=model.device).repeat(K, 1)
+        goals = torch.as_tensor(goals, dtype=model.dtype, device=model.device).repeat(K, 1)
+        params = params_kb.map(lambda x: x.reshape((K * B,) + tuple(x.shape[2:])))
+        if noise is not None:
+            noise = _flatten_noise(noise, K, B)
+        _, res = solve_batch(params, starts, goals, generator, noise)
+        with torch.no_grad(), record_function("validate"):
+            reps = execute_and_validate(model.collision, res.best, starts, goals,
+                                        model.limits_low, model.limits_high)
+        score = ensemble_score(reps.executed, reps.success, reps.min_clearance).reshape(K, B)
+        chosen = torch.argmax(score, dim=0)
+        rows = chosen * B + torch.arange(B, device=chosen.device)
+        pick = lambda fn: ValidationReport(**{k: None if v is None else fn(v)
+                                              for k, v in reps._asdict().items()})
+        out = (res.best[rows], pick(lambda v: v[rows]), chosen)
+        if keep_member_reports:
+            return out + (pick(lambda v: v.reshape(K, B)),)
+        return out
 
     return solve
 
@@ -480,6 +610,17 @@ def init_batch(model: planner.PlannerModel, starts: np.ndarray, goals: np.ndarra
                planner_params: dict) -> planner.PlannerParams:
     """:func:`init_slots` with the linear q_mu init on every row."""
     return init_slots(model, starts, goals, planner_params, ["linear"] * len(np.asarray(starts)))
+
+
+def init_ensemble(model: planner.PlannerModel, starts: np.ndarray, goals: np.ndarray,
+                  planner_params: dict, inits: Tuple[str, ...] = ("linear", "zeros")
+                  ) -> planner.PlannerParams:
+    """:func:`init_slots` once per q_mu init mode of ``inits``, stacked:
+    every leaf ``[K, B, ...]`` for :func:`make_ensemble_solver`."""
+    B = len(np.asarray(starts))
+    members = [init_slots(model, starts, goals, planner_params, [m] * B) for m in inits]
+    return planner.PlannerParams(**{k: torch.stack([getattr(p, k) for p in members])
+                                    for k in planner.PlannerParams.names()})
 
 
 def _round_seed(seed: int, rnd: int) -> int:

@@ -75,9 +75,18 @@ def whitened_scale(chol_kuu: torch.Tensor, q_sqrt: torch.Tensor, jitter: float =
     return chol_kuu @ pad + jitter_pad
 
 
-def _rff_features(x: torch.Tensor, omega: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
-    """cos features: ``x [..., L, A], omega/phase [..., L, B] -> [..., L, A, B]``."""
-    return torch.cos(x[..., :, None] * omega[..., None, :] + phase[..., None, :])
+def _rff_features(x: torch.Tensor, omega: torch.Tensor, phase: torch.Tensor,
+                  deriv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """cos features: ``x [..., L, A], omega/phase [..., L, B] -> [..., L, A, B]``.
+
+    Rows flagged by ``deriv_mask [A]`` are derivative observations, whose
+    feature is ``d/dx cos(ωx + φ) = -ω sin(ωx + φ)`` (the velocity-constrained
+    inducing set, ``gp/velocity.py``)."""
+    arg = x[..., :, None] * omega[..., None, :] + phase[..., None, :]
+    cos = torch.cos(arg)
+    if deriv_mask is None:
+        return cos
+    return torch.where(deriv_mask[:, None], -omega[..., None, :] * torch.sin(arg), cos)
 
 
 def draw_noise(batch: tuple, L: int, Mc: int, num_samples: int, num_bases: int, dtype, device,
@@ -116,7 +125,7 @@ class _Draw(NamedTuple):
 
 def _draw_rhs(ny, Z, lengthscales, variance, Mc: int, solve_dtype, q_mu_full, q_sqrt,
               num_samples: int, num_bases: int, df: float, jitter: float, kernel: str,
-              antithetic: bool, generator, noise) -> _Draw:
+              antithetic: bool, generator, noise, deriv_mask=None) -> _Draw:
     L = Z.shape[-1]
     bulk = Z.dtype
     if noise is None:
@@ -126,7 +135,9 @@ def _draw_rhs(ny, Z, lengthscales, variance, Mc: int, solve_dtype, q_mu_full, q_
     rff_scale = torch.sqrt(2.0 * variance[..., None] / num_bases).to(bulk)
 
     zy_ = zy_fn(ny, Z).to(bulk)
-    phi_z = _rff_features(zy_, omega, noise.phase) * rff_scale[..., None]
+    if deriv_mask is not None:  # the inducing inputs are [ny; ny; Z]
+        zy_ = torch.cat([ny.to(bulk).expand(zy_.shape[:-1] + ny.shape), zy_], dim=-1)
+    phi_z = _rff_features(zy_, omega, noise.phase, deriv_mask) * rff_scale[..., None]
     f_prior_z = torch.einsum("...lmb,...slb->...slm", phi_z, noise.w)  # [..., S, L, Mc]
 
     C = Mc - q_sqrt.shape[-1]
@@ -155,15 +166,19 @@ def _draw_state(d: _Draw, a_solve: torch.Tensor, chol_kuu: torch.Tensor, q_sqrt)
 def draw_paths(ny, Z, lengthscales, variance, chol_kuu, q_mu_full, q_sqrt, num_samples: int,
                num_bases: int, df: float = 5.0, jitter: float = 1e-6, kernel: str = "matern52",
                antithetic: bool = False, generator: Optional[torch.Generator] = None,
-               noise: Optional[PathNoise] = None) -> PathState:
+               noise: Optional[PathNoise] = None,
+               deriv_mask: Optional[torch.Tensor] = None) -> PathState:
     """Draw S function samples.
 
     ``ny [C]``, ``Z [..., M, L]``, ``lengthscales``/``variance [..., L]``,
     ``chol_kuu [..., L, Mc, Mc]``, ``q_mu_full [..., Mc, L]``,
     ``q_sqrt [..., L, M, M]``. ``noise`` replaces the generator's draws.
+    ``deriv_mask [Mc]`` flags the derivative rows of the velocity-constrained
+    inducing set ``[ny; ny; Z]`` (``gp/velocity.py``).
     """
     d = _draw_rhs(ny, Z, lengthscales, variance, chol_kuu.shape[-1], chol_kuu.dtype, q_mu_full,
-                  q_sqrt, num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise)
+                  q_sqrt, num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise,
+                  deriv_mask)
     return _draw_state(d, linalg.solve_lower(chol_kuu, d.rhs), chol_kuu, q_sqrt)
 
 
@@ -187,7 +202,8 @@ def draw_and_eval_paths(ny, Z, lengthscales, variance, kuu, kuf, X, q_mu_full, q
                         num_samples: int, num_bases: int, df: float = 5.0, jitter: float = 1e-6,
                         kernel: str = "matern52", antithetic: bool = False,
                         generator: Optional[torch.Generator] = None,
-                        noise: Optional[PathNoise] = None):
+                        noise: Optional[PathNoise] = None,
+                        deriv_mask: Optional[torch.Tensor] = None):
     """:func:`draw_paths` and :func:`eval_paths` from the Gram ``kuu
     [..., L, Mc, Mc]`` itself: the draw's right-hand side, ``kuf`` and the
     variational mean ``q_mu_full`` share the factor and depend on neither it
@@ -199,7 +215,8 @@ def draw_and_eval_paths(ny, Z, lengthscales, variance, kuu, kuf, X, q_mu_full, q
     mean L⁻¹ q_mu_fullᵀ [..., L, Mc, 1])``.
     """
     d = _draw_rhs(ny, Z, lengthscales, variance, kuu.shape[-1], kuu.dtype, q_mu_full, q_sqrt,
-                  num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise)
+                  num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise,
+                  deriv_mask)
     mean = q_mu_full.transpose(-1, -2)[..., None].to(kuu.dtype)
     chol_kuu, sol = linalg.factor_solve(kuu, torch.cat([d.rhs, kuf.to(kuu.dtype), mean], dim=-1))
     a_solve, A, m_w = torch.split(sol, [d.rhs.shape[-1], kuf.shape[-1], 1], dim=-1)

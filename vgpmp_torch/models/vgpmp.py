@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from vgpmp_torch.gp import conditioned, kl, pathwise, posterior
+from vgpmp_torch.gp import conditioned, kl, pathwise, posterior, velocity
 from vgpmp_torch.gp.pathwise import PathNoise
 from vgpmp_torch.likelihoods.collision import CollisionModel, joint_sigmoid, joint_sigmoid_inverse
 from vgpmp_torch.ops import kernels as kernel_ops
@@ -68,6 +68,8 @@ class PlannerModel:
     kernel: str = "matern52"
     antithetic: bool = False
     variance_lower: float = VARIANCE_LOWER
+    # clamp the endpoint velocities to 0 beside the positions (gp/velocity.py)
+    velocity_constrained: bool = False
 
     @property
     def num_latent(self) -> int:
@@ -156,7 +158,26 @@ def query_latent(model: PlannerModel, start: torch.Tensor, goal: torch.Tensor) -
     return joint_sigmoid_inverse(q, model.limits_low, model.limits_high)
 
 
+def _kuu(model: PlannerModel, c: dict) -> torch.Tensor:
+    """The conditioned Gram with jitter, ``[B, L, Mc, Mc]``: the velocity-
+    constrained one (``Mc = 2C + M``) where the model asks for it."""
+    if not model.velocity_constrained:
+        return conditioned.kuu(kernel_ops.KERNELS[model.kernel], model.ny, c["Z"], c["lengthscales"],
+                               c["variance"], jitter=model.jitter, solve_dtype=model.solve_dtype)
+    if model.kernel != "matern52":
+        raise ValueError("velocity conditioning supports matern52 only")
+    return velocity.kuu_velocity(model.ny, c["Z"], c["lengthscales"], c["variance"],
+                                 jitter=model.jitter, solve_dtype=model.solve_dtype)
+
+
 def _gram(model: PlannerModel, c: dict, with_info: bool = False):
+    if model.velocity_constrained:
+        # factored once, with no jitter escalation, as JAX does
+        Kuu = _kuu(model, c)
+        chol = linalg.chol(Kuu)
+        if with_info:
+            return Kuu, chol, torch.zeros(Kuu.shape[:-3], dtype=torch.int32, device=Kuu.device)
+        return Kuu, chol
     return conditioned.cholesky_kuu(
         kernel_ops.KERNELS[model.kernel], model.ny, c["Z"], c["lengthscales"], c["variance"],
         jitter=model.jitter, solve_dtype=model.solve_dtype,
@@ -165,6 +186,9 @@ def _gram(model: PlannerModel, c: dict, with_info: bool = False):
 
 
 def _kuf(model: PlannerModel, c: dict, X: torch.Tensor) -> torch.Tensor:
+    if model.velocity_constrained:
+        return velocity.kuf_velocity(model.ny, c["Z"], X, c["lengthscales"], c["variance"],
+                                     solve_dtype=model.solve_dtype)
     return conditioned.kuf(kernel_ops.KERNELS[model.kernel], model.ny, c["Z"], X,
                            c["lengthscales"], c["variance"], solve_dtype=model.solve_dtype)
 
@@ -176,12 +200,15 @@ def _draw_eval(model: PlannerModel, c: dict, q_mu_full, Kuf, X, num_samples, gen
     _kuf(model, c, X)``. Without jitter escalation the factorisation and every
     solve that shares it (the draw, ``Kuf``, the variational mean for the KL)
     are one fused call; with it the factor may be replaced per row after the
-    first attempt, so the calls stay apart."""
+    first attempt, so the calls stay apart. The velocity-constrained Gram never
+    escalates (as in JAX), so it always takes the fused call."""
+    deriv_mask = (velocity.deriv_mask(model.ny.shape[0], model.num_inducing, model.device)
+                  if model.velocity_constrained else None)
     draw = dict(num_samples=num_samples, num_bases=model.num_bases, jitter=model.jitter,
-                kernel=model.kernel, antithetic=antithetic, generator=generator, noise=noise)
-    if model.jitter_escalations == 0:
-        Kuu = conditioned.kuu(kernel_ops.KERNELS[model.kernel], model.ny, c["Z"], c["lengthscales"],
-                              c["variance"], jitter=model.jitter, solve_dtype=model.solve_dtype)
+                kernel=model.kernel, antithetic=antithetic, generator=generator, noise=noise,
+                deriv_mask=deriv_mask)
+    if model.jitter_escalations == 0 or model.velocity_constrained:
+        Kuu = _kuu(model, c)
         chol, _, f, m_w = pathwise.draw_and_eval_paths(
             model.ny, c["Z"], c["lengthscales"], c["variance"], Kuu, Kuf, X, q_mu_full, c["q_sqrt"],
             **draw)
@@ -193,10 +220,18 @@ def _draw_eval(model: PlannerModel, c: dict, q_mu_full, Kuf, X, num_samples, gen
     return chol, esc, pathwise.eval_paths(state, Kuf, X), m_w
 
 
+def _q_mu_full(model: PlannerModel, c: dict, q_lat: torch.Tensor) -> torch.Tensor:
+    """The full mean ``[B, Mc, L]``: the clamped rows (the zero endpoint
+    velocities in velocity mode, then the query states) and ``q_mu``."""
+    if model.velocity_constrained:
+        return velocity.extend_q_mu(torch.zeros_like(q_lat), q_lat, c["q_mu"])
+    return torch.cat([q_lat, c["q_mu"]], dim=-2)
+
+
 def _sample_configs(params, model, start, goal, X, num_samples, generator, noise, antithetic):
     c = constrain(params, model.variance_lower)
     q_lat = query_latent(model, start, goal)
-    q_mu_full = torch.cat([q_lat, c["q_mu"]], dim=-2)
+    q_mu_full = _q_mu_full(model, c, q_lat)
     chol, esc, f, m_w = _draw_eval(model, c, q_mu_full, _kuf(model, c, X), X, num_samples,
                                    generator, noise, antithetic)
     g = joint_sigmoid(f, model.limits_low, model.limits_high)  # [B, S, N, L]
@@ -256,7 +291,7 @@ def sample_from_posterior(params: PlannerParams, model: PlannerModel, start, goa
     """
     c = constrain(params, model.variance_lower)
     q_lat = query_latent(model, start, goal)
-    q_mu_full = torch.cat([q_lat, c["q_mu"]], dim=-2)
+    q_mu_full = _q_mu_full(model, c, q_lat)
     Kuf = _kuf(model, c, Xnew)
     chol, _, f, _ = _draw_eval(model, c, q_mu_full, Kuf, Xnew, num_samples, generator, noise)
     sd = chol.dtype

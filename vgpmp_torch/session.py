@@ -155,9 +155,8 @@ class PlanningSession:
             variance_lower=float(pp.get("variance_lower", min(0.1, 0.5 * float(pp["variance"])))),
             kernel=str(pp.get("kernel", "matern52")),
             antithetic=bool(pp.get("antithetic", False)),
+            velocity_constrained=bool(pp.get("velocity_constrained", False)),
         )
-        if pp.get("velocity_constrained", False):
-            raise NotImplementedError("velocity_constrained is not ported yet")
         self.train_config = TrainConfig(
             num_steps=int(pp["num_steps"]),
             learning_rate=float(pp["learning_rate"]),
