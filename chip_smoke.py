@@ -72,11 +72,21 @@ Phases, any failure exits non-zero before the result line:
     each cycle timed;
 (n) ``make_ensemble_solver`` over the 6 tuned inits (216 rows in one solve
     and one metric), its chosen inits against the CPU plain metric's argmax
-    on the card's member trajectories, and its peak memory.
+    on the card's member trajectories, and its peak memory;
+(o) a scene with objects: ``SceneBuilder`` puts the table, the duck, the
+    pringles can and the boxes scene's grid (``OBJECTS``) on the industrial
+    base; K1 and K3 (both entries) on it against their plain versions at the
+    main path's shapes, with each source's count of hinge-active wins and
+    the configs whose d/dq is NaN (a sphere centre inside the table, as in
+    JAX); the bench's adaptive solve on it at full width (launch counts, no
+    plain log_prob on CUDA, the row-steps the guard skipped, verdicts
+    against the CPU plain metric on all 36 rows); then ``move_object`` and a
+    round that reads the new pose with nothing rebuilt.
 
-(d)'s profiles run last. Prints one JSON line for each of (k)–(n), the
+(d)'s profiles run last. Prints one JSON line for each of (k)–(o), the
 card's name and power limit, a ``kernels`` JSON line (K1 and its d/dσ pair,
-K2 with the fused pair's velocity shapes, K3, K4), and as the last line
+K2 with the fused pair's velocity shapes, K3, K4, and K1 and K3 on (o)'s
+scene), and as the last line
 ``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
 """
@@ -125,12 +135,38 @@ def k1_inputs(torch, sess):
     return torch.minimum(torch.maximum(q, lo), hi).contiguous()
 
 
-def k1_phase(torch, sess, flush):
-    """K1 against ``log_prob_plain``, which on the card is plain PyTorch end to
-    end (FK, ``packed_lookup_plain``'s gather and unpack, the hinge)."""
-    from vgpmp_torch.likelihoods import collision as col
+def k1_bound(torch, model, q):
+    """K1's bound at the configs ``q [..., L]``: the distinct 32-byte sectors
+    (four 8-byte words) that the spheres' cells touch in each packed grid of
+    the scene, q and σ read and lik and d/dq written once; per config 7 DH
+    compositions (~60 flops), per sphere its position, index and hinge (~30),
+    the 7-joint torque accumulation (~16 each), and per extra source its index
+    (~15 a grid) or its analytic value and gradient (~15 a sphere, ~50 a box,
+    ~35 a capsule). Returns (ms, "bytes" or "operations", sectors, bytes,
+    flops)."""
     from vgpmp_torch.kinematics.dh import sphere_positions
     from vgpmp_torch.sdf.grid import _packed_flat_index
+
+    sc = model.scene
+    with torch.no_grad():
+        pos = sphere_positions(model.fk, q)
+        sectors = sum(torch.unique(_packed_flat_index(g, pos - off).reshape(-1) // 4).numel()
+                      for g, off in [(sc.base_packed, sc.base_offset),
+                                     *zip(sc.extra_packed, sc.extra_offsets if sc.extra_packed else [])])
+    L, P = q.shape[-1], model.fk.sphere_radii.shape[0]
+    T = q.numel() // L
+    Ks, Kb, Kc = model.tables.counts
+    extra = 15 * len(sc.extra_packed) + 15 * Ks + 50 * Kb + 35 * Kc
+    nbytes = sectors * 32 + T * L * 4 + q.shape[0] * P * 4 + T * 4 + T * L * 4 + model.tables.prims.numel() * 4
+    flops = T * (L * 60 + P * (30 + L * 16 + extra))
+    return (*bound_ms(nbytes, flops, F32_FLOPS), sectors, nbytes, flops)
+
+
+def k1_phase(torch, sess, flush, label=""):
+    """K1 against ``log_prob_plain``, which on the card is plain PyTorch end to
+    end (FK, ``packed_lookup_plain``'s gather and unpack, on a scene with
+    objects each extra grid's and the primitives' too, the hinge)."""
+    from vgpmp_torch.likelihoods import collision as col
     from vgpmp_torch.timing import time_ms
 
     model = sess.model.collision
@@ -150,18 +186,25 @@ def k1_phase(torch, sess, flush):
     # a sphere near a voxel face may land in the neighbouring voxel: at most
     # 1e-3 of the configs may differ; the rest agree to 1e-5 relative (+1e-3
     # absolute: 37-term float32 sums in another order), their gradients to
-    # 1e-3 of the largest
+    # 1e-3 of the largest. A config with a sphere centre inside or on a box
+    # has a NaN d/dq (as JAX's): the pattern must agree but for 1e-3 of the
+    # configs (a centre within a rounding of a box face)
     close = torch.isclose(lik_k, lik_p, rtol=1e-5, atol=1e-3)
     share = (~close).float().mean().item()
     err = (lik_k - lik_p)[close].abs().max().item()
-    gscale = gp.abs().max().item()
-    gerr = (gk - gp)[close].abs().max().item()
+    nan_k, nan_p = torch.isnan(gk).any(-1), torch.isnan(gp).any(-1)
+    nan_differ = (nan_k != nan_p).float().mean().item()
+    both = close & ~nan_k & ~nan_p
+    gscale = gp[both].abs().max().item()
+    gerr = (gk - gp)[both].abs().max().item()
     active = (lik_p < 0).float().mean().item()
-    log(f"K1 check: {B * S * N} configs, hinge active in {active:.4f} (>= 0.2), other-voxel share "
-        f"{share:.2e} (<= 1e-3), max |dlik| {err:.3e}, max |d grad| {gerr:.3e} of {gscale:.3e}")
+    log(f"K1{label} check: {B * S * N} configs, hinge active in {active:.4f} (>= 0.2), other-voxel share "
+        f"{share:.2e} (<= 1e-3), max |dlik| {err:.3e}, max |d grad| {gerr:.3e} of {gscale:.3e}; NaN d/dq "
+        f"in {int(nan_p.sum())} configs (plain), pattern differs in {nan_differ:.2e} (<= 1e-3)")
     assert active >= 0.2, "K1 check: too few configs touch an obstacle to test the hinge"
     assert share <= 1e-3, "K1: too many configs disagree with the plain version"
     assert gerr <= 1e-3 * gscale + 1e-6, "K1: gradient disagrees with the plain version"
+    assert nan_differ <= 1e-3, "K1: the NaN pattern of d/dq disagrees with the plain version"
 
     q2 = q.reshape(-1, L)
     # 100 calls each: at 20 a single slow call moves the mean by a tenth
@@ -173,25 +216,17 @@ def k1_phase(torch, sess, flush):
         torch.autograd.grad(col.log_prob_plain(model, qq, sigma).sum(), qq)
 
     plain_ms = time_ms(plain, reps=5, flush=flush)
-    with torch.no_grad():
-        flat = _packed_flat_index(model.scene.base_packed,
-                                  sphere_positions(model.fk, q) - model.scene.base_offset)
-        sectors = torch.unique(flat.reshape(-1) // 4).numel()  # 32-byte sectors of 8-byte entries
-    T, P = q2.shape[0], sigma.shape[1]
-    nbytes = sectors * 32 + T * L * 4 + sigma.numel() * 4 + T * 4 + T * L * 4
-    # per config: 7 DH compositions (~60 flops), per sphere position, index,
-    # hinge (~30) and the 7-joint torque accumulation (~16 each)
-    flops = T * (L * 60 + P * (30 + L * 16))
-    b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
-    log(f"K1 time: fwd+grad {ms:.4f} ms, fwd only {ms_fwd:.4f} ms, plain fwd+bwd {plain_ms:.4f} ms, "
+    b_ms, b_by, sectors, nbytes, flops = k1_bound(torch, model, q)
+    log(f"K1{label} time: fwd+grad {ms:.4f} ms, fwd only {ms_fwd:.4f} ms, plain fwd+bwd {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB)")
-    return {"name": "k1_collision_loglik", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cu",
+    return {"name": "k1_collision_loglik" + label, "route": "cuda",
+            "source": "vgpmp_torch/csrc/k1_collision.cu",
             "replaces": "vgpmp_tpu/likelihoods/collision.py:76", "max_abs_err": err,
             "max_rel_err": err / lik_p.abs().max().item(), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "other_voxel_share": share, "hinge_active_share": active, "max_grad_err": gerr,
             "grad_scale": gscale, "ms_forward_only": ms_fwd, "sectors": sectors, "nbytes": nbytes,
-            "flops": flops}
+            "flops": flops, "nan_dq_configs": int(nan_p.sum()), "nan_pattern_differs": nan_differ}
 
 
 def k2_phase(torch, sess, flush):
@@ -393,36 +428,44 @@ def k2_phase(torch, sess, flush):
 
 def k3_bound(torch, model, q, extra_bytes: float, extra_flops: float):
     """K3's bound at the configs ``q [n, L]``: the distinct 32-byte sectors (8
-    float32 cells) of the grid that the eight corners of every config's
-    spheres touch, plus q (read) and the minima (written) and ``extra_bytes``;
-    per config 7 DH compositions (~60 flops), per sphere its position (18),
-    the relative position and clamps (~20) and seven lerps (3 flops each),
-    plus ``extra_flops``. Returns (ms, "bytes" or "operations", sectors)."""
+    float32 cells) of each grid of the scene that the eight corners of every
+    config's spheres touch, plus q (read) and the minima (written) and
+    ``extra_bytes``; per config 7 DH compositions (~60 flops), per sphere its
+    position (18), the relative position and clamps (~20) and seven lerps (3
+    flops each), as much again per extra grid, ~10 flops per analytic sphere,
+    ~40 per box and ~30 per capsule, plus ``extra_flops``. Returns (ms,
+    "bytes" or "operations", sectors)."""
     from vgpmp_torch.kinematics.dh import sphere_positions
     from vgpmp_torch.sdf.grid import _flat, trilinear_cell
 
-    grid = model.scene.base
-    _, ny, nz = grid.shape
+    sc = model.scene
+    sectors = 0
     with torch.no_grad():
-        i0, _ = trilinear_cell(grid, sphere_positions(model.fk, q) - model.scene.base_offset)
-        flat = _flat(grid.shape, i0).reshape(-1)
-        corners = [dx * ny * nz + dy * nz + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
-        sectors = torch.unique(torch.cat([torch.unique((flat + c) // 8) for c in corners])).numel()
+        pos = sphere_positions(model.fk, q)
+        for grid, off in [(sc.base, sc.base_offset),
+                          *zip(sc.extra_grids, sc.extra_offsets if sc.extra_grids else [])]:
+            _, ny, nz = grid.shape
+            i0, _ = trilinear_cell(grid, pos - off)
+            flat = _flat(grid.shape, i0).reshape(-1)
+            corners = [dx * ny * nz + dy * nz + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+            sectors += torch.unique(torch.cat([torch.unique((flat + c) // 8) for c in corners])).numel()
     n, L = q.shape
     P = model.fk.sphere_radii.shape[0]
-    nbytes = sectors * 32 + n * L * 4 + n * 4 + extra_bytes
-    flops = n * (L * 60 + P * 60) + extra_flops
+    Ks, Kb, Kc = model.tables.counts
+    nbytes = sectors * 32 + n * L * 4 + n * 4 + extra_bytes + model.tables.prims.numel() * 4
+    flops = n * (L * 60 + P * 60 * (1 + len(sc.extra_grids)) + P * (10 * Ks + 40 * Kb + 30 * Kc)) + extra_flops
     return (*bound_ms(nbytes, flops, F32_FLOPS), sectors)
 
 
-def k3_phase(torch, sess, flush):
+def k3_phase(torch, sess, flush, label=""):
     """K3 against ``min_clearance_eval_plain`` on the real float32 grid: the
     main path's 36 x 6400 PD-path probes (perturbed straight lines between the
     queries), plus as many configs uniform over the joint box so that many
     spheres sit inside obstacles or outside the grid. Then K3's fused entry
     ``k3_probe_clearance`` against ``probe_clearance_plain`` on the probes of
     the same paths plus a row without motion, a NaN row and two rows of
-    random waypoints (which surely collide)."""
+    random waypoints (which surely collide). ``label`` names a scene with
+    objects in the log and the records."""
     from functools import partial
 
     from vgpmp_torch import sim
@@ -451,7 +494,7 @@ def k3_phase(torch, sess, flush):
     # differs from the plain version by fused multiply-adds only: 1e-5 m
     err = (got - want).abs().max().item()
     negative = (want < 0).float().mean().item()
-    log(f"K3 check: {q.shape[0]} configs ({q_path.shape[0]} PD-path probes + {q_box.shape[0]} uniform), "
+    log(f"K3{label} check: {q.shape[0]} configs ({q_path.shape[0]} PD-path probes + {q_box.shape[0]} uniform), "
         f"max |d clearance| {err:.3e} m (<= 1e-5), negative clearance in {negative:.4f} (>= 0.1), "
         f"range [{want.min().item():.4f}, {want.max().item():.4f}] m")
     assert torch.isfinite(got).all(), "K3: non-finite clearance"
@@ -465,9 +508,9 @@ def k3_phase(torch, sess, flush):
     ms = time_ms(lambda: col.k3_min_clearance(model, q_path), flush=flush)
     plain_ms = time_ms(lambda: col.min_clearance_eval_plain(model, q_path), reps=5, flush=flush)
     b_ms, b_by, sectors = k3_bound(torch, model, q_path, 0, 0)
-    log(f"K3 time at {q_path.shape[0]} configs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+    log(f"K3{label} time at {q_path.shape[0]} configs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB)")
-    k3 = {"name": "k3_min_clearance", "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
+    k3 = {"name": "k3_min_clearance" + label, "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
           "replaces": "vgpmp_tpu/likelihoods/collision.py:59", "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
           "negative_share": negative, "sectors": sectors, "configs_checked": q.shape[0],
@@ -502,7 +545,7 @@ def k3_phase(torch, sess, flush):
     near_n = sim._segment_count(seg_idx, near, T)
     differ = (count_k > 0) != (count_p > 0)
     responsible = int(near_n[differ].sum())
-    log(f"K3 probe entry check: {qs.shape[0]} rows x {qs.shape[1]} probes, max |d clearance| {perr:.3e} m "
+    log(f"K3{label} probe entry check: {qs.shape[0]} rows x {qs.shape[1]} probes, max |d clearance| {perr:.3e} m "
         f"(<= 1e-5), NaN probes {int(nan_p.sum())} on both sides: {bool(torch.equal(nan_k, nan_p))}; "
         f"violated probes {int(count_p.sum())} (plain) / {int(count_k.sum())} (kernel) in "
         f"{int((count_p > 0).sum())} / {int((count_k > 0).sum())} segments; segment flags differ in "
@@ -521,9 +564,9 @@ def k3_phase(torch, sess, flush):
     # distances, the ramps and the compare
     pb_ms, pb_by, psectors = k3_bound(torch, model, qs.reshape(-1, L), n * 8 + B2 * (2 * L + 3) * 4
                                       + B2 * T * 4, n * 20)
-    log(f"K3 probe entry time at {n} probes: kernel {pms:.4f} ms, plain {pplain_ms:.4f} ms, "
+    log(f"K3{label} probe entry time at {n} probes: kernel {pms:.4f} ms, plain {pplain_ms:.4f} ms, "
         f"bound {pb_ms:.4f} ms ({pb_by}: {psectors} sectors)")
-    k3p = {"name": "k3_probe_clearance", "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
+    k3p = {"name": "k3_probe_clearance" + label, "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
            "replaces": "vgpmp_tpu/engine/validator.py:211", "max_abs_err": perr, "ms": pms,
            "plain_ms": pplain_ms, "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None,
            "sectors": psectors, "probes": n, "violated_plain": int(count_p.sum()),
@@ -1626,6 +1669,179 @@ def ensemble_phase(torch, sess, cpu):
     return rec
 
 
+# (o): objects placed by the port's SceneBuilder (library names, and the boxes
+# scene's grid as a grid object), at world positions in metres chosen where
+# the straight-line paths of franka/industrial's 36 queries sweep, so that
+# each of the five sources (the base grid, the boxes grid, the duck's sphere,
+# the table's box, the pringles' capsule) attains the minimum at hinge-active
+# spheres. The table's top (z 0.345-0.405) holds no sphere centre of a query's
+# start or goal; the duck then moves to DUCK_MOVED.
+OBJECTS = (("table", (0.9, 0.0, -0.25)), ("duck", (0.5, 0.3, 0.5)), ("pringles", (0.4, -0.4, 0.4)),
+           ("boxes", (0.3, 0.5, 0.4)))
+DUCK_MOVED = (0.45, -0.1, 0.45)
+
+
+def object_sessions(sess, cpu):
+    """For each of the sessions ``sess`` (the card) and ``cpu``: a
+    ``SceneBuilder`` on its base grid holding OBJECTS, and franka/industrial's
+    session with the built scene's extras."""
+    from vgpmp_torch.robots import ASSET_DIR
+    from vgpmp_torch.scene import SceneBuilder
+    from vgpmp_torch.sdf.grid import SdfGrid
+    from vgpmp_torch.session import PlanningSession
+
+    out = []
+    for s in (sess, cpu):
+        b = SceneBuilder(base=s.sdf, base_offset=s.scene_offset, device=s.device)
+        for name, pos in OBJECTS:
+            grid = SdfGrid.load(ASSET_DIR / "scenes" / "boxes.npz", device=s.device) if name == "boxes" else None
+            b.add_object(name, pos, grid=grid)
+        sc = b.build()
+        out.append((b, PlanningSession("franka", "industrial", extra_grids=sc.extra_grids,
+                                       extra_offsets=sc.extra_offsets, primitives=sc.primitives,
+                                       device=s.device)))
+    return out
+
+
+def hinge_active_wins(torch, model, q):
+    """Per source of ``model``'s scene, how many hinge-active sphere
+    evaluations at the configs ``q`` it attains the minimum at (the plain
+    lookups, K1's packed nearest cell)."""
+    from vgpmp_torch.kinematics.dh import sphere_positions
+
+    with torch.no_grad():
+        names, ds = zip(*model.scene.sources(sphere_positions(model.fk, q)))
+        d = torch.stack(ds)
+        active = model.epsilon - (d.amin(0) - model.fk.sphere_radii) > 0
+        win = d.argmin(0)[active]
+        return {n: int((win == i).sum()) for i, n in enumerate(names)}
+
+
+def objects_phase(torch, sess, cpu, flush):
+    """(o) a scene with objects on the card: K1 and K3 on it against their
+    plain versions (which source wins where, how many configs have a NaN d/dq
+    from a sphere centre inside the table), the bench's adaptive solve on it
+    at full width with its verdicts against the CPU plain metric on all 36
+    rows, then ``move_object`` and a round that reads the new pose."""
+    import numpy as np
+
+    from vgpmp_torch import _build
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.models import vgpmp as planner
+
+    t0 = time.perf_counter()
+    (builder, osess), (cbuilder, ocpu) = object_sessions(sess, cpu)
+    t_sessions = time.perf_counter() - t0
+    model = osess.model.collision
+    log(f"(o) scene with objects {[n for n, _ in OBJECTS]} at {[p for _, p in OBJECTS]}: sessions on the "
+        f"card and the CPU {t_sessions:.2f} s; extras {model.tables.counts} (spheres, boxes, capsules), "
+        f"grids {[tuple(g.shape) for g in osess.scene.extra_grids]}")
+    wins = hinge_active_wins(torch, model, k1_inputs(torch, osess))
+    log(f"    hinge-active sphere evaluations won, per source, at K1's inputs: {wins}")
+    assert len(wins) == 5 and min(wins.values()) > 0, f"a source never attains the minimum: {wins}"
+    k1o = k1_phase(torch, osess, flush, "[objects]")
+    k3o, k3po = k3_phase(torch, osess, flush, "[objects]")
+    assert k1o["nan_dq_configs"] > 0, "no config of K1's check has a sphere centre inside the table"
+
+    # the bench's adaptive solve, counting the Adam steps that the per-row
+    # guard skipped (on the device, read once) and plain log_prob calls on CUDA
+    starts, goals = osess.queries()
+    B = len(starts)
+    inits = tuple(osess.planner_params["q_mu_inits"])
+    round_solve = solver.make_round_solver(osess.model, osess.train_config)
+    skipped = torch.zeros((), dtype=torch.int64, device=osess.device)
+    adam_step, plain_log_prob, plain_on_cuda = solver.BatchedAdam.step, col.log_prob_plain, [0]
+
+    def counting_step(self, params, grads):
+        before = self.count
+        out = adam_step(self, params, grads)
+        skipped.add_((self.count == before).sum())
+        return out
+
+    def counting_plain(m, configs, sigma):
+        plain_on_cuda[0] += int(configs.is_cuda)
+        return plain_log_prob(m, configs, sigma)
+
+    solver.BatchedAdam.step, col.log_prob_plain = counting_step, counting_plain
+    counters = (col.k1_loglik, col.k3_min_clearance, col.k3_probe_clearance)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, reps, info = solver.solve_adaptive(osess.model, osess.train_config, starts, goals,
+                                             osess.planner_params, inits=inits, max_rounds=8, seed=0,
+                                             solve=round_solve, round_sizes=(B,))
+    torch.cuda.synchronize()
+    t_adaptive = time.perf_counter() - t0
+    solver.BatchedAdam.step, col.log_prob_plain = adam_step, plain_log_prob
+    launches = {c.__name__: c.launches for c in counters}
+    n_skipped = int(skipped)
+    executed, success = int(reps.executed.sum()), int(reps.success.sum())
+    st, gl = (torch.as_tensor(x, dtype=torch.float32) for x in (starts, goals))
+    with torch.no_grad():
+        ref = execute_and_validate(ocpu.model.collision, torch.as_tensor(best), st, gl,
+                                   ocpu.model.limits_low, ocpu.model.limits_high)
+    agree = {k: int((getattr(reps, k) == getattr(ref, k).numpy()).sum()) for k in ("executed", "success")}
+    steps = info["rounds"] * B * osess.train_config.num_steps
+    log(f"    solve_adaptive, B={B}, inits {list(inits)}: {info['rounds']} rounds in {t_adaptive:.3f} s, "
+        f"k_eff {info['k_eff']:.3f}; executed {executed}/{B}, success {success}/{B}; Adam steps skipped by "
+        f"the guard (a NaN gradient) {n_skipped} of {steps} row-steps; launches {launches}, plain "
+        f"log_prob on CUDA {plain_on_cuda[0]}; verdicts against the CPU plain metric: executed agrees on "
+        f"{agree['executed']}/{B}, success on {agree['success']}/{B}")
+    assert best.shape == (B, osess.train_config.time_spacing_Xnew, 7) and np.isfinite(best).all()
+    assert all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}"
+    assert plain_on_cuda[0] == 0, "the plain log_prob ran on CUDA"
+    assert agree == {"executed": B, "success": B}, f"verdicts disagree with the CPU plain metric: {agree}"
+
+    # move the duck: the model's pose tables are rewritten in place, and the
+    # next K1 launch reads the new pose (nothing rebuilt: the same extension
+    # module, model and table storage)
+    q = k1_inputs(torch, osess)
+    sigma = torch.full((B, model.fk.sphere_radii.shape[0]), 0.005, device=osess.device)
+    ext, ptrs = _build.load(), (model.tables.grid_f.data_ptr(), model.tables.prims.data_ptr())
+    with torch.no_grad():
+        before = model.log_prob(q, sigma)
+        for b, s in ((builder, osess), (cbuilder, ocpu)):
+            b.move_object("duck", DUCK_MOVED)
+            s.model.collision.move_objects(b.build())
+        after = model.log_prob(q, sigma)
+        plain = col.log_prob_plain(model, q, sigma)
+    torch.cuda.synchronize()
+    same_storage = _build.load() is ext and ptrs == (model.tables.grid_f.data_ptr(),
+                                                    model.tables.prims.data_ptr())
+    changed = int((after != before).sum())
+    far = (~torch.isclose(after, plain, rtol=1e-5, atol=1e-3)).float().mean().item()
+    params = planner.init_params_batch(osess.model, starts, goals, [0] * B, 0.5 * (starts + goals),
+                                       *(osess.planner_params[k] for k in
+                                         ("lengthscales", "variance", "sigma_obs", "alpha")))
+    col.k1_loglik.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mbest, mrep = round_solve(params, starts, goals, torch.Generator(device=osess.device).manual_seed(1))
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    with torch.no_grad():
+        mref = execute_and_validate(ocpu.model.collision, mbest.cpu(), st, gl, ocpu.model.limits_low,
+                                    ocpu.model.limits_high)
+    magree = {k: int((getattr(mrep, k).cpu() == getattr(mref, k)).sum()) for k in ("executed", "success")}
+    log(f"    move_object('duck', {DUCK_MOVED}): K1 values changed in {changed} of {after.numel()} configs, "
+        f"other-voxel share against the plain version on the moved scene {far:.2e} (<= 1e-3); extension, "
+        f"model and tables kept: {same_storage}; a round on the moved scene {t_round:.3f} s, {col.k1_loglik.launches} "
+        f"K1 launches, executed {int(mrep.executed.sum())}/{B}, verdicts against the CPU plain metric "
+        f"{magree}")
+    assert changed > 0 and far <= 1e-3 and same_storage, "K1 did not read the moved duck"
+    assert col.k1_loglik.launches > 0 and min(magree.values()) == B, magree
+    return k1o, k3o, k3po, launches, {
+        "objects": [list(o) for o in OBJECTS], "duck_moved": DUCK_MOVED, "sessions_s": t_sessions,
+        "hinge_active_wins": wins, "adaptive_s": t_adaptive, "info": info, "executed": executed,
+        "success": success, "skipped_row_steps": n_skipped, "row_steps": steps, "launches": launches,
+        "plain_log_prob_on_cuda": plain_on_cuda[0], "agree_with_cpu": agree,
+        "moved": {"k1_values_changed": changed, "other_voxel_share": far, "round_s": t_round,
+                  "executed": int(mrep.executed.sum()), "agree_with_cpu": magree}}
+
+
 def metric_profile_phase(torch, sess, best):
     """A second ``torch.profiler`` window: one ``execute_and_validate`` of the
     round's best trajectories at B = 36 (after the round's own calls warmed
@@ -1789,7 +2005,10 @@ def main() -> int:
     resumable = resumable_phase(torch, sess)
     replanned = replan_phase(torch, sess)
     ensemble = ensemble_phase(torch, sess, cpu)
-    for rec in (velocity, resumable, replanned, ensemble):
+    flush = l2_flush_buffer(sess.device)
+    k1o, k3o, k3po, olaunch, objects = objects_phase(torch, sess, cpu, flush)
+    del flush
+    for rec in (velocity, resumable, replanned, ensemble, objects):
         print(json.dumps(rec))
 
     # the profile comes last: once a profiler has traced the process, its
@@ -1808,13 +2027,19 @@ def main() -> int:
                          "launches": velocity["launches"]["k2_factor_solve"]}
     k3["launches"] = scored["launches"]["k3_min_clearance"]
     k3p["launches"] = scored["launches"]["k3_probe_clearance"]
+    # the composed K1 and K3 with (o)'s adaptive solve's launches
+    k1o["launches"] = olaunch["k1_loglik"]
+    k3o["launches"] = olaunch["k3_min_clearance"]
+    k3po["launches"] = olaunch["k3_probe_clearance"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kernels = [{k: v for k, v in d.items() if k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms", "velocity")} for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4]]
+        "bound_ms", "bound_by", "library_ms", "velocity")} for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4,
+                                                                    k1o, k3o, k3po]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
-    record = {"card": smi, "build_s": secs, "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4],
+    record = {"card": smi, "build_s": secs, "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po],
+              "objects": objects,
               "k2_errors": k2_errs, "combos": combos, "trainable": trainable, "randomized": randomized,
               "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,

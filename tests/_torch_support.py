@@ -129,3 +129,53 @@ def jax_report_rows(fn, *batched):
 
     out = jax.jit(jax.vmap(fn))(*(jnp.asarray(x) for x in batched))
     return jax.tree.map(np.asarray, out)
+
+
+def scene_objects():
+    """The extra sources of a composed test scene, in numpy (float64), placed
+    in the reach of an arm based at the origin: two extra grids at their world
+    offsets (the first smaller than the reach, so that sphere centres leave it
+    on every side and its index clamps), and primitives of every kind, the
+    second box rotated about a general axis. Returns ``(grids, offsets,
+    prims)``: grids as ``(data, origin, delta)``, prims as the keyword
+    arguments of ``Primitives``."""
+    rng = np.random.default_rng(17)
+    grids = [(smooth_grid(rng, (20, 24, 18), scale=0.5) - np.float32(0.02), np.array([-0.2, -0.25, -0.18]), 0.02),
+             (smooth_grid(rng, (16, 16, 16), scale=0.8) - np.float32(0.03), np.array([-0.4, -0.4, -0.4]), 0.05)]
+    offsets = np.array([[0.35, 0.05, 0.45], [-0.35, 0.3, 0.55]])
+    a, b = 0.5, 0.3
+    rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+    rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)], [0, np.sin(b), np.cos(b)]])
+    prims = dict(
+        sphere_centers=np.array([[0.45, -0.2, 0.55]]), sphere_radii=np.array([0.1]),
+        box_centers=np.array([[0.0, 0.45, 0.3], [0.35, -0.35, 0.75]]),
+        box_rotations=np.stack([np.eye(3), rz @ rx]),
+        box_half_extents=np.array([[0.15, 0.1, 0.2], [0.2, 0.05, 0.1]]),
+        capsule_a=np.array([[-0.3, -0.3, 0.2]]), capsule_b=np.array([[-0.3, -0.3, 0.7]]),
+        capsule_radii=np.array([0.08]))
+    return grids, offsets, prims
+
+
+def torch_scene_with_objects(base_data, origin, delta, base_offset, dtype, device, packed=True):
+    """A port ``Scene`` of the given base grid with :func:`scene_objects`' extras."""
+    from vgpmp_torch import scene
+    from vgpmp_torch.sdf import grid as sg
+
+    grids, offsets, prims = scene_objects()
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    sc = scene.Scene(base=sg.SdfGrid.from_arrays(base_data, origin, delta, dtype, device),
+                     base_offset=t(base_offset),
+                     extra_grids=tuple(sg.SdfGrid.from_arrays(d, o, dl, dtype, device) for d, o, dl in grids),
+                     extra_offsets=t(offsets), primitives=scene.Primitives(**{k: t(v) for k, v in prims.items()}))
+    return sc.packed() if packed else sc
+
+
+def source_wins(scene, points, active=None, mode_override=None):
+    """How often each source of ``scene`` attains the composed minimum at
+    ``points [..., 3]`` (where ``active``, a bool mask of the points' shape,
+    holds): ``{source: count}``."""
+    names, ds = zip(*scene.sources(points.detach(), mode_override))
+    win = torch.stack(ds).argmin(dim=0)
+    if active is not None:
+        win = win[active]
+    return {n: int((win == i).sum()) for i, n in enumerate(names)}

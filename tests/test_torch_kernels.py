@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_support import cuda_device, smooth_grid  # noqa: F401
+from _torch_support import cuda_device, smooth_grid, source_wins, torch_scene_with_objects  # noqa: F401
 from vgpmp_torch import robots, scene
 from vgpmp_torch.kinematics import dh
 from vgpmp_torch.likelihoods import collision as col
@@ -445,6 +445,192 @@ def test_k3_k4_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         tg.k4_gather(torch.zeros(8, 3, dtype=torch.int32, device=cuda_device),
                      torch.zeros(4, dtype=torch.int32, device=cuda_device))
+
+
+def _composed(robot, device, small_base=False):
+    """A float32 model whose scene composes the base grid of ``_collision``
+    (or, with ``small_base``, ``_k3_model``'s grid, which sphere centres
+    leave) with ``scene_objects``' two extra grids, a sphere, two boxes (one
+    rotated) and a capsule; packed unless ``small_base``."""
+    data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)
+    origin, delta = (np.array([-0.2, -0.3, 0.1]), 0.015) if small_base else (ORIGIN, DELTA)
+    sc = torch_scene_with_objects(data, origin, delta, [0.1, 0.0, -0.05], torch.float32, device,
+                                  packed=not small_base)
+    spec = robots.load_robot(robot)
+    return spec, col.CollisionModel(fk=dh.FkModel.from_spec(spec, np.eye(4), dtype=torch.float32,
+                                                            device=device), scene=sc, epsilon=0.05)
+
+
+def _k1_against_plain(model, q, sigma):
+    """(lik, d/dq) of K1 through ``log_prob`` and of the plain version."""
+    out = []
+    for fn in (model.log_prob, lambda x, s: col.log_prob_plain(model, x, s)):
+        x = q.clone().requires_grad_()
+        lik = fn(x, sigma)
+        lik.sum().backward()
+        out += [lik.detach(), x.grad]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k1_composed_scene_matches_plain_on_card(robot, cuda_device):
+    """K1 on a scene with two extra grids (sphere centres outside the first:
+    its index clamps) and every primitive kind (one box rotated) against the
+    plain composition on the same card. Each source wins the minimum at some
+    hinge-active sphere. Tolerances as K1's base test: at most 1e-3 of the
+    configs in a neighbouring voxel of some grid, the rest 1e-5 relative
+    (+1e-3), gradients 1e-3 of the largest. A config with a sphere centre
+    inside or on a box has a NaN d/dq, as JAX's (in the joints that move the
+    sphere), on both sides; the pattern may differ only in those configs."""
+    spec, model = _composed(robot, cuda_device)
+    rng = np.random.default_rng(4)
+    q = torch.as_tensor(_configs(spec, rng, (4, 2000)), dtype=torch.float32, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.003, 0.008, size=(4, spec.num_spheres)), dtype=torch.float32,
+                            device=cuda_device)
+    before = col.k1_loglik.launches
+    lik_k, g_k, lik_p, g_p = _k1_against_plain(model, q, sigma)
+    assert col.k1_loglik.launches == before + 1
+    with torch.no_grad():
+        pos = dh.sphere_positions(model.fk, q)
+        wins = source_wins(model.scene, pos, model.hinge_cost(q) > 0)
+    assert len(wins) == 6 and min(wins.values()) > 0, wins
+    close = torch.isclose(lik_k, lik_p, rtol=1e-5, atol=1e-3)
+    assert (~close).float().mean().item() <= 1e-3
+    nan_k, nan_p = torch.isnan(g_k), torch.isnan(g_p)
+    assert nan_p.any(-1).float().mean() > 0.02
+    assert (nan_k != nan_p).any(-1).float().mean().item() <= 1e-3
+    both = close & ~(nan_k | nan_p).any(-1)
+    torch.testing.assert_close(g_k[both], g_p[both], rtol=1e-3,
+                               atol=1e-3 * g_p[both].abs().max().item())
+    q2, s2 = q.reshape(-1, spec.dof), sigma
+    lik_f, dq_f, _ = col.k1_loglik(model, q2, s2, True)
+    lik_h, dq_h, h2 = col.k1_loglik(model, q2, s2, True, True)
+    lik_0, _, _ = col.k1_loglik(model, q2, s2, False)
+    assert torch.equal(lik_h, lik_f)
+    torch.testing.assert_close(lik_0, lik_f)
+    torch.testing.assert_close(dq_h, dq_f, rtol=0, atol=0, equal_nan=True)
+    h = model.hinge_cost(q2)
+    ok = close.reshape(-1)
+    torch.testing.assert_close(h2.T[ok], (h * h)[ok], rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k3_composed_scene_matches_plain_on_card(robot, cuda_device):
+    """K3 on ``_k3_model``'s small base grid with ``scene_objects``' extras
+    against the plain composition: 1e-5 m (as K3's base test); NaN configs
+    give NaN on both sides."""
+    spec, model = _composed(robot, cuda_device, small_base=True)
+    q = torch.as_tensor(_configs(spec, np.random.default_rng(5), (8000,)), dtype=torch.float32,
+                        device=cuda_device)
+    q[:5, 3] = float("nan")
+    before = col.k3_min_clearance.launches
+    got = model.min_clearance_eval(q)
+    assert col.k3_min_clearance.launches == before + 1
+    want = col.min_clearance_eval_plain(model, q)
+    with torch.no_grad():
+        wins = source_wins(model.scene, dh.sphere_positions(model.fk, q[5:]), None, "trilinear")
+    assert len(wins) == 6 and min(wins.values()) > 0, wins
+    assert torch.isnan(got[:5]).all() and torch.isnan(want[:5]).all()
+    assert not torch.isnan(want[5:]).any() and (want[5:] < 0).float().mean() > 0.05
+    torch.testing.assert_close(got[5:], want[5:], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k3_probe_entry_composed_scene_on_card(cuda_device):
+    """K3's fused entry on the composed scene against ``probe_clearance_plain``
+    (as ``test_k3_probe_entry_matches_plain_on_card``)."""
+    from vgpmp_torch import sim
+
+    spec, model = _composed("franka", cuda_device, small_base=True)
+    rng = np.random.default_rng(12)
+    B, T = 6, 15
+    lo, hi = spec.joint_limits[:, 1], spec.joint_limits[:, 0]
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    a, b = (mid + 0.6 * half * rng.uniform(-1, 1, (B, spec.dof)) for _ in range(2))
+    w = np.linspace(0, 1, T)[None, :, None]
+    traj = torch.as_tensor(a[:, None] * (1 - w) + b[:, None] * w, dtype=torch.float32, device=cuda_device)
+    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj, samples_per_segment=7)
+    q_s, q_g = traj[:, 0], traj[:, -1]
+    plain = lambda q: col.min_clearance_eval_plain(model, q)
+    depth_s, depth_g = torch.clamp(-plain(torch.cat([q_s, q_g])), min=0.0).split(B)
+    args = (q_s, q_g, depth_s, depth_g, visited[:, 0], seg_idx, T, 0.5, 5e-3)
+    clear, count = model.probe_clearance(qs, *args)
+    want_clear, want_count = sim.probe_clearance_plain(plain, qs, *args)
+    torch.testing.assert_close(clear, want_clear, rtol=0, atol=1e-5)
+    floor = sim._floor_from_depths(qs, q_s, q_g, depth_s, depth_g, 0.5, 5e-3)
+    near = visited & ((want_clear - floor).abs() <= 1e-5)
+    far = sim._segment_count(seg_idx, visited & (want_clear < floor) & ~near, T)
+    assert ((far <= count) & (count <= far + sim._segment_count(seg_idx, near, T))).all()
+    assert want_count.sum() > 0
+
+
+@pytest.mark.cuda
+def test_move_objects_reaches_k1_and_k3_on_card(cuda_device):
+    """``move_objects`` rewrites the pose tables in place: the next K1 and K3
+    launches read the moved objects (equal to the plain version on the moved
+    scene, and different from before), and no table is reallocated."""
+    spec, model = _composed("franka", cuda_device)
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor(_configs(spec, rng, (2, 1000)), dtype=torch.float32, device=cuda_device)
+    sigma = torch.full((2, spec.num_spheres), 0.005, device=cuda_device)
+    ptrs = [model.tables.grid_f.data_ptr(), model.tables.prims.data_ptr()]
+    with torch.no_grad():
+        lik0, clear0 = model.log_prob(q, sigma), model.min_clearance_eval(q)
+    sc = model.scene
+    shift = torch.tensor([0.05, -0.1, 0.08], device=cuda_device)
+    p = sc.primitives
+    moved = scene.Scene(base=sc.base, base_offset=sc.base_offset, extra_grids=sc.extra_grids,
+                        extra_offsets=sc.extra_offsets + shift,
+                        primitives=scene.Primitives(p.sphere_centers + shift, p.sphere_radii,
+                                                    p.box_centers - shift, p.box_rotations,
+                                                    p.box_half_extents, p.capsule_a + shift,
+                                                    p.capsule_b + shift, p.capsule_radii))
+    model.move_objects(moved)
+    assert [model.tables.grid_f.data_ptr(), model.tables.prims.data_ptr()] == ptrs
+    torch.testing.assert_close(model.scene.extra_offsets, moved.extra_offsets)
+    with torch.no_grad():
+        lik1, clear1 = model.log_prob(q, sigma), model.min_clearance_eval(q)
+        lik_p, clear_p = col.log_prob_plain(model, q, sigma), col.min_clearance_eval_plain(model, q)
+    assert not torch.equal(lik1, lik0) and not torch.equal(clear1, clear0)
+    assert (~torch.isclose(lik1, lik_p, rtol=1e-5, atol=1e-3)).float().mean().item() <= 1e-3
+    torch.testing.assert_close(clear1, clear_p, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):  # another set of objects
+        model.move_objects(scene.Scene(base=sc.base, base_offset=sc.base_offset))
+
+
+def _too_many_boxes(device):
+    """``_composed``'s model with 300 boxes more: 4 500 floats of extras."""
+    spec, model = _composed("franka", device)
+    p, n = model.scene.primitives, 300
+    many = scene.Primitives(p.sphere_centers, p.sphere_radii, torch.zeros(n, 3, device=device),
+                            torch.eye(3, device=device).expand(n, 3, 3).contiguous(),
+                            torch.full((n, 3), 0.1, device=device), p.capsule_a, p.capsule_b,
+                            p.capsule_radii)
+    sc = scene.Scene(base=model.scene.base, base_offset=model.scene.base_offset, primitives=many).packed()
+    return spec, col.CollisionModel(fk=model.fk, scene=sc, epsilon=0.05)
+
+
+def test_scene_extras_that_do_not_fit_are_refused():
+    """More extras than a block's shared memory holds are refused with a
+    ValueError before a launch; the plain version takes them."""
+    spec, model = _too_many_boxes("cpu")
+    for args in (model.tables.k1_args, model.tables.k3_args):
+        with pytest.raises(ValueError, match="4511 floats"):
+            args()
+    assert torch.isfinite(model.min_clearance_eval(torch.zeros(2, spec.dof))).all()
+
+
+@pytest.mark.cuda
+def test_scene_extras_refused_on_card(cuda_device):
+    """The same refusal on the card, through the launch wrappers."""
+    spec, model = _too_many_boxes(cuda_device)
+    q = torch.zeros(4, spec.dof, device=cuda_device)
+    with pytest.raises(ValueError):
+        col.k1_loglik(model, q, torch.ones(1, spec.num_spheres, device=cuda_device), grad=True)
+    with pytest.raises(ValueError):
+        col.k3_min_clearance(model, q)
 
 
 def _velocity_grams(robot, ps, device):

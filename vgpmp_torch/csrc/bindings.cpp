@@ -39,20 +39,73 @@ void same_device(const at::Tensor& a, const at::Tensor& b, const char* what) {
                     b.device());
 }
 
+// The most floats a scene's extras may take in a block's shared memory
+// (4 096: the room K1's and K3's tiles leave under 48 KB)
+constexpr int64_t EXTRAS_FLOATS = 4096;
+
+// The checks of a scene's extras (kernels.h:SceneExtras): grid_f [G, 7]
+// float32, grid_i [G, 4] int32, cells [n, 2] int32 (packed: K1) or [n]
+// float32 (K3), prims float32 [4 Ks + 15 Kb + 7 Kc], counts (Ks, Kb, Kc).
+// Each grid's shape and first cell live on the device and are not read here:
+// the caller (likelihoods/collision.py:SceneTables) builds them and checks
+// them against cells.
+SceneExtras extras_checks(const at::Tensor& ref, const at::Tensor& grid_f,
+                          const at::Tensor& grid_i, const at::Tensor& cells, bool packed,
+                          const at::Tensor& prims, const std::vector<int64_t>& counts,
+                          const char* what) {
+  check(grid_f, at::kFloat, 2, what, "grid_f");
+  check(grid_i, at::kInt, 2, what, "grid_i");
+  check(cells, packed ? at::kInt : at::kFloat, packed ? 2 : 1, what, "cells");
+  check(prims, at::kFloat, 1, what, "prims");
+  same_device(ref, grid_f, what);
+  same_device(ref, grid_i, what);
+  same_device(ref, cells, what);
+  same_device(ref, prims, what);
+  const int64_t G = grid_f.size(0);
+  TORCH_CHECK_VALUE(grid_f.size(1) == SCENE_GRID_F && grid_i.size(0) == G &&
+                        grid_i.size(1) == SCENE_GRID_I,
+                    what, ": grid_f ", shape_str(grid_f), " and grid_i ", shape_str(grid_i),
+                    " are not [G, 7] and [G, 4]");
+  TORCH_CHECK_VALUE(!packed || cells.size(1) == 2, what, ": packed cells must be [n, 2], got ",
+                    shape_str(cells));
+  TORCH_CHECK_VALUE(cells.size(0) < (int64_t(1) << 31), what,
+                    ": the extra grids must have fewer than 2^31 cells, got ", shape_str(cells));
+  TORCH_CHECK_VALUE(G == 0 || cells.size(0) > 0, what, ": extra grids without cells");
+  TORCH_CHECK_VALUE(counts.size() == 3 && counts[0] >= 0 && counts[1] >= 0 && counts[2] >= 0,
+                    what, ": counts must be 3 sizes (spheres, boxes, capsules)");
+  const int64_t np = counts[0] * SCENE_SPHERE + counts[1] * SCENE_BOX + counts[2] * SCENE_CAPSULE;
+  TORCH_CHECK_VALUE(prims.numel() == np, what, ": prims has ", prims.numel(),
+                    " floats, the counts need ", np);
+  TORCH_CHECK_VALUE(G * (SCENE_GRID_F + SCENE_GRID_I) + np <= EXTRAS_FLOATS, what,
+                    ": the extras need ", G * (SCENE_GRID_F + SCENE_GRID_I) + np,
+                    " floats of shared memory, more than ", EXTRAS_FLOATS);
+  return SceneExtras{grid_f.data_ptr<float>(), grid_i.data_ptr<int32_t>(), cells.data_ptr(),
+                     prims.data_ptr<float>(), (int)G, (int)counts[0], (int)counts[1],
+                     (int)counts[2]};
+}
+
 // grid: base offset (3), origin (3), delta; shape: nx, ny, nz. h2: also
-// return the squared hinges [P, T] (needs grad)
+// return the squared hinges [P, T] (needs grad). grid_f, grid_i, ext_words,
+// prims, counts: the scene's extras (extras_checks), all empty for the base
+// grid alone
 std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
                                   const at::Tensor& robot, const at::Tensor& spheres,
                                   const at::Tensor& words, bool craig, bool grad, bool h2,
                                   std::vector<double> grid, std::vector<int64_t> shape,
-                                  double eps) {
+                                  double eps, const at::Tensor& grid_f, const at::Tensor& grid_i,
+                                  const at::Tensor& ext_words, const at::Tensor& prims,
+                                  std::vector<int64_t> counts) {
   const char* what = "k1_loglik";
   check(q, at::kFloat, 2, what, "q");
   check(sigma, at::kFloat, 2, what, "sigma");
   check(robot, at::kFloat, 1, what, "robot");
   check(spheres, at::kFloat, 2, what, "spheres");
   check(words, at::kInt, 2, what, "words");
-  for (const auto* t : {&sigma, &robot, &spheres, &words}) same_device(q, *t, what);
+  same_device(q, sigma, what);
+  same_device(q, robot, what);
+  same_device(q, spheres, what);
+  same_device(q, words, what);
+  const SceneExtras ex = extras_checks(q, grid_f, grid_i, ext_words, true, prims, counts, what);
   const int64_t T = q.size(0), dof = q.size(1), R = sigma.size(0), P = sigma.size(1);
   TORCH_CHECK_VALUE(dof == 6 || dof == 7, what, ": built for 6 or 7 joints, got ", dof);
   TORCH_CHECK_VALUE(robot.numel() == 6 * dof + 12, what, ": robot constants do not match ", dof,
@@ -75,7 +128,7 @@ std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
   if (h2) sq = at::empty({P, T}, q.options());
   C10_CUDA_CHECK(k1_loglik_launch(q.data_ptr<float>(), sigma.data_ptr<float>(),
                                   robot.data_ptr<float>(), spheres.data_ptr<float>(),
-                                  words.data_ptr(), lik.data_ptr<float>(),
+                                  words.data_ptr(), ex, lik.data_ptr<float>(),
                                   grad ? dlik.data_ptr<float>() : nullptr,
                                   h2 ? sq.data_ptr<float>() : nullptr, T, T / R, (int)P,
                                   (int)dof, craig, grad, g, (float)eps,
@@ -188,7 +241,9 @@ K1Grid k3_checks(const at::Tensor& q, const at::Tensor& robot, const at::Tensor&
   check(robot, at::kFloat, 1, what, "robot");
   check(spheres, at::kFloat, 2, what, "spheres");
   check(sdf, at::kFloat, 3, what, "sdf");
-  for (const auto* t : {&robot, &spheres, &sdf}) same_device(q, *t, what);
+  same_device(q, robot, what);
+  same_device(q, spheres, what);
+  same_device(q, sdf, what);
   const int64_t dof = q.size(1);
   TORCH_CHECK_VALUE(dof == 6 || dof == 7, what, ": built for 6 or 7 joints, got ", dof);
   TORCH_CHECK_VALUE(robot.numel() == 6 * dof + 12, what, ": robot constants do not match ", dof,
@@ -205,14 +260,19 @@ K1Grid k3_checks(const at::Tensor& q, const at::Tensor& robot, const at::Tensor&
                 (int)sdf.size(2)};
 }
 
+// grid_f, grid_i, ext_data, prims, counts: the scene's extras (extras_checks)
 at::Tensor k3_min_clearance(const at::Tensor& q, const at::Tensor& robot,
                             const at::Tensor& spheres, const at::Tensor& sdf, bool craig,
-                            std::vector<double> grid) {
-  const K1Grid g = k3_checks(q, robot, spheres, sdf, grid, "k3_min_clearance");
+                            std::vector<double> grid, const at::Tensor& grid_f,
+                            const at::Tensor& grid_i, const at::Tensor& ext_data,
+                            const at::Tensor& prims, std::vector<int64_t> counts) {
+  const char* what = "k3_min_clearance";
+  const K1Grid g = k3_checks(q, robot, spheres, sdf, grid, what);
+  const SceneExtras ex = extras_checks(q, grid_f, grid_i, ext_data, false, prims, counts, what);
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = at::empty({q.size(0)}, q.options());
   C10_CUDA_CHECK(k3_min_clearance_launch(q.data_ptr<float>(), robot.data_ptr<float>(),
-                                         spheres.data_ptr<float>(), sdf.data_ptr<float>(),
+                                         spheres.data_ptr<float>(), sdf.data_ptr<float>(), ex,
                                          out.data_ptr<float>(), q.size(0), (int)spheres.size(0),
                                          (int)q.size(1), craig, g,
                                          at::cuda::getCurrentCUDAStream()));
@@ -220,24 +280,33 @@ at::Tensor k3_min_clearance(const at::Tensor& q, const at::Tensor& robot,
 }
 
 // qs [B*G, dof] probes; q_s, q_g [B, dof]; depth_s, depth_g [B]; visited [B]
-// bool; seg_idx [B, G] int64 -> (clear [B*G], seg_count [B, T] int32)
+// bool; seg_idx [B, G] int64 -> (clear [B*G], seg_count [B, T] int32);
+// grid_f, grid_i, ext_data, prims, counts: the scene's extras (extras_checks)
 std::vector<at::Tensor> k3_probe_clearance(const at::Tensor& qs, const at::Tensor& robot,
                                            const at::Tensor& spheres, const at::Tensor& sdf,
                                            bool craig, std::vector<double> grid,
                                            const at::Tensor& q_s, const at::Tensor& q_g,
                                            const at::Tensor& depth_s, const at::Tensor& depth_g,
                                            const at::Tensor& visited, const at::Tensor& seg_idx,
-                                           int64_t T, double radius, double slack) {
+                                           int64_t T, double radius, double slack,
+                                           const at::Tensor& grid_f, const at::Tensor& grid_i,
+                                           const at::Tensor& ext_data, const at::Tensor& prims,
+                                           std::vector<int64_t> counts) {
   const char* what = "k3_probe_clearance";
   const K1Grid g = k3_checks(qs, robot, spheres, sdf, grid, what);
+  const SceneExtras ex = extras_checks(qs, grid_f, grid_i, ext_data, false, prims, counts, what);
   check(q_s, at::kFloat, 2, what, "q_s");
   check(q_g, at::kFloat, 2, what, "q_g");
   check(depth_s, at::kFloat, 1, what, "depth_s");
   check(depth_g, at::kFloat, 1, what, "depth_g");
   check(visited, at::kBool, 1, what, "visited");
   check(seg_idx, at::kLong, 2, what, "seg_idx");
-  for (const auto* t : {&q_s, &q_g, &depth_s, &depth_g, &visited, &seg_idx})
-    same_device(qs, *t, what);
+  same_device(qs, q_s, what);
+  same_device(qs, q_g, what);
+  same_device(qs, depth_s, what);
+  same_device(qs, depth_g, what);
+  same_device(qs, visited, what);
+  same_device(qs, seg_idx, what);
   const int64_t B = seg_idx.size(0), G = seg_idx.size(1), dof = qs.size(1);
   TORCH_CHECK_VALUE(B >= 1 && G >= 1 && qs.size(0) == B * G, what, ": qs ", shape_str(qs),
                     " does not hold the probes of seg_idx ", shape_str(seg_idx));
@@ -259,7 +328,7 @@ std::vector<at::Tensor> k3_probe_clearance(const at::Tensor& qs, const at::Tenso
                       seg_idx.data_ptr<int64_t>(), count.data_ptr<int32_t>(), G, T,
                       1.0f / (float)radius, (float)slack};
   C10_CUDA_CHECK(k3_probe_clearance_launch(qs.data_ptr<float>(), robot.data_ptr<float>(),
-                                           spheres.data_ptr<float>(), sdf.data_ptr<float>(),
+                                           spheres.data_ptr<float>(), sdf.data_ptr<float>(), ex,
                                            clear.data_ptr<float>(), B * G, (int)spheres.size(0),
                                            (int)dof, craig, g, probe,
                                            at::cuda::getCurrentCUDAStream()));

@@ -48,6 +48,15 @@
 // row's configs: reading h^2 back replaces a second gather from the table.
 // It moves T (P + 1) floats and does 2 T P operations, so it is bound by the
 // bytes it reads.
+// A scene with extra grids or primitives takes the EXTRA instantiation: after
+// its five base gathers a thread issues, grid by grid, the five spheres'
+// gathers from each extra packed grid (scene.cuh's extras, copied to shared
+// memory beside the sphere table), keeps the smallest value and its gradient
+// (half of each at a tie, as autograd of the plain minimum), folds in the
+// analytic primitives, and the hinge reads that. Where a sphere
+// centre lies inside or on a box its gradient is NaN, as JAX's is
+// (scene.cuh:compose_primitives), so the config's d/dq is NaN in the joints
+// that move the sphere. The base-only instantiations are unchanged.
 // The compiler may contract the FK's products and sums into fused
 // multiply-adds, so a sphere near a voxel face can land in the neighbouring
 // voxel of the one the plain version picks; the checks bound that share.
@@ -56,35 +65,23 @@
 
 #include "fk.cuh"
 #include "kernels.h"
+#include "scene.cuh"
 
 namespace {
-
-__device__ __forceinline__ float unpack_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
-__device__ __forceinline__ float unpack_lo(uint32_t w) { return __uint_as_float(w << 16); }
-
-__device__ __forceinline__ long long flat_index(float px, float py, float pz, float ox, float oy,
-                                                float oz, float delta, int nx, int ny, int nz) {
-  int ix = (int)floorf((px - ox) / delta);
-  int iy = (int)floorf((py - oy) / delta);
-  int iz = (int)floorf((pz - oz) / delta);
-  ix = min(max(ix, 0), nx - 1);
-  iy = min(max(iy, 0), ny - 1);
-  iz = min(max(iz, 0), nz - 1);
-  return ((long long)ix * ny + iy) * nz + iz;
-}
 
 // C configurations and THREADS threads a block, NI gathers in flight a thread:
 // the tile that was fastest of six at the main path's shape (PERF.md).
 constexpr int C = 32, THREADS = 256, NI = 5;
 
 // robot and spheres: the constant tables described in fk.cuh.
-// H2: also write h^2 [P, T] (only with GRAD).
-template <int DOF, bool CRAIG, bool GRAD, bool H2>
+// H2: also write h^2 [P, T] (only with GRAD). EXTRA: compose ex's sources.
+template <int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
 __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ sigma,
     const float* __restrict__ robot, const float* __restrict__ spheres,
-    const uint2* __restrict__ words, float* __restrict__ lik, float* __restrict__ dlik,
-    float* __restrict__ h2, long long T, long long K, int P, K1Grid g, float eps) {
+    const uint2* __restrict__ words, SceneExtras ex, float* __restrict__ lik,
+    float* __restrict__ dlik, float* __restrict__ h2, long long T, long long K, int P, K1Grid g,
+    float eps) {
   constexpr int G = THREADS / C;
   constexpr int NF = FK_FRAME * (DOF + 1);
   constexpr int SLOTS = 8;  // 1 + DOF <= 8 partial sums per thread
@@ -98,6 +95,8 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
   const int tid = threadIdx.x;
   const long long tile0 = (long long)blockIdx.x * C;
   for (int i = tid; i < 5 * P; i += THREADS) sph[i] = spheres[i];
+  ExtrasView xv{};
+  if constexpr (EXTRA) xv = extras_to_shared(ex, sph + 5 * P, tid, THREADS);
   if (tid < C && tile0 + tid < T)
     fk_chain_to_shared<DOF, CRAIG>(q + (tile0 + tid) * DOF, robot, frames + tid, C);
   __syncthreads();
@@ -116,6 +115,7 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
   for (int base = grp; base < P; base += G * NI) {
     uint2 w[NI];
     float sg[NI];
+    float px[NI], py[NI], pz[NI];  // EXTRA: the sphere centres
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int sp = base + G * i;
@@ -127,6 +127,46 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
             flat_index(x - g.bx, y - g.by, z - g.bz, g.ox, g.oy, g.oz, g.delta, g.nx, g.ny, g.nz);
         w[i] = __ldg(words + idx);
         sg[i] = __ldg(sig + sp);
+        if constexpr (EXTRA) {
+          px[i] = x;
+          py[i] = y;
+          pz[i] = z;
+        }
+      }
+    }
+    // EXTRA: the composed value and gradient, from the base word on
+    float dv[NI], gv[NI][3];
+    if constexpr (EXTRA) {
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        dv[i] = unpack_hi(w[i].x);
+        gv[i][0] = unpack_lo(w[i].x);
+        gv[i][1] = unpack_hi(w[i].y);
+        gv[i][2] = unpack_lo(w[i].y);
+      }
+      const uint2* cells = static_cast<const uint2*>(ex.cells);
+      for (int e = 0; e < xv.G; ++e) {
+        const K1Grid eg = extra_grid(xv, e);
+        const uint2* ew = cells + extra_start(xv, e);
+        uint2 we[NI];
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+          if (live && base + G * i < P)
+            we[i] = __ldg(ew + flat_index(px[i] - eg.bx, py[i] - eg.by, pz[i] - eg.bz, eg.ox,
+                                          eg.oy, eg.oz, eg.delta, eg.nx, eg.ny, eg.nz));
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+          if (live && base + G * i < P)
+            fold_min<GRAD>(unpack_hi(we[i].x),
+                           {unpack_lo(we[i].x), unpack_hi(we[i].y), unpack_lo(we[i].y)}, dv[i], gv[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        if (live && base + G * i < P) {
+          bool bad = false;
+          compose_primitives<GRAD>(xv, px[i], py[i], pz[i], dv[i], gv[i], bad);
+          if (bad) gv[i][0] = gv[i][1] = gv[i][2] = CUDART_NAN_F;
+        }
       }
     }
 #pragma unroll
@@ -134,17 +174,20 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
       const int sp = base + G * i;
       if (live && sp < P) {
         const float* s = sph + 5 * sp;
-        const float dist = unpack_hi(w[i].x);
-        const float h = fmaxf(eps - (dist - s[4]), 0.f);
+        const float dist = EXTRA ? dv[i] : unpack_hi(w[i].x);
+        // EXTRA: a NaN distance (a zero-length capsule) stays NaN, as in
+        // the plain version's clamp
+        const float h = EXTRA ? max_keep_nan(eps - (dist - s[4]), 0.f) : fmaxf(eps - (dist - s[4]), 0.f);
         acc += h * h / sg[i];
         if (H2) h2[(long long)sp * T + cfg] = h * h;
-        if (GRAD && h > 0.f) {
+        if (GRAD && (h > 0.f || (EXTRA && h != h))) {
           const int f = (int)s[0];
           float x, y, z;
           sphere_centre_shared(fr, C, f, s[1], s[2], s[3], x, y, z);
           const float k = h / sg[i];
-          const float gx = k * unpack_lo(w[i].x), gy = k * unpack_hi(w[i].y),
-                      gz = k * unpack_lo(w[i].y);
+          const float gx = k * (EXTRA ? gv[i][0] : unpack_lo(w[i].x)),
+                      gy = k * (EXTRA ? gv[i][1] : unpack_hi(w[i].y)),
+                      gz = k * (EXTRA ? gv[i][2] : unpack_lo(w[i].y));
 #pragma unroll
           for (int j = 0; j < DOF; ++j) {
             if (j < f) {  // joint j moves frames j+1.. (both DH conventions)
@@ -185,25 +228,38 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(
   }
 }
 
-template <int DOF, bool CRAIG>
+template <int DOF, bool CRAIG, bool EXTRA>
 cudaError_t launch_tile(bool grad, cudaStream_t st, const float* q, const float* sigma,
-                        const float* robot, const float* spheres, const uint2* words, float* lik,
-                        float* dlik, float* h2, long long T, long long K, int P, K1Grid g,
-                        float eps) {
+                        const float* robot, const float* spheres, const uint2* words,
+                        const SceneExtras& ex, float* lik, float* dlik, float* h2, long long T,
+                        long long K, int P, K1Grid g, float eps) {
   const size_t smem =
-      sizeof(float) * ((size_t)FK_FRAME * (DOF + 1) * C + (size_t)(THREADS / C) * 8 * C + 5 * (size_t)P);
+      sizeof(float) * ((size_t)FK_FRAME * (DOF + 1) * C + (size_t)(THREADS / C) * 8 * C + 5 * (size_t)P +
+                       (EXTRA ? (size_t)extras_floats(ex) : 0));
   if (smem > 48 * 1024) return cudaErrorInvalidValue;  // more spheres than the tile has room for
   const dim3 grid((unsigned)((T + C - 1) / C)), block(THREADS);
   if (h2 != nullptr)
-    loglik_tile_kernel<DOF, CRAIG, true, true><<<grid, block, smem, st>>>(
-        q, sigma, robot, spheres, words, lik, dlik, h2, T, K, P, g, eps);
+    loglik_tile_kernel<DOF, CRAIG, true, true, EXTRA><<<grid, block, smem, st>>>(
+        q, sigma, robot, spheres, words, ex, lik, dlik, h2, T, K, P, g, eps);
   else if (grad)
-    loglik_tile_kernel<DOF, CRAIG, true, false><<<grid, block, smem, st>>>(
-        q, sigma, robot, spheres, words, lik, dlik, h2, T, K, P, g, eps);
+    loglik_tile_kernel<DOF, CRAIG, true, false, EXTRA><<<grid, block, smem, st>>>(
+        q, sigma, robot, spheres, words, ex, lik, dlik, h2, T, K, P, g, eps);
   else
-    loglik_tile_kernel<DOF, CRAIG, false, false><<<grid, block, smem, st>>>(
-        q, sigma, robot, spheres, words, lik, dlik, h2, T, K, P, g, eps);
+    loglik_tile_kernel<DOF, CRAIG, false, false, EXTRA><<<grid, block, smem, st>>>(
+        q, sigma, robot, spheres, words, ex, lik, dlik, h2, T, K, P, g, eps);
   return cudaGetLastError();
+}
+
+template <int DOF, bool CRAIG>
+cudaError_t launch_scene(bool grad, cudaStream_t st, const float* q, const float* sigma,
+                         const float* robot, const float* spheres, const uint2* words,
+                         const SceneExtras& ex, float* lik, float* dlik, float* h2, long long T,
+                         long long K, int P, K1Grid g, float eps) {
+  if (extras_floats(ex) > 0)
+    return launch_tile<DOF, CRAIG, true>(grad, st, q, sigma, robot, spheres, words, ex, lik, dlik,
+                                         h2, T, K, P, g, eps);
+  return launch_tile<DOF, CRAIG, false>(grad, st, q, sigma, robot, spheres, words, ex, lik, dlik,
+                                        h2, T, K, P, g, eps);
 }
 
 // k1_dsigma: block (r, y) holds DS_WARPS warps, warp w sphere p = y * DS_WARPS
@@ -250,24 +306,25 @@ __global__ void __launch_bounds__(DS_WARPS * 32) dsigma_kernel(
 }  // namespace
 
 cudaError_t k1_loglik_launch(const float* q, const float* sigma, const float* robot,
-                             const float* spheres, const void* words, float* lik, float* dlik,
-                             float* h2, int64_t T, int64_t K, int P, int dof, bool craig,
-                             bool grad, K1Grid g, float eps, cudaStream_t st) {
+                             const float* spheres, const void* words, const SceneExtras& ex,
+                             float* lik, float* dlik, float* h2, int64_t T, int64_t K, int P,
+                             int dof, bool craig, bool grad, K1Grid g, float eps,
+                             cudaStream_t st) {
   if (T == 0) return cudaSuccess;
   if (h2 != nullptr && !grad) return cudaErrorInvalidValue;
   const uint2* w = (const uint2*)words;
   if (dof == 7 && craig)
-    return launch_tile<7, true>(grad, st, q, sigma, robot, spheres, w, lik, dlik, h2, T, K, P, g,
-                                eps);
+    return launch_scene<7, true>(grad, st, q, sigma, robot, spheres, w, ex, lik, dlik, h2, T, K, P,
+                                 g, eps);
   if (dof == 7)
-    return launch_tile<7, false>(grad, st, q, sigma, robot, spheres, w, lik, dlik, h2, T, K, P, g,
-                                 eps);
+    return launch_scene<7, false>(grad, st, q, sigma, robot, spheres, w, ex, lik, dlik, h2, T, K,
+                                  P, g, eps);
   if (dof == 6 && craig)
-    return launch_tile<6, true>(grad, st, q, sigma, robot, spheres, w, lik, dlik, h2, T, K, P, g,
-                                eps);
+    return launch_scene<6, true>(grad, st, q, sigma, robot, spheres, w, ex, lik, dlik, h2, T, K, P,
+                                 g, eps);
   if (dof == 6)
-    return launch_tile<6, false>(grad, st, q, sigma, robot, spheres, w, lik, dlik, h2, T, K, P, g,
-                                 eps);
+    return launch_scene<6, false>(grad, st, q, sigma, robot, spheres, w, ex, lik, dlik, h2, T, K,
+                                  P, g, eps);
   return cudaErrorInvalidValue;
 }
 

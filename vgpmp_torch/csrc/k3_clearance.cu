@@ -49,6 +49,12 @@
 // the cell offsets are 32-bit (grids under 2^31 cells), and the three
 // divisions by the voxel edge are a multiply by its reciprocal and one fused
 // correction, which rounds as the division does (div_by).
+// A scene with extra grids or primitives takes the EXTRA instantiation: per
+// sphere, after the base grid's eight corners, each extra grid's eight
+// corners (the same trilinear_cell, on its own offset, origin, delta and
+// shape) and the analytic primitives (scene.cuh:compose_primitives, from the
+// extras' tables in shared memory), the minimum keeping a NaN; the base-only
+// instantiations are unchanged.
 // The clamps and the lerp order (z, then y, then x) are the plain version's,
 // and dh_step (fk.cuh) is the one DH composition of K1 and K3, so the two
 // kernels round alike and differ from the plain version by fused
@@ -64,6 +70,7 @@
 
 #include "fk.cuh"
 #include "kernels.h"
+#include "scene.cuh"
 
 namespace {
 
@@ -73,74 +80,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int C = 32, THREADS = 256;
 constexpr int GROUPS = THREADS / C;  // sphere groups: thread (g, c) takes spheres g, g + 8, ...
 static_assert(THREADS % C == 0 && C == 32, "phase 3 runs in one warp");
-
-// clamp to [0, hi]; a NaN stays a NaN (fminf/fmaxf would drop it)
-__device__ __forceinline__ float clamp_keep_nan(float v, float hi) {
-  return v < 0.f ? 0.f : (v > hi ? hi : v);
-}
-
-// minimum and maximum that keep a NaN, as torch.min and torch.maximum do
-__device__ __forceinline__ float min_keep_nan(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
-}
-__device__ __forceinline__ float max_keep_nan(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
-
-// a / b rounded to nearest, from inv = 1 / b rounded to nearest: the product
-// and one fused correction (Markstein's theorem), the same bits as the
-// division for quotients far from under- and overflow, in three instructions
-// where the division takes about eight and a branch
-__device__ __forceinline__ float div_by(float a, float b, float inv) {
-  const float q = __fmul_rn(a, inv);
-  return __fmaf_rn(__fmaf_rn(-q, b, a), inv, q);
-}
-
-// The cell a trilinear lookup at the mesh-frame point (px, py, pz)
-// interpolates in: corners at origin + delta * (i, j, k), outside the grid
-// the border values hold. The relative position is clamped to [0, n-1] and
-// the base index to [0, n-2], so the fraction reaches exactly 1 on the upper
-// border. inv_delta = 1 / g.delta. Returns the flat index of the base corner
-// (the binding refuses grids of 2^31 cells or more).
-__device__ __forceinline__ int trilinear_cell(float px, float py, float pz, const K1Grid& g,
-                                                    float inv_delta, float (&f)[3]) {
-  const float rx = clamp_keep_nan(div_by(px - g.ox, g.delta, inv_delta), (float)(g.nx - 1));
-  const float ry = clamp_keep_nan(div_by(py - g.oy, g.delta, inv_delta), (float)(g.ny - 1));
-  const float rz = clamp_keep_nan(div_by(pz - g.oz, g.delta, inv_delta), (float)(g.nz - 1));
-  const int ix = min(max((int)floorf(rx), 0), g.nx - 2);  // (int)NaN is 0
-  const int iy = min(max((int)floorf(ry), 0), g.ny - 2);
-  const int iz = min(max((int)floorf(rz), 0), g.nz - 2);
-  f[0] = rx - (float)ix;
-  f[1] = ry - (float)iy;
-  f[2] = rz - (float)iz;
-  return (ix * g.ny + iy) * g.nz + iz;
-}
-
-// The eight corners of the cell at p, through the read-only path; the two
-// z-neighbours of a pair are adjacent words.
-__device__ __forceinline__ void load_corners(const float* __restrict__ p, int sy, int sx,
-                                             float (&c)[8]) {
-  c[0] = __ldg(p);
-  c[1] = __ldg(p + 1);
-  c[2] = __ldg(p + sy);
-  c[3] = __ldg(p + sy + 1);
-  c[4] = __ldg(p + sx);
-  c[5] = __ldg(p + sx + 1);
-  c[6] = __ldg(p + sx + sy);
-  c[7] = __ldg(p + sx + sy + 1);
-}
-
-// Seven lerps, z first, then y, then x, as the plain version takes them.
-__device__ __forceinline__ float lerp_corners(const float (&c)[8], const float (&f)[3]) {
-  const float fx = f[0], fy = f[1], fz = f[2];
-  const float c00 = c[0] * (1.f - fz) + c[1] * fz;
-  const float c01 = c[2] * (1.f - fz) + c[3] * fz;
-  const float c10 = c[4] * (1.f - fz) + c[5] * fz;
-  const float c11 = c[6] * (1.f - fz) + c[7] * fz;
-  const float c0 = c00 * (1.f - fy) + c01 * fy;
-  const float c1 = c10 * (1.f - fy) + c11 * fy;
-  return c0 * (1.f - fx) + c1 * fx;
-}
 
 // clamp(1 - d / radius, min=0) with the division as a multiply by the
 // reciprocal, rounded as PyTorch's two elementwise kernels round it
@@ -185,12 +124,13 @@ __device__ __forceinline__ void probe_count(bool viol, long long key, int32_t* s
   }
 }
 
-// robot and spheres: the constant tables described in fk.cuh
-template <int DOF, bool CRAIG, bool PROBE>
+// robot and spheres: the constant tables described in fk.cuh. EXTRA: compose
+// ex's sources.
+template <int DOF, bool CRAIG, bool PROBE, bool EXTRA>
 __global__ void __launch_bounds__(THREADS) clearance_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ robot,
-    const float* __restrict__ spheres, const float* __restrict__ sdf, float* __restrict__ out,
-    long long n, int P, K1Grid g, K3Probe pa) {
+    const float* __restrict__ spheres, const float* __restrict__ sdf, SceneExtras ex,
+    float* __restrict__ out, long long n, int P, K1Grid g, K3Probe pa) {
   constexpr int NF = FK_FRAME * (DOF + 1);
   extern __shared__ float smem[];
   float* frames = smem;              // [NF][C]
@@ -203,6 +143,8 @@ __global__ void __launch_bounds__(THREADS) clearance_tile_kernel(
   const int tid = threadIdx.x;
   const long long tile0 = (long long)blockIdx.x * C;
   for (int i = tid; i < 5 * P; i += THREADS) sph[i] = spheres[i];
+  ExtrasView xv{};
+  if constexpr (EXTRA) xv = extras_to_shared(ex, sph + 5 * P, tid, THREADS);
   // Phase 1: the tile's joint angles, one a thread (q read coalesced), to
   // cos and sin; then one thread a configuration composes the chain
   const long long nq = (n - tile0 < C ? n - tile0 : C) * DOF;
@@ -233,7 +175,21 @@ __global__ void __launch_bounds__(THREADS) clearance_tile_kernel(
       float x, y, z, cv[8], f[3];
       sphere_centre_shared(fr, C, (int)s[0], s[1], s[2], s[3], x, y, z);
       load_corners(sdf + trilinear_cell(x - g.bx, y - g.by, z - g.bz, g, inv_delta, f), sy, sx, cv);
-      m = min_keep_nan(m, lerp_corners(cv, f) - s[4]);
+      float d = lerp_corners(cv, f);
+      if constexpr (EXTRA) {
+        const float* cells = static_cast<const float*>(ex.cells);
+        for (int e = 0; e < xv.G; ++e) {
+          const K1Grid eg = extra_grid(xv, e);
+          float ce[8], fe[3];
+          const int cell = trilinear_cell(x - eg.bx, y - eg.by, z - eg.bz, eg, 1.f / eg.delta, fe);
+          load_corners(cells + extra_start(xv, e) + cell, eg.nz, eg.ny * eg.nz, ce);
+          d = min_keep_nan(d, lerp_corners(ce, fe));
+        }
+        float unused_g[3];
+        bool unused_bad = false;
+        compose_primitives<false>(xv, x, y, z, d, unused_g, unused_bad);
+      }
+      m = min_keep_nan(m, d - s[4]);
     }
   }
   red[grp * C + c] = m;
@@ -250,42 +206,58 @@ __global__ void __launch_bounds__(THREADS) clearance_tile_kernel(
   }
 }
 
-template <int DOF, bool CRAIG, bool PROBE>
+template <int DOF, bool CRAIG, bool PROBE, bool EXTRA>
 cudaError_t launch_tile(cudaStream_t st, const float* q, const float* robot, const float* spheres,
-                        const float* sdf, float* out, long long n, int P, K1Grid g,
-                        const K3Probe& pa) {
+                        const float* sdf, const SceneExtras& ex, float* out, long long n, int P,
+                        K1Grid g, const K3Probe& pa) {
   const size_t smem =
-      sizeof(float) * ((size_t)(FK_FRAME * (DOF + 1) + GROUPS + 2 * DOF + 3) * C + 5 * (size_t)P);
+      sizeof(float) * ((size_t)(FK_FRAME * (DOF + 1) + GROUPS + 2 * DOF + 3) * C + 5 * (size_t)P +
+                       (EXTRA ? (size_t)extras_floats(ex) : 0));
   if (smem > 48 * 1024) return cudaErrorInvalidValue;  // more spheres than the tile has room for
   const dim3 grid((unsigned)((n + C - 1) / C)), block(THREADS);
-  clearance_tile_kernel<DOF, CRAIG, PROBE><<<grid, block, smem, st>>>(q, robot, spheres, sdf, out, n,
-                                                                      P, g, pa);
+  clearance_tile_kernel<DOF, CRAIG, PROBE, EXTRA><<<grid, block, smem, st>>>(q, robot, spheres, sdf,
+                                                                             ex, out, n, P, g, pa);
   return cudaGetLastError();
+}
+
+template <int DOF, bool CRAIG, bool PROBE>
+cudaError_t launch_scene(cudaStream_t st, const float* q, const float* robot, const float* spheres,
+                         const float* sdf, const SceneExtras& ex, float* out, long long n, int P,
+                         K1Grid g, const K3Probe& pa) {
+  if (extras_floats(ex) > 0)
+    return launch_tile<DOF, CRAIG, PROBE, true>(st, q, robot, spheres, sdf, ex, out, n, P, g, pa);
+  return launch_tile<DOF, CRAIG, PROBE, false>(st, q, robot, spheres, sdf, ex, out, n, P, g, pa);
 }
 
 template <bool PROBE>
 cudaError_t launch(const float* q, const float* robot, const float* spheres, const float* sdf,
-                   float* out, int64_t n, int P, int dof, bool craig, K1Grid g, const K3Probe& pa,
-                   cudaStream_t st) {
+                   const SceneExtras& ex, float* out, int64_t n, int P, int dof, bool craig,
+                   K1Grid g, const K3Probe& pa, cudaStream_t st) {
   if (n == 0) return cudaSuccess;
-  if (dof == 7 && craig) return launch_tile<7, true, PROBE>(st, q, robot, spheres, sdf, out, n, P, g, pa);
-  if (dof == 7) return launch_tile<7, false, PROBE>(st, q, robot, spheres, sdf, out, n, P, g, pa);
-  if (dof == 6 && craig) return launch_tile<6, true, PROBE>(st, q, robot, spheres, sdf, out, n, P, g, pa);
-  if (dof == 6) return launch_tile<6, false, PROBE>(st, q, robot, spheres, sdf, out, n, P, g, pa);
+  if (dof == 7 && craig)
+    return launch_scene<7, true, PROBE>(st, q, robot, spheres, sdf, ex, out, n, P, g, pa);
+  if (dof == 7)
+    return launch_scene<7, false, PROBE>(st, q, robot, spheres, sdf, ex, out, n, P, g, pa);
+  if (dof == 6 && craig)
+    return launch_scene<6, true, PROBE>(st, q, robot, spheres, sdf, ex, out, n, P, g, pa);
+  if (dof == 6)
+    return launch_scene<6, false, PROBE>(st, q, robot, spheres, sdf, ex, out, n, P, g, pa);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 cudaError_t k3_min_clearance_launch(const float* q, const float* robot, const float* spheres,
-                                    const float* sdf, float* out, int64_t T, int P, int dof,
-                                    bool craig, K1Grid g, cudaStream_t st) {
-  return launch<false>(q, robot, spheres, sdf, out, T, P, dof, craig, g, K3Probe{}, st);
+                                    const float* sdf, const SceneExtras& ex, float* out,
+                                    int64_t T, int P, int dof, bool craig, K1Grid g,
+                                    cudaStream_t st) {
+  return launch<false>(q, robot, spheres, sdf, ex, out, T, P, dof, craig, g, K3Probe{}, st);
 }
 
 cudaError_t k3_probe_clearance_launch(const float* q, const float* robot, const float* spheres,
-                                      const float* sdf, float* out, int64_t n, int P, int dof,
-                                      bool craig, K1Grid g, const K3Probe& probe, cudaStream_t st) {
+                                      const float* sdf, const SceneExtras& ex, float* out,
+                                      int64_t n, int P, int dof, bool craig, K1Grid g,
+                                      const K3Probe& probe, cudaStream_t st) {
   if (probe.G <= 0 || probe.T <= 0) return cudaErrorInvalidValue;
-  return launch<true>(q, robot, spheres, sdf, out, n, P, dof, craig, g, probe, st);
+  return launch<true>(q, robot, spheres, sdf, ex, out, n, P, dof, craig, g, probe, st);
 }

@@ -14,15 +14,34 @@ struct K1Grid {
   int nx, ny, nz;
 };
 
+// A scene's sources beyond the base grid (scene.cuh composes them), as
+// device tensors: grid_f [G, SCENE_GRID_F] (world offset, origin, delta),
+// grid_i [G, SCENE_GRID_I] (nx, ny, nz, first cell in cells), cells (K1: the
+// grids' packed words [cells, 2], concatenated; K3: their float32 values),
+// prims: Ks spheres (centre, radius), then Kb boxes (centre, world->box
+// rotation row-major, half extents), then Kc capsules (segment start, end,
+// radius). All counts 0: the base grid alone.
+constexpr int SCENE_GRID_F = 7, SCENE_GRID_I = 4;
+constexpr int SCENE_SPHERE = 4, SCENE_BOX = 15, SCENE_CAPSULE = 7;
+struct SceneExtras {
+  const float* grid_f;
+  const int32_t* grid_i;
+  const void* cells;
+  const float* prims;
+  int G, Ks, Kb, Kc;
+};
+
 // K1 (k1_collision.cu). q [T, dof] f32; sigma [T/K, P] f32 (config t uses row
 // t / K); robot [6*dof + 12] and spheres [P, 5] f32; words [ncells, 2] packed
 // table; lik [T]; dlik [T, dof], not written when grad is false; h2 [P, T],
 // the squared hinge per sphere and config, written only when not null (and
-// then grad must be true). dof is 6 or 7.
+// then grad must be true); ex: the scene's other sources (packed words). dof
+// is 6 or 7.
 cudaError_t k1_loglik_launch(const float* q, const float* sigma, const float* robot,
-                             const float* spheres, const void* words, float* lik, float* dlik,
-                             float* h2, int64_t T, int64_t K, int P, int dof, bool craig,
-                             bool grad, K1Grid g, float eps, cudaStream_t stream);
+                             const float* spheres, const void* words, const SceneExtras& ex,
+                             float* lik, float* dlik, float* h2, int64_t T, int64_t K, int P,
+                             int dof, bool craig, bool grad, K1Grid g, float eps,
+                             cudaStream_t stream);
 // K1's d/dsigma from the forward's h2 [P, T] and the upstream gradient g [T]:
 // out [T/K, P], out[r, p] = 1/2 sum over row r's K configs t of g[t] h2[p, t]
 // / sigma[r, p]^2.
@@ -45,11 +64,14 @@ cudaError_t k2_factor_solve_bwd_launch(const double* L, const double* X, const d
                                        int k, cudaStream_t stream);
 
 // K3 (k3_clearance.cu). q [T, dof] f32; robot and spheres as K1; sdf
-// [nx, ny, nz] f32 with every size >= 2 and fewer than 2^31 cells; out [T],
-// the minimum over spheres of the trilinear clearance. dof is 6 or 7.
+// [nx, ny, nz] f32 with every size >= 2 and fewer than 2^31 cells; ex: the
+// scene's other sources (float32 cells, fewer than 2^31 in all, each grid's
+// sizes >= 2); out [T], the minimum over spheres of the trilinear clearance.
+// dof is 6 or 7.
 cudaError_t k3_min_clearance_launch(const float* q, const float* robot, const float* spheres,
-                                    const float* sdf, float* out, int64_t T, int P, int dof,
-                                    bool craig, K1Grid g, cudaStream_t stream);
+                                    const float* sdf, const SceneExtras& ex, float* out,
+                                    int64_t T, int P, int dof, bool craig, K1Grid g,
+                                    cudaStream_t stream);
 
 // The metric's floor compare, fused into K3's second entry. The n = B * G
 // probes q are rows of B PD paths of G probes each; row b has the query
@@ -70,9 +92,9 @@ struct K3Probe {
   float slack;
 };
 cudaError_t k3_probe_clearance_launch(const float* q, const float* robot, const float* spheres,
-                                      const float* sdf, float* out, int64_t n, int P, int dof,
-                                      bool craig, K1Grid g, const K3Probe& probe,
-                                      cudaStream_t stream);
+                                      const float* sdf, const SceneExtras& ex, float* out,
+                                      int64_t n, int P, int dof, bool craig, K1Grid g,
+                                      const K3Probe& probe, cudaStream_t stream);
 
 // K4 (k4_gather.cu). table [ncells] entries of entry_bytes (4 or 8, aligned
 // to that); idx [n] int32, clamped to the table; out [n] entries.

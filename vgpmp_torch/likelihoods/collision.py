@@ -8,6 +8,11 @@ same pass; where σ_obs is trained it also keeps the squared hinges, and the
 backward's :func:`k1_dsigma` reduces them to ``∂/∂σ``. On a CPU tensor it
 runs :func:`log_prob_plain`.
 
+Both kernels compose the scene's extra grids and analytic primitives as
+:meth:`vgpmp_torch.scene.Scene.distance` does; :class:`SceneTables` holds
+them as the kernels read them, built once per model, and
+:meth:`CollisionModel.move_objects` rewrites their poses in place.
+
 ``min_clearance_eval`` is the success metric's clearance: the minimum over
 spheres of the trilinear-interpolated clearance. On a CUDA tensor it runs
 kernel K3 (``csrc/k3_clearance.cu``), on a CPU tensor
@@ -21,16 +26,17 @@ entry (:func:`k3_probe_clearance`), on a CPU tensor
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import List
 
 import torch
 
 from vgpmp_torch import _build
 from vgpmp_torch.kinematics.dh import FkModel, sphere_positions
 from vgpmp_torch.ops.transforms import sigmoid_box, sigmoid_box_inverse
-from vgpmp_torch.scene import Scene
+from vgpmp_torch.scene import Primitives, Scene
 from vgpmp_torch.sim import probe_clearance_plain
 
-__all__ = ["CollisionModel", "joint_sigmoid", "joint_sigmoid_inverse", "log_prob_plain",
+__all__ = ["CollisionModel", "SceneTables", "joint_sigmoid", "joint_sigmoid_inverse", "log_prob_plain",
            "k1_loglik", "k1_dsigma", "dsigma_plain", "min_clearance_eval_plain", "k3_min_clearance", "k3_probe_clearance"]
 
 
@@ -41,6 +47,86 @@ def joint_sigmoid(f: torch.Tensor, low, high) -> torch.Tensor:
 
 def joint_sigmoid_inverse(q: torch.Tensor, low, high) -> torch.Tensor:
     return sigmoid_box_inverse(q, low, high)
+
+
+EXTRAS_FLOATS = 4096  # the room K1's and K3's tiles leave under 48 KB of shared memory
+
+
+def _prim_counts(p) -> List[int]:
+    """Spheres, boxes and capsules of a scene's primitives (``None``: none)."""
+    if p is None:
+        return [0, 0, 0]
+    return [int(p.sphere_radii.shape[0]), int(p.box_half_extents.shape[0]), int(p.capsule_radii.shape[0])]
+
+
+def _pose_tables(scene: Scene, device):
+    """The pose-dependent tables: ``grid_f [G, 7]`` (each extra grid's world
+    offset, origin and delta) and the primitives' floats, float32."""
+    f32 = dict(dtype=torch.float32, device=device)
+    grids = scene.extra_grids
+    if grids:
+        grid_f = torch.cat([scene.extra_offsets.to(**f32), torch.stack([g.origin for g in grids]).to(**f32),
+                            torch.stack([g.delta for g in grids]).to(**f32)[:, None]], dim=1)
+    else:
+        grid_f = torch.zeros((0, 7), **f32)
+    p = scene.primitives if scene.primitives is not None else Primitives.empty(torch.float32, device)
+    rows = [torch.cat([p.sphere_centers, p.sphere_radii[:, None]], dim=1),
+            torch.cat([p.box_centers, p.box_rotations.reshape(-1, 9), p.box_half_extents], dim=1),
+            torch.cat([p.capsule_a, p.capsule_b, p.capsule_radii[:, None]], dim=1)]
+    return grid_f.contiguous(), torch.cat([r.reshape(-1).to(**f32) for r in rows])
+
+
+@dataclass
+class SceneTables:
+    """A scene's extra grids and primitives as K1 and K3 read them
+    (``csrc/kernels.h:SceneExtras``), on the scene's device: ``grid_f [G, 7]``
+    float32 (world offset, origin, delta), ``grid_i [G, 4]`` int32 (nx, ny,
+    nz, first cell), the grids' packed words concatenated (``words [n, 2]``,
+    for K1; empty unless the scene is packed) and their float32 values
+    (``data [n]``, for K3), the primitives' floats (spheres, boxes, capsules)
+    and their ``counts``. Empty for a scene of the base grid alone."""
+
+    grid_f: torch.Tensor
+    grid_i: torch.Tensor
+    words: torch.Tensor
+    data: torch.Tensor
+    prims: torch.Tensor
+    counts: List[int]
+
+    @classmethod
+    def build(cls, scene: Scene) -> "SceneTables":
+        dev = scene.base.data.device
+        grid_f, prims = _pose_tables(scene, dev)
+        shapes = [tuple(int(n) for n in g.shape) for g in scene.extra_grids]
+        starts = [0]
+        for nx, ny, nz in shapes:
+            starts.append(starts[-1] + nx * ny * nz)
+        if starts[-1] >= 2 ** 31 or any(min(sh) < 2 for sh in shapes):
+            raise ValueError(f"extra grids {shapes}: K1 and K3 take fewer than 2^31 cells in all "
+                             "and at least 2 along each axis")
+        grid_i = torch.tensor([[*sh, st] for sh, st in zip(shapes, starts)], dtype=torch.int32,
+                              device=dev).reshape(-1, 4)
+        words = (torch.cat([p.words for p in scene.extra_packed]) if scene.extra_packed
+                 else torch.zeros((0, 2), dtype=torch.int32, device=dev))
+        data = (torch.cat([g.data.reshape(-1) for g in scene.extra_grids]).to(torch.float32)
+                if shapes else torch.zeros(0, dtype=torch.float32, device=dev))
+        return cls(grid_f, grid_i, words, data, prims, _prim_counts(scene.primitives))
+
+    def _fits(self):
+        """Refuse, before a launch, extras that a block's shared memory does
+        not hold (``csrc/bindings.cpp:EXTRAS_FLOATS``)."""
+        n = self.grid_f.shape[0] * 11 + self.prims.numel()  # 7 + 4 a grid, then the primitives
+        if n > EXTRAS_FLOATS:
+            raise ValueError(f"the scene's extras take {n} floats of a block's shared memory in K1 "
+                             f"and K3, more than {EXTRAS_FLOATS}")
+
+    def k1_args(self):
+        self._fits()
+        return self.grid_f, self.grid_i, self.words, self.prims, self.counts
+
+    def k3_args(self):
+        self._fits()
+        return self.grid_f, self.grid_i, self.data, self.prims, self.counts
 
 
 @dataclass
@@ -54,12 +140,37 @@ class CollisionModel:
     # the base grid's origin and delta
     _base_offset_host: tuple = field(init=False, repr=False)
     _grid_host: tuple = field(init=False, repr=False)
+    # the scene's extras as the kernels read them
+    tables: SceneTables = field(init=False, repr=False)
 
     def __post_init__(self):
         self.epsilon = float(self.epsilon)
         self._base_offset_host = tuple(float(v) for v in self.scene.base_offset.tolist())
         base = self.scene.base
         self._grid_host = (*(float(v) for v in base.origin.tolist()), float(base.delta))
+        self.tables = SceneTables.build(self.scene)
+
+    def move_objects(self, scene: Scene) -> None:
+        """Take the object poses of ``scene``, which holds the same objects as
+        this model's scene in the same order (as ``SceneBuilder.build`` gives
+        them after ``move_object``): this model's scene takes its extra
+        offsets and primitives, and the kernels' pose tables are rewritten in
+        place (device copies, no host sync), so the next launch reads the new
+        poses with nothing rebuilt."""
+        old, t = self.scene, self.tables
+        shapes = lambda s: [tuple(g.shape) for g in s.extra_grids]
+        counts = _prim_counts(scene.primitives)
+        if shapes(scene) != shapes(old) or counts != t.counts:
+            raise ValueError(f"move_objects: the scene's objects differ (grids {shapes(scene)}, "
+                             f"primitives {counts}) from the model's ({shapes(old)}, {t.counts})")
+        dev, dt = old.base.data.device, old.base.data.dtype
+        if old.extra_grids:
+            old.extra_offsets = scene.extra_offsets.to(dev, dt)
+        if old.primitives is not None:
+            old.primitives = scene.primitives.to(dev, dt)
+        grid_f, prims = _pose_tables(old, dev)
+        t.grid_f.copy_(grid_f)
+        t.prims.copy_(prims)
 
     def sphere_clearance(self, configs: torch.Tensor) -> torch.Tensor:
         """``[..., L] -> [..., P]`` signed clearance (sdf − radius) per sphere."""
@@ -133,15 +244,15 @@ def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad:
         raise ValueError(f"k1_loglik: needs CUDA tensors, got q on {q.device}")
     if q.shape[-1] != fk.dof:
         raise ValueError(f"k1_loglik: q has {q.shape[-1]} joints, the robot {fk.dof}")
-    if scene.mode != "packed" or scene.has_extras:
-        raise ValueError("k1_loglik: needs a packed scene with no extra grids or primitives")
+    if scene.mode != "packed":
+        raise ValueError("k1_loglik: needs a packed scene")
     if h2 and not grad:
         raise ValueError("k1_loglik: h2 is written only beside the gradient")
     packed = scene.base_packed
     lik, dlik, sq = _build.load().k1_loglik(
         q, sigma, fk.k1_robot, fk.k1_spheres, packed.words, fk.craig, grad, h2,
         [*model._base_offset_host, *packed.host_origin, packed.host_delta], list(packed.shape),
-        model.epsilon)
+        model.epsilon, *model.tables.k1_args())
     k1_loglik.launches += 1
     k1_loglik.launches_h2 += int(h2)
     return lik, dlik, sq
@@ -186,17 +297,16 @@ def min_clearance_eval_plain(model: CollisionModel, configs: torch.Tensor) -> to
 
 def k3_min_clearance(model: CollisionModel, q: torch.Tensor) -> torch.Tensor:
     """K3 launch: ``q [T, dof]`` float32 CUDA -> ``[T]`` minimum over spheres of
-    the trilinear clearance against the scene's base grid."""
+    the trilinear clearance against the scene (base grid, extra grids and
+    primitives)."""
     scene, fk = model.scene, model.fk
     if not q.is_cuda:
         raise ValueError(f"k3_min_clearance: needs CUDA tensors, got q on {q.device}")
     if q.shape[-1] != fk.dof:
         raise ValueError(f"k3_min_clearance: q has {q.shape[-1]} joints, the robot {fk.dof}")
-    if scene.has_extras:
-        raise ValueError("k3_min_clearance: needs a scene with no extra grids or primitives")
     out = _build.load().k3_min_clearance(
         q, fk.k1_robot, fk.k1_spheres, scene.base.data, fk.craig,
-        [*model._base_offset_host, *model._grid_host])
+        [*model._base_offset_host, *model._grid_host], *model.tables.k3_args())
     k3_min_clearance.launches += 1
     return out
 
@@ -217,8 +327,6 @@ def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tenso
         raise ValueError(f"k3_probe_clearance: needs CUDA tensors, got qs on {qs.device}")
     if qs.ndim != 3 or qs.shape[-1] != fk.dof:
         raise ValueError(f"k3_probe_clearance: qs {tuple(qs.shape)} is not [B, G, {fk.dof}]")
-    if scene.has_extras:
-        raise ValueError("k3_probe_clearance: needs a scene with no extra grids or primitives")
     B, G, L = qs.shape
     shapes = [tuple(x.shape) for x in (q_s, q_g, depth_s, depth_g, visited, seg_idx)]
     if shapes != [(B, L), (B, L), (B,), (B,), (B,), (B, G)]:
@@ -228,7 +336,8 @@ def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tenso
         qs.detach().reshape(B * G, L).contiguous(), fk.k1_robot, fk.k1_spheres, scene.base.data,
         fk.craig, [*model._base_offset_host, *model._grid_host], q_s.detach().contiguous(),
         q_g.detach().contiguous(), depth_s.detach().contiguous(), depth_g.detach().contiguous(),
-        visited.contiguous(), seg_idx.contiguous(), int(T), float(radius), float(slack))
+        visited.contiguous(), seg_idx.contiguous(), int(T), float(radius), float(slack),
+        *model.tables.k3_args())
     k3_probe_clearance.launches += 1
     return clear.reshape(B, G), count
 

@@ -37,6 +37,10 @@ class SdfGrid:
     def shape(self):
         return tuple(self.data.shape)
 
+    def to(self, device=None, dtype: Any = None) -> "SdfGrid":
+        """The same grid with its tensors on ``device`` in ``dtype``."""
+        return SdfGrid(*(x.to(device, dtype) for x in (self.data, self.origin, self.delta)))
+
     @classmethod
     def from_arrays(cls, data, origin, delta, dtype: Any = torch.float32, device=None) -> "SdfGrid":
         t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)

@@ -41,6 +41,11 @@ def quat_to_rotmat(q_xyzw) -> np.ndarray:
     ])
 
 
+def _host_or_tensor(x):
+    """A tensor as it is, anything else (arrays, nested lists) as one numpy array."""
+    return x if torch.is_tensor(x) else np.asarray(x)
+
+
 def base_pose_matrix(position, orientation_xyzw) -> np.ndarray:
     T = np.eye(4)
     T[:3, :3] = quat_to_rotmat(orientation_xyzw)
@@ -122,10 +127,10 @@ class PlanningSession:
         self.scene = Scene(
             base=self.sdf,
             base_offset=torch.as_tensor(self.scene_offset, dtype=dt, device=dev),
-            extra_grids=tuple(self.extra_grids or ()),
-            extra_offsets=(torch.as_tensor(np.asarray(self.extra_offsets), dtype=dt, device=dev)
+            extra_grids=tuple(g.to(dev, dt) for g in self.extra_grids or ()),
+            extra_offsets=(torch.as_tensor(_host_or_tensor(self.extra_offsets), dtype=dt, device=dev)
                            if self.extra_offsets is not None else None),
-            primitives=self.primitives,
+            primitives=self.primitives.to(dev, dt) if self.primitives is not None else None,
             mode=self.sdf_mode,
         )
         if self.sdf_mode == "packed":
