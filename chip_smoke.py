@@ -83,7 +83,20 @@ Phases, any failure exits non-zero before the result line:
     against the CPU plain metric on all 36 rows); then ``move_object`` and a
     round that reads the new pose with nothing rebuilt.
 
-(d)'s profiles run last. Prints one JSON line for each of (k)–(o), the
+(p) the parallel layer (``vgpmp_torch.parallel``) at the bench's
+    configuration: (p1) a world of one over NCCL on this card, where
+    ``make_sharded_solver`` must give ``make_batch_solver``'s result bit for
+    bit (both timed, with the cost of the whole-batch draw every rank makes)
+    and ``make_sharded_round_solver`` inside ``solve_adaptive`` (g)'s rounds,
+    k_eff and executed rows; (p2) two ranks as processes of this script
+    (``--p2-rank``; a card each over NCCL where there are two, else both on
+    this card over gloo): dp = 2 against (p1) (verdicts equal, trajectories
+    within 1e-5 rad), dp = 1 x sp = 2 (the best trajectory and every step's
+    averaged likelihood bit-equal on both ranks, verdicts against the CPU
+    plain path), the collectives counted; then
+    ``tools/launch_multihost_torch.py --processes 2 --device cuda``.
+
+(d)'s profiles run last. Prints one JSON line for each of (k)–(p), the
 card's name and power limit, a ``kernels`` JSON line (K1 and its d/dσ pair,
 K2 with the fused pair's velocity shapes, K3, K4, and K1 and K3 on (o)'s
 scene), and as the last line
@@ -1011,6 +1024,7 @@ def adaptive_phase(torch, sess, cpu):
     assert bool((explained | ~differ).all()) and same_as_engine, "frand5 picks differ unexplained"
     assert all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}"
     return {"adaptive_s": t_adaptive, "info": info, "executed": executed, "success": success,
+            "executed_rows": reps.executed.tolist(),
             "executed_by_round": by_round, "agree_with_cpu": agree, "launches": launches,
             "lone_k2_launches_per_round": lone_per_round,
             "probe": {"candidates": int(flat.shape[0]), "max_abs_err_same_cell": perr,
@@ -1842,6 +1856,314 @@ def objects_phase(torch, sess, cpu, flush):
                   "executed": int(mrep.executed.sum()), "agree_with_cpu": magree}}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _count_collectives(torch, in_step: dict):
+    """Wrap ``all_reduce`` and ``broadcast`` of ``torch.distributed`` so that
+    each call is recorded as ``(op, bytes, in a step's ELBO)``, the last read
+    from ``in_step["on"]``; returns the list."""
+    import torch.distributed as dist
+
+    calls = []
+    for name in ("all_reduce", "broadcast"):
+        fn = getattr(dist, name)
+
+        def counted(tensor, *args, _fn=fn, _name=name, **kw):
+            calls.append((_name, tensor.numel() * tensor.element_size(), in_step["on"]))
+            return _fn(tensor, *args, **kw)
+
+        setattr(dist, name, counted)
+    return calls
+
+
+def _collective_summary(calls, steps: int) -> dict:
+    """``{"<op> <bytes> B": count}`` of the whole solve, and of the Adam steps'
+    ELBO collectives per step."""
+    out: dict = {}
+    per_step: dict = {}
+    for op, nbytes, step in calls:
+        key = f"{op} {nbytes} B"
+        out[key] = out.get(key, 0) + 1
+        if step:
+            per_step[key] = per_step.get(key, 0) + 1 / steps
+    return {"calls": out, "per_step": per_step,
+            "bytes_per_step": sum(int(k.split()[1]) * v for k, v in per_step.items())}
+
+
+def p2_rank_main(argv) -> int:
+    """One rank of phase (p2), started by :func:`parallel_phase` as
+    ``chip_smoke.py --p2-rank RANK PORT BACKEND DEVICE OUT``: a dp = 2 solve,
+    then a dp = 1 x sp = 2 solve, at the bench's configuration; writes
+    ``OUT/rank<RANK>.npz``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path[:0] = [str(ROOT)]
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods.collision import k1_loglik
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.parallel import init_distributed, make_mesh, make_sharded_solver
+    from vgpmp_torch.session import PlanningSession
+
+    rank, port, backend, device, out_dir = int(argv[0]), argv[1], argv[2], argv[3], Path(argv[4])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", 2, rank, backend, device)
+    sess = PlanningSession("franka", "industrial", device=device)
+    starts, goals = sess.queries()
+    cfg, B = sess.train_config, len(starts)
+    params = solver.init_batch(sess.model, starts, goals, sess.planner_params)
+    in_step = {"on": False}
+    calls = _count_collectives(torch, in_step)
+    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd)
+    out = {}
+    sample_mean = planner.sample_mean
+    averaged = []  # each step's averaged likelihood, hashed after the timed solve
+
+    def recording(x, group):
+        in_step["on"] = True
+        y = sample_mean(x, group)
+        in_step["on"] = False
+        averaged.append(y.detach().clone())
+        return y
+
+    planner.sample_mean = recording
+    for name, sp in (("dp2", 1), ("sp2", 2)):
+        mesh = make_mesh(sp, device=device)
+        solve = make_sharded_solver(sess.model, cfg, mesh)
+        seconds = []
+        for _ in range(2):  # the first call of a process loads its kernels; the second is timed alike
+            calls.clear()
+            averaged.clear()
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, metrics = solve(params, starts, goals, torch.Generator(device=sess.device).manual_seed(0))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        out[f"{name}_s"] = np.array(seconds)
+        out[f"{name}_collectives"] = json.dumps(_collective_summary(calls, cfg.num_steps))
+        out[f"{name}_launches"] = json.dumps({c.__name__: c.launches for c in counters})
+        out[f"{name}_best"] = res.best.cpu().numpy()
+        out[f"{name}_elbo_history"] = res.elbo_history.cpu().numpy()
+        out[f"{name}_success"] = metrics["success"].cpu().numpy()
+        out[f"{name}_metrics"] = json.dumps({k: float(v) for k, v in metrics.items() if v.ndim == 0})
+        out[f"{name}_lik_mean_sha256"] = np.array([hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+                                                    for y in averaged])
+        with torch.no_grad():
+            rep = execute_and_validate(sess.model.collision, res.best,
+                                       torch.as_tensor(starts, dtype=torch.float32, device=sess.device),
+                                       torch.as_tensor(goals, dtype=torch.float32, device=sess.device),
+                                       sess.model.limits_low, sess.model.limits_high)
+        out[f"{name}_executed"] = rep.executed.cpu().numpy()
+        out[f"{name}_validated"] = rep.success.cpu().numpy()
+    out["backend"] = np.array(dist.get_backend())
+    np.savez(out_dir / f"rank{rank}.npz", B=B, **out)
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(torch, sess, cpu, adaptive):
+    """(p) the parallel layer (``vgpmp_torch.parallel``) at the bench's
+    configuration.
+
+    (p1) a world of one over NCCL on this card: ``make_sharded_solver`` at
+    dp = sp = 1 against ``make_batch_solver`` from the same seed (bit for bit;
+    its success count against the validator's), both timed; the cost of the
+    whole-batch draw each rank makes; ``make_sharded_round_solver`` as
+    ``solve_adaptive``'s ``solve=`` against (g)'s rounds, k_eff and executed
+    rows. (p2) two ranks as processes (one a card over NCCL where there are
+    two cards, else both on this card over gloo): dp = 2 against (p1), then
+    dp = 1 x sp = 2 (both ranks' best trajectory and every step's averaged
+    likelihood bit-equal, verdicts against the CPU plain path), the
+    collectives counted; then ``tools/launch_multihost_torch.py``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate, validate_trajectory
+    from vgpmp_torch.likelihoods.collision import k1_loglik, k3_min_clearance, k3_probe_clearance
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.parallel import make_mesh, make_sharded_round_solver, make_sharded_solver
+    from vgpmp_torch.parallel.sharded import draw_rows
+    from vgpmp_torch.timing import time_ms
+
+    starts, goals = sess.queries()
+    cfg, model, B = sess.train_config, sess.model, len(starts)
+    params = solver.init_batch(model, starts, goals, sess.planner_params)
+    gen = lambda seed: torch.Generator(device=sess.device).manual_seed(seed)
+    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd, k3_min_clearance,
+                k3_probe_clearance)
+    rec = {}
+
+    # (p1)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device=sess.device)
+        batch = solver.make_batch_solver(model, cfg)
+        solvers = {"batch": lambda *a: (None, batch(*a)[1]),
+                   "sharded": make_sharded_solver(model, cfg, mesh),
+                   "sharded_unvalidated": make_sharded_solver(model, cfg, mesh, validate=False)}
+        times, runs = {}, {}
+        # in turns, so that the host's drift within the call falls on each alike
+        for name in ("batch", "sharded", "sharded_unvalidated", "batch", "sharded_unvalidated", "sharded") * 2:
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name] = solvers[name](params, starts, goals, gen(0))
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(time.perf_counter() - t0)
+            if name == "sharded":
+                sharded_launches = {c.__name__: c.launches for c in counters}
+        res, metrics = runs["sharded"]
+        want = runs["batch"][1]
+        bits = lambda x: x.contiguous().view(torch.int32)
+        equal = {"best": torch.equal(bits(res.best), bits(want.best)),
+                 "elbo_history": torch.equal(bits(res.elbo_history), bits(want.elbo_history))}
+        with torch.no_grad():
+            vrep = validate_trajectory(model.collision, want.best,
+                                       torch.as_tensor(starts, dtype=torch.float32, device=sess.device),
+                                       torch.as_tensor(goals, dtype=torch.float32, device=sess.device),
+                                       model.limits_low, model.limits_high)
+        n_success, n_valid = float(metrics["success_rate"] * metrics["num_problems"]), int(vrep.success.sum())
+        t_draw = time_ms(lambda: draw_rows(model, model.num_samples, False, B, slice(0, B // 2), gen(1)))
+        t_half = time_ms(lambda: draw_rows(model, model.num_samples, False, B // 2, slice(0, B // 2), gen(1)))
+        log(f"(p1) world of one over {dist.get_backend()} on {sess.device}: make_sharded_solver "
+            f"{min(times['sharded']):.3f} s (runs {times['sharded']}), without its validation "
+            f"{min(times['sharded_unvalidated']):.3f} s (runs {times['sharded_unvalidated']}), make_batch_solver "
+            f"{min(times['batch']):.3f} s (runs {times['batch']}); bit-equal {equal}; success "
+            f"{n_success:.0f} of {B}, validator {n_valid}; sharded launches {sharded_launches}; a step's "
+            f"whole-batch draw ({B} rows) {t_draw:.4f} ms against {t_half:.4f} ms for a {B // 2}-row draw")
+        assert all(equal.values()), f"the world-of-one solve differs from make_batch_solver: {equal}"
+        assert n_success == n_valid, (n_success, n_valid)
+        assert all(sharded_launches[c.__name__] > 0 for c in counters[:4]), sharded_launches
+
+        round_solvers = {"sharded": make_sharded_round_solver(model, cfg, mesh),
+                         "unsharded": solver.make_round_solver(model, cfg)}
+        t_rounds = {}
+        for name in ("sharded", "unsharded", "unsharded", "sharded"):
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            best_a, reps_a, info = solver.solve_adaptive(model, cfg, starts, goals, sess.planner_params,
+                                                         inits=tuple(sess.planner_params["q_mu_inits"]),
+                                                         max_rounds=8, seed=0, solve=round_solvers[name],
+                                                         round_sizes=(B,))
+            t_rounds.setdefault(name, []).append(time.perf_counter() - t0)
+            if name == "sharded":
+                round_launches = {c.__name__: c.launches for c in counters}
+        t_adaptive = min(t_rounds["sharded"])
+        same = {"rounds": info["rounds"] == adaptive["info"]["rounds"],
+                "k_eff": info["k_eff"] == adaptive["info"]["k_eff"],
+                "executed_rows": reps_a.executed.tolist() == adaptive["executed_rows"]}
+        log(f"    make_sharded_round_solver in solve_adaptive: {info['rounds']} rounds, k_eff "
+            f"{info['k_eff']:.3f}, executed {int(reps_a.executed.sum())}/{B} in {t_adaptive:.3f} s (runs "
+            f"{t_rounds['sharded']}; make_round_solver in turns with it {t_rounds['unsharded']}, "
+            f"in (g) {adaptive['adaptive_s']:.3f} s); equal to (g): {same}; launches {round_launches}")
+        assert all(same.values()), f"the sharded adaptive run differs from (g): {same}"
+        assert all(v > 0 for v in round_launches.values()), round_launches
+    finally:
+        dist.destroy_process_group()
+    rec["p1"] = {"sharded_s": times["sharded"], "batch_s": times["batch"],
+                 "sharded_unvalidated_s": times["sharded_unvalidated"], "bit_equal": equal,
+                 "success": n_success, "validator_success": n_valid, "launches": sharded_launches,
+                 "draw_ms_whole_batch": t_draw, "draw_ms_half_batch": t_half,
+                 "adaptive_s": t_rounds["sharded"], "adaptive_unsharded_s": t_rounds["unsharded"],
+                 "adaptive_g_s": adaptive["adaptive_s"], "adaptive_info": info,
+                 "adaptive_equal_to_g": same, "adaptive_launches": round_launches}
+
+    # (p2)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    devices = ["cuda:0", "cuda:1"] if cards >= 2 else ["cuda:0", "cuda:0"]
+    out_dir = ROOT / "chiprun_out" / "p2"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--p2-rank", str(r), str(port),
+                               backend, devices[r], str(out_dir)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            stdout, _ = p.communicate(timeout=420)
+            assert p.returncode == 0, f"(p2) rank {r} exited {p.returncode}:\n{stdout[-4000:]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_ranks = time.perf_counter() - t0
+    ranks = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(2)]
+    p1_best = res.best.cpu().numpy()
+    p1_success = metrics["success"].cpu().numpy()
+    dp_best = ranks[0]["dp2_best"]
+    dp_err = float(np.abs(dp_best - p1_best).max())
+    dp_bits = bool(np.array_equal(dp_best.view(np.int32), p1_best.view(np.int32)))
+    dp_agree = int((ranks[0]["dp2_success"] == p1_success).sum())
+    ranks_same = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ("dp2_best", "dp2_success", "sp2_best"))
+    sp_best = ranks[0]["sp2_best"]
+    lik_equal = bool(np.array_equal(ranks[0]["sp2_lik_mean_sha256"], ranks[1]["sp2_lik_mean_sha256"]))
+    with torch.no_grad():
+        ref = execute_and_validate(cpu.model.collision, torch.as_tensor(sp_best),
+                                   torch.as_tensor(starts, dtype=torch.float32),
+                                   torch.as_tensor(goals, dtype=torch.float32),
+                                   cpu.model.limits_low, cpu.model.limits_high)
+    sp_agree = {"executed": int((ranks[0]["sp2_executed"] == ref.executed.numpy()).sum()),
+                "success": int((ranks[0]["sp2_validated"] == ref.success.numpy()).sum())}
+    coll = {n: json.loads(str(ranks[0][f"{n}_collectives"])) for n in ("dp2", "sp2")}
+    log(f"(p2) two ranks over {ranks[0]['backend']} on {devices} ({t_ranks:.1f} s with start-up): "
+        f"dp = 2 solve, first / second call, rank 0 {ranks[0]['dp2_s'].tolist()} s, rank 1 "
+        f"{ranks[1]['dp2_s'].tolist()} s; verdicts equal "
+        f"(p1)'s on {dp_agree}/{B}; max |d best| against (p1) {dp_err:.3e} rad, bit-equal {dp_bits}; "
+        f"launches {str(ranks[0]['dp2_launches'])}; collectives {coll['dp2']['calls']}")
+    log(f"    dp = 1 x sp = 2 solve, rank 0 {ranks[0]['sp2_s'].tolist()} s, rank 1 {ranks[1]['sp2_s'].tolist()} s; best "
+        f"finite {bool(np.isfinite(sp_best).all())}, identical on both ranks {ranks_same}; averaged "
+        f"likelihood bit-equal on both ranks in all {len(ranks[0]['sp2_lik_mean_sha256'])} calls {lik_equal}; "
+        f"executed {int(ranks[0]['sp2_executed'].sum())}/{B}, verdicts against the CPU plain path {sp_agree}; "
+        f"collectives per step {coll['sp2']['per_step']} ({coll['sp2']['bytes_per_step']} B), all "
+        f"{coll['sp2']['calls']}; launches {str(ranks[0]['sp2_launches'])}")
+    assert dp_agree == B, f"dp = 2 verdicts differ from (p1)'s: {dp_agree}/{B}"
+    assert dp_err <= 1e-5, f"dp = 2 best trajectories differ from (p1)'s by {dp_err}"
+    assert ranks_same and lik_equal, "the ranks disagree"
+    assert np.isfinite(sp_best).all() and np.isfinite(ranks[0]["sp2_elbo_history"]).all()
+    assert len(ranks[0]["sp2_lik_mean_sha256"]) == sess.train_config.num_steps
+    assert min(sp_agree.values()) >= B - 2, f"sp = 2 verdicts disagree with the CPU plain path: {sp_agree}"
+
+    t0 = time.perf_counter()
+    launch = subprocess.run([sys.executable, str(ROOT / "tools" / "launch_multihost_torch.py"), "--processes", "2",
+                             "--device", "cuda", "--backend", backend, "--timeout", "420",
+                             "--json-out", str(ROOT / "chiprun_out" / "launch_multihost_torch.json")],
+                            capture_output=True, text=True, timeout=900)
+    assert launch.returncode == 0, launch.stdout[-2000:] + launch.stderr[-4000:]
+    multihost = json.loads(launch.stdout.strip().splitlines()[-1])
+    log(f"    tools/launch_multihost_torch.py --processes 2 --device cuda --backend {backend} "
+        f"({time.perf_counter() - t0:.1f} s with start-up): {json.dumps(multihost)}")
+    assert multihost["num_problems"] == B and multihost["num_processes"] == 2
+    rec["p2"] = {"backend": str(ranks[0]["backend"]), "devices": devices, "ranks_s": t_ranks,
+                 "dp2_s": [r["dp2_s"].tolist() for r in ranks], "sp2_s": [r["sp2_s"].tolist() for r in ranks],
+                 "dp2_verdicts_equal_p1": dp_agree, "dp2_max_abs_err_vs_p1": dp_err, "dp2_bit_equal": dp_bits,
+                 "sp2_identical_on_ranks": ranks_same, "sp2_lik_mean_bit_equal": lik_equal,
+                 "sp2_executed": int(ranks[0]["sp2_executed"].sum()), "sp2_agree_with_cpu": sp_agree,
+                 "collectives": coll, "launches": {n: json.loads(str(ranks[0][f"{n}_launches"]))
+                                                   for n in ("dp2", "sp2")},
+                 "metrics": {n: json.loads(str(ranks[0][f"{n}_metrics"])) for n in ("dp2", "sp2")},
+                 "multihost": multihost}
+    return rec
+
+
 def metric_profile_phase(torch, sess, best):
     """A second ``torch.profiler`` window: one ``execute_and_validate`` of the
     round's best trajectories at B = 36 (after the round's own calls warmed
@@ -2008,7 +2330,9 @@ def main() -> int:
     flush = l2_flush_buffer(sess.device)
     k1o, k3o, k3po, olaunch, objects = objects_phase(torch, sess, cpu, flush)
     del flush
-    for rec in (velocity, resumable, replanned, ensemble, objects):
+    log("(p) the parallel layer")
+    parallel = parallel_phase(torch, sess, cpu, adaptive)
+    for rec in (velocity, resumable, replanned, ensemble, objects, parallel):
         print(json.dumps(rec))
 
     # the profile comes last: once a profiler has traced the process, its
@@ -2047,6 +2371,7 @@ def main() -> int:
               "metric_profile": metric_prof, "kernel_device_profile": kernel_prof,
               "scored_round": scored, "gather_bench": gather, "adaptive": adaptive,
               "velocity": velocity, "resumable": resumable, "replan": replanned, "ensemble": ensemble,
+              "parallel": parallel,
               "total_s": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2060,4 +2385,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(p2_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--p2-rank"] else main())

@@ -56,6 +56,35 @@ def jax_path_noise(keys, L, Mc, num_samples, num_bases):
                        for i in range(4)))
 
 
+def _planner_grid():
+    shape, origin, delta = (40, 40, 36), np.array([-1.2, -1.2, -0.6]), 0.06
+    data = smooth_grid(np.random.default_rng(5), shape, scale=1.0) - np.float32(0.1)
+    return data, origin, delta, np.array([0.1, 0.0, -0.05])
+
+
+def torch_planner_model(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, escalations=0):
+    """The port's half of :func:`planner_models`, with no JAX imported (for
+    rank processes)."""
+    from vgpmp_torch import robots as trobots
+    from vgpmp_torch import scene as tscene
+    from vgpmp_torch.kinematics import dh as tdh
+    from vgpmp_torch.likelihoods import collision as tcol
+    from vgpmp_torch.models import vgpmp as tm
+    from vgpmp_torch.sdf import grid as tg
+
+    data, origin, delta, off = _planner_grid()
+    tspec = trobots.load_robot("franka")
+    tsc = tscene.Scene(base=tg.SdfGrid.from_arrays(data, origin, delta, torch.float64),
+                       base_offset=torch.as_tensor(off)).packed()
+    return tm.PlannerModel(
+        collision=tcol.CollisionModel(fk=tdh.FkModel.from_spec(tspec, np.eye(4), dtype=torch.float64),
+                                      scene=tsc, epsilon=0.05),
+        ny=torch.tensor([0.0, 1.0], dtype=torch.float64),
+        limits_low=torch.as_tensor(tspec.limits_low), limits_high=torch.as_tensor(tspec.limits_high),
+        num_samples=num_samples, num_bases=num_bases, num_inducing=num_inducing, jitter=jitter,
+        jitter_escalations=escalations, variance_lower=0.1)
+
+
 def planner_models(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, escalations=0):
     """The same small franka planner in both packages (float64, packed scene)."""
     import jax.numpy as jnp
@@ -66,35 +95,18 @@ def planner_models(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, esc
     from vgpmp_tpu.likelihoods import collision as jcol
     from vgpmp_tpu.models import vgpmp as jm
     from vgpmp_tpu.sdf import grid as jg
-    from vgpmp_torch import robots as trobots
-    from vgpmp_torch import scene as tscene
-    from vgpmp_torch.kinematics import dh as tdh
-    from vgpmp_torch.likelihoods import collision as tcol
-    from vgpmp_torch.models import vgpmp as tm
-    from vgpmp_torch.sdf import grid as tg
 
-    shape, origin, delta = (40, 40, 36), np.array([-1.2, -1.2, -0.6]), 0.06
-    data = smooth_grid(np.random.default_rng(5), shape, scale=1.0) - np.float32(0.1)
-    off = np.array([0.1, 0.0, -0.05])
-    base = np.eye(4)
-    jspec, tspec = jrobots.load_robot("franka"), trobots.load_robot("franka")
+    data, origin, delta, off = _planner_grid()
+    jspec = jrobots.load_robot("franka")
     jsc = jscene.Scene(base=jg.SdfGrid.from_arrays(data, origin, delta, jnp.float64),
                        base_offset=jnp.asarray(off)).packed()
-    tsc = tscene.Scene(base=tg.SdfGrid.from_arrays(data, origin, delta, torch.float64),
-                       base_offset=torch.as_tensor(off)).packed()
-    common = dict(num_samples=num_samples, num_bases=num_bases, num_inducing=num_inducing,
-                  jitter=jitter, jitter_escalations=escalations, variance_lower=0.1)
     jmodel = jm.PlannerModel(
-        collision=jcol.CollisionModel(fk=jdh.FkModel.from_spec(jspec, base, dtype=jnp.float64),
+        collision=jcol.CollisionModel(fk=jdh.FkModel.from_spec(jspec, np.eye(4), dtype=jnp.float64),
                                       scene=jsc, epsilon=jnp.asarray(0.05)),
         ny=jnp.asarray([0.0, 1.0]), limits_low=jnp.asarray(jspec.limits_low),
-        limits_high=jnp.asarray(jspec.limits_high), **common)
-    tmodel = tm.PlannerModel(
-        collision=tcol.CollisionModel(fk=tdh.FkModel.from_spec(tspec, base, dtype=torch.float64),
-                                      scene=tsc, epsilon=0.05),
-        ny=torch.tensor([0.0, 1.0], dtype=torch.float64),
-        limits_low=torch.as_tensor(tspec.limits_low), limits_high=torch.as_tensor(tspec.limits_high),
-        **common)
+        limits_high=jnp.asarray(jspec.limits_high), num_samples=num_samples, num_bases=num_bases,
+        num_inducing=num_inducing, jitter=jitter, jitter_escalations=escalations, variance_lower=0.1)
+    tmodel = torch_planner_model(num_samples, num_bases, num_inducing, jitter, escalations)
     return jspec, jmodel, tmodel
 
 

@@ -701,3 +701,44 @@ def test_velocity_step_launches_on_card(cuda_device):
     torch.cuda.synchronize()
     assert torch.isfinite(value).all() and all(torch.isfinite(g).all() for g in grads)
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0]
+
+
+@pytest.mark.cuda
+def test_world_of_one_nccl_solve_matches_batch_solver_on_card(cuda_device):
+    """``make_sharded_solver`` in a world of one over NCCL is
+    ``make_batch_solver`` from the same generator seed, bit for bit, and its
+    success count is the validator's on the same trajectories."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import validate_trajectory
+    from vgpmp_torch.parallel import make_mesh, make_sharded_solver
+    from vgpmp_torch.session import PlanningSession
+
+    sess = PlanningSession("franka", "industrial", overrides=dict(num_steps=20))
+    starts, goals = (x[:12] for x in sess.queries())
+    params = solver.init_batch(sess.model, starts, goals, sess.planner_params)
+    gen = lambda: torch.Generator(device=sess.device).manual_seed(4)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(sess.device.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        assert mesh.shape == {"dp": 1, "sp": 1} and mesh.device.type == "cuda"
+        res, metrics = make_sharded_solver(sess.model, sess.train_config, mesh)(params, starts, goals, gen())
+    finally:
+        dist.destroy_process_group()
+    _, want = solver.make_batch_solver(sess.model, sess.train_config)(params, starts, goals, gen())
+    bits = lambda x: x.contiguous().view(torch.int32)
+    assert torch.equal(bits(res.best), bits(want.best))
+    assert torch.equal(bits(res.elbo_history), bits(want.elbo_history))
+    rep = validate_trajectory(sess.model.collision, want.best,
+                              torch.as_tensor(starts, dtype=torch.float32, device=sess.device),
+                              torch.as_tensor(goals, dtype=torch.float32, device=sess.device),
+                              sess.model.limits_low, sess.model.limits_high)
+    assert float(metrics["success_rate"] * metrics["num_problems"]) == int(rep.success.sum())
+    assert metrics["num_problems"].item() == 12

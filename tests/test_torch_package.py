@@ -31,12 +31,14 @@ def _imports(path: Path):
 
 PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "gather_bench_torch.py",
                 ROOT / "tools" / "k2_designs.py", ROOT / "benchmarking_torch.py",
-                ROOT / "tools" / "solve_digest_torch.py"]
+                ROOT / "tools" / "solve_digest_torch.py", ROOT / "tools" / "launch_multihost_torch.py",
+                ROOT / "tools" / "tune_execution_torch.py"]
 NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.ops.gather",
                "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver",
                "vgpmp_torch.config", "vgpmp_torch.engine.analysis", "vgpmp_torch.session",
                "vgpmp_torch.gp.velocity", "vgpmp_torch.engine.replan", "vgpmp_torch.engine.repl",
-               "vgpmp_torch.utils.checkpoint", "vgpmp_torch.utils.profiling"]
+               "vgpmp_torch.utils.checkpoint", "vgpmp_torch.utils.profiling",
+               "vgpmp_torch.parallel.mesh", "vgpmp_torch.parallel.sharded", "vgpmp_torch.parallel.multihost"]
 
 
 def test_port_imports_no_jax_package():
@@ -50,9 +52,11 @@ def test_port_imports_no_jax_package():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("target", NEW_MODULES + ["chip_smoke", "bench_torch", "tools/gather_bench_torch.py",
+@pytest.mark.parametrize("target", NEW_MODULES + ["vgpmp_torch.parallel", "chip_smoke", "bench_torch", "tools/gather_bench_torch.py",
                                                    "tools/k2_designs.py", "benchmarking_torch",
-                                                   "tools/solve_digest_torch.py"])
+                                                   "tools/solve_digest_torch.py",
+                                                   "tools/launch_multihost_torch.py",
+                                                   "tools/tune_execution_torch.py"])
 def test_importing_the_port_loads_no_jax(target):
     """In a fresh interpreter, importing the module (or loading the script
     without running its entry point) leaves ``sys.modules`` free of JAX and of
@@ -95,6 +99,30 @@ def test_solve_digest_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         solve_digest_torch.main([])
+
+
+def test_parallel_entry_points_raise_without_cuda(monkeypatch):
+    """The mesh, the runtime and the multi-process tools run on the card unless
+    asked for the CPU; there is no other device to fall back to."""
+    from vgpmp_torch.parallel import init_distributed, make_mesh
+    from vgpmp_torch.parallel.multihost import run_sharded
+
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import launch_multihost_torch
+    import tune_execution_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_distributed("127.0.0.1:1", 2, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sharded("franka", "industrial")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_multihost_torch.main(["--processes", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune_execution_torch.main(["--inits", "linear"])
+    assert make_mesh(device="cpu").device == torch.device("cpu")
 
 
 def test_k2_designs_refuses_without_cuda(monkeypatch, capsys):

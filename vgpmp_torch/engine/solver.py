@@ -189,7 +189,8 @@ class TrainState(NamedTuple):
 
 
 def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
-                          trainable: Optional[dict] = None, keep_samples: int = 0):
+                          trainable: Optional[dict] = None, keep_samples: int = 0,
+                          sample_group=None):
     """The batched solve split into chunks that can be checkpointed mid-run
     (port of JAX's ``make_resumable_solver``), as three functions:
 
@@ -216,6 +217,13 @@ def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
     ``log_prior_density`` to the training loss): Normal(init, 1e-4) on the
     constrained σ_obs, Normal(init, 5) on alpha, anchored at each row's
     initial constrained value.
+
+    ``sample_group``: a process group whose ranks cooperate on the Monte-Carlo
+    samples of the same problems (``vgpmp_torch.parallel``). ``model.num_samples``
+    and ``cfg.num_posterior_samples`` are then per-rank counts; the ELBO's
+    likelihood mean and the best-sample selection are the group's
+    (:func:`planner.elbo`, :func:`planner.select_best`), and each rank's
+    parameters follow the gradient of its own samples, as in JAX.
     """
     trainable = trainable or default_trainable()
     prior_sigma, prior_alpha = bool(trainable.get("sigma_obs_u")), bool(trainable.get("alpha_u"))
@@ -284,11 +292,12 @@ def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
             with record_function("elbo_forward"):
                 if cfg.log_level >= 1:
                     value, aux = planner.elbo_with_aux(p, model, starts, goals, state.X_train,
-                                                       generator, step_noise, sigma_scale(i))
+                                                       generator, step_noise, sigma_scale(i),
+                                                       sample_group)
                     logs.append({k: v.detach() for k, v in aux.items()})
                 else:
                     value = planner.elbo(p, model, starts, goals, state.X_train, generator,
-                                         step_noise, sigma_scale(i))
+                                         step_noise, sigma_scale(i), sample_group)
                 if state.anchors is not None:
                     value = value + log_prior(p, state.anchors)
             with record_function("elbo_backward"):
@@ -313,7 +322,7 @@ def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
         with torch.no_grad(), record_function("extract"):
             mean, best, samples, scores = planner.sample_from_posterior(
                 state.params, model, starts, goals, Xnew, cfg.num_posterior_samples, generator,
-                noise.posterior if noise is not None else None)
+                noise.posterior if noise is not None else None, sample_group=sample_group)
             ok = torch.isfinite(best).flatten(1).all(dim=1)
             if elbo_history is not None:
                 ok = ok & torch.isfinite(elbo_history[:, -1])
@@ -333,7 +342,8 @@ def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
 
 
 def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
-                      trainable: Optional[dict] = None, keep_samples: int = 0):
+                      trainable: Optional[dict] = None, keep_samples: int = 0,
+                      sample_group=None):
     """Build ``solve_batch(params0, starts, goals, generator=None, noise=None)
     -> (params, SolveResult)`` over a leading problem axis ``B``: the
     resumable solver's three functions (:func:`make_resumable_solver`) with
@@ -343,9 +353,11 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
     for the whole batch), unless ``noise`` (:class:`SolveNoise`) supplies them.
     With ``cfg.randomize_timesteps`` each row trains on its own sorted uniform
     grid (:func:`random_timesteps`), drawn once per solve before the steps'
-    draws, or ``noise.timesteps``.
+    draws, or ``noise.timesteps``. ``sample_group`` is
+    :func:`make_resumable_solver`'s.
     """
-    init_state, train_chunk, extract = make_resumable_solver(model, cfg, trainable, keep_samples)
+    init_state, train_chunk, extract = make_resumable_solver(model, cfg, trainable, keep_samples,
+                                                             sample_group)
 
     def solve_batch(params: planner.PlannerParams, starts, goals,
                     generator: Optional[torch.Generator] = None,
@@ -359,12 +371,13 @@ def make_batch_solver(model: planner.PlannerModel, cfg: TrainConfig,
 
 
 def make_single_solver(model: planner.PlannerModel, cfg: TrainConfig,
-                       trainable: Optional[dict] = None, keep_samples: int = 0):
+                       trainable: Optional[dict] = None, keep_samples: int = 0,
+                       sample_group=None):
     """Build ``solve(params0, start, goal, generator=None, noise=None)`` for one
     problem: :func:`make_batch_solver` at ``B = 1``, with the batch axis
     taken off the result (``params0`` and ``noise`` carry it, as
     :func:`planner.init_params` gives them)."""
-    solve_batch = make_batch_solver(model, cfg, trainable, keep_samples)
+    solve_batch = make_batch_solver(model, cfg, trainable, keep_samples, sample_group)
 
     def solve(params, start, goal, generator=None, noise=None):
         dt, dev = model.dtype, model.device

@@ -11,6 +11,7 @@ from dataclasses import dataclass, fields
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from vgpmp_torch.gp import conditioned, kl, pathwise, posterior, velocity
 from vgpmp_torch.gp.pathwise import PathNoise
@@ -23,7 +24,8 @@ from vgpmp_torch.ops.transforms import (
 )
 
 __all__ = ["PlannerParams", "PlannerModel", "constrain", "init_params", "init_params_batch",
-           "query_latent", "elbo", "elbo_with_aux", "sample_from_posterior", "INIT_MODES"]
+           "query_latent", "elbo", "elbo_with_aux", "sample_from_posterior", "sample_mean",
+           "select_best", "INIT_MODES"]
 
 INIT_MODES = {"linear": 0, "zeros": 1, "waypoint": 2}
 
@@ -238,35 +240,66 @@ def _sample_configs(params, model, start, goal, X, num_samples, generator, noise
     return c, kl.prior_kl_whitened(m_w, c["q_sqrt"].to(chol.dtype)), esc, g
 
 
+class _SampleMean(torch.autograd.Function):
+    """The mean over a sample group's ranks: ``all_reduce(SUM) / n`` forward,
+    the gradient unchanged backward. That is what JAX's ``pmean`` under
+    ``shard_map(..., check_vma=False)`` computes: each shard's parameters
+    receive the gradient of its own samples only, not of the mean."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)  # NCCL takes contiguous tensors only
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sample_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` averaged over the ranks of the sample group ``group`` (identity
+    without one); see :class:`_SampleMean` for its gradient."""
+    return x if group is None else _SampleMean.apply(x, group)
+
+
 def elbo(params: PlannerParams, model: PlannerModel, start: torch.Tensor, goal: torch.Tensor,
          X: torch.Tensor, generator: Optional[torch.Generator] = None,
-         noise: Optional[PathNoise] = None, sigma_scale: float = 1.0) -> torch.Tensor:
+         noise: Optional[PathNoise] = None, sigma_scale: float = 1.0,
+         sample_group=None) -> torch.Tensor:
     """Monte-Carlo ELBO per problem, ``[B]``.
 
     ``start``/``goal [B, L]``, ``X [N]`` or one grid per problem ``[B, N]``
     (``randomize_timesteps``); the sample draws come from
     ``generator`` unless ``noise`` gives them. ``sigma_scale`` multiplies
     σ_obs (the solver's annealing factor; 1.0 is the exact objective).
+
+    ``sample_group``: a process group whose ranks each draw
+    ``model.num_samples`` samples of the same problems; the likelihood's
+    sample mean is averaged over it (:func:`sample_mean`) before the sum over
+    the grid, as JAX's ``sample_axis`` does.
     """
     c, kl_term, _, g = _sample_configs(params, model, start, goal, X, model.num_samples,
                                        generator, noise, model.antithetic)
     lik = model.collision.log_prob(g, c["sigma_obs"] * sigma_scale)  # [B, S, N]
-    lik_sum = lik.mean(dim=1).sum(dim=-1)
+    lik_sum = sample_mean(lik.mean(dim=1), sample_group).sum(dim=-1)
     return lik_sum * c["alpha"] - kl_term.to(lik.dtype)
 
 
 def elbo_with_aux(params: PlannerParams, model: PlannerModel, start, goal, X,
                   generator: Optional[torch.Generator] = None, noise: Optional[PathNoise] = None,
-                  sigma_scale: float = 1.0):
+                  sigma_scale: float = 1.0, sample_group=None):
     """ELBO plus per-problem metrics: KL, expected log-likelihood, min
-    clearance, mean hinge cost and the jitter-escalation count."""
+    clearance, mean hinge cost and the jitter-escalation count. Under
+    ``sample_group`` (see :func:`elbo`) the clearance and the hinge cost stay
+    this rank's own."""
     c, kl_term, esc, g = _sample_configs(params, model, start, goal, X, model.num_samples,
                                          generator, noise, model.antithetic)
     clearance = model.collision.sphere_clearance(g)  # [B, S, N, P]
     cost = torch.clamp(model.collision.epsilon - clearance, min=0.0)
     sigma = (c["sigma_obs"] * sigma_scale)[:, None, None, :]
     lik = -0.5 * (cost * cost / sigma).sum(dim=-1)
-    lik_total = lik.mean(dim=1).sum(dim=-1)
+    lik_total = sample_mean(lik.mean(dim=1), sample_group).sum(dim=-1)
     kl_term = kl_term.to(lik.dtype)
     value = lik_total * c["alpha"] - kl_term
     aux = {
@@ -282,12 +315,14 @@ def elbo_with_aux(params: PlannerParams, model: PlannerModel, start, goal, X,
 def sample_from_posterior(params: PlannerParams, model: PlannerModel, start, goal,
                           Xnew: torch.Tensor, num_samples: int = 150,
                           generator: Optional[torch.Generator] = None,
-                          noise: Optional[PathNoise] = None, chunk: int = 16):
+                          noise: Optional[PathNoise] = None, chunk: int = 16, sample_group=None):
     """Posterior extraction per problem.
 
     Returns (mean ``[B, Nnew, L]``, best sample ``[B, Nnew, L]``, samples
     ``[B, S, Nnew, L]``, per-sample collision log-density ``[B, S]``); best is
     the argmax of the summed log-density, scored ``chunk`` samples at a time.
+    Under ``sample_group`` ``num_samples`` is this rank's count and the best
+    sample is the group's (:func:`select_best`).
     """
     c = constrain(params, model.variance_lower)
     q_lat = query_latent(model, start, goal)
@@ -305,6 +340,34 @@ def sample_from_posterior(params: PlannerParams, model: PlannerModel, start, goa
         model.collision.log_prob(samples[:, i:i + chunk], c["sigma_obs"]).sum(dim=-1)
         for i in range(0, num_samples, chunk)
     ], dim=1)
+    return mean, select_best(scores, samples, sample_group), samples, scores
+
+
+def select_best(scores: torch.Tensor, samples: torch.Tensor, group=None) -> torch.Tensor:
+    """Each row's sample of highest score, ``[B, S] x [B, S, ...] -> [B, ...]``,
+    the first on a tie and the first NaN where there is one (``jnp.argmax``).
+
+    Under a sample group ``group`` every rank takes its own winner, and the
+    group's winner is the rank of highest winning score, the lowest rank on a
+    tie, as JAX's all-gather and argmax over the sample axis pick it. Three
+    all-reduces find it: MAX of (any NaN, score), MIN of the candidate ranks,
+    then SUM of the winner's sample and zeros elsewhere, which is exact and
+    keeps the losing ranks' NaN out. Every rank returns the same rows.
+    """
+    rows = torch.arange(samples.shape[0], device=samples.device)
     idx = torch.argmax(scores, dim=1)
-    best = samples[torch.arange(samples.shape[0], device=samples.device), idx]
-    return mean, best, samples, scores
+    best = samples[rows, idx]
+    if group is None:
+        return best
+    score = scores[rows, idx]
+    nan = torch.isnan(score)
+    top = torch.stack([nan.to(score.dtype), torch.where(nan, float("-inf"), score)], dim=1)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    mine = torch.where(top[:, 0] > 0, nan, score == top[:, 1])
+    k, n = dist.get_rank(group), dist.get_world_size(group)
+    winner = torch.where(mine, float(k), float(n)).to(score.dtype)
+    dist.all_reduce(winner, op=dist.ReduceOp.MIN, group=group)
+    win = (winner == k).reshape((-1,) + (1,) * (best.ndim - 1))
+    best = torch.where(win, best, torch.zeros_like(best)).contiguous()
+    dist.all_reduce(best, group=group)
+    return best
