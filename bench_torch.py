@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -57,15 +56,6 @@ def reference_baseline() -> dict:
             "cpu_count": None}
 
 
-def card(device) -> str:
-    """``nvidia-smi``'s name and power limit of the card, or ``"cpu"``."""
-    if device.type == "cpu":
-        return "cpu"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def run(device=None, overrides=None, batch: int = 128, adaptive_rounds: int = 2,
         seeds=(0, 1, 2, 3)) -> dict:
     """Run both phases and print the result line; returns it as a dict.
@@ -80,6 +70,7 @@ def run(device=None, overrides=None, batch: int = 128, adaptive_rounds: int = 2,
     from vgpmp_torch import _build, resolve_device
     from vgpmp_torch.engine import solver
     from vgpmp_torch.session import PlanningSession
+    from vgpmp_torch.timing import card
 
     device = resolve_device(device)
     if device.type == "cuda":

@@ -57,15 +57,6 @@ METRIC = ("execution_success (contact-blocking PD executor + endpoints, tapered 
           "r=0.5, trilinear clearance, undersampling guard)")
 
 
-def card(device) -> str:
-    """``nvidia-smi``'s name and power limit of the card, or ``"cpu"``."""
-    if device.type == "cpu":
-        return "cpu"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def engine_commit() -> Optional[str]:
     """The checkout's short commit, or ``None`` where there is no git history."""
     git = shutil.which("git")
@@ -93,6 +84,7 @@ def run_combo(robot: str, problemset: str, runs: int, sdf_mode: str, seed: int,
     from vgpmp_torch.engine import solver
     from vgpmp_torch.engine.validator import execute_and_validate
     from vgpmp_torch.session import PlanningSession
+    from vgpmp_torch.timing import card
 
     device = resolve_device(device)
     ov = {} if use_tuned else {"jitter": 1e-6}

@@ -96,7 +96,21 @@ Phases, any failure exits non-zero before the result line:
     plain path), the collectives counted; then
     ``tools/launch_multihost_torch.py --processes 2 --device cuda``.
 
-(d)'s profiles run last. Prints one JSON line for each of (k)–(p), the
+(q) ``tools/diagnose_failures_torch.py`` on wam/industrial (seed 0, 3
+    adaptive rounds): a classed row for each problem not executed, and the
+    failure profile (the packed training lookup along the densified best
+    trajectory) on the card against the CPU plain path on the same
+    trajectories;
+(r) ``tools/batch_scaling_torch.py`` at B = 36 and 256 (one steady call, a
+    child process a size): no failed size, a finite peak memory, every kernel
+    of the solve and the metric launched in each child;
+(s) ``tools/profile_breakdown_torch.py`` at B = 36 (10 calls a stage) in a
+    process of its own: stream and device ms and launches per stage of an
+    Adam step, K1 among the ``log_prob`` stages' kernels.
+
+(d)'s profiles run after (r), and (s) after them: a child's profiling
+session on the card makes this process's later profiler windows drop kernel
+records. Prints one JSON line for each of (k)–(s), the
 card's name and power limit, a ``kernels`` JSON line (K1 and its d/dσ pair,
 K2 with the fused pair's velocity shapes, K3, K4, and K1 and K3 on (o)'s
 scene), and as the last line
@@ -2164,6 +2178,138 @@ def parallel_phase(torch, sess, cpu, adaptive):
     return rec
 
 
+def diagnose_phase(torch):
+    """(q) ``tools/diagnose_failures_torch.py`` on wam/industrial, seed 0, 3
+    adaptive rounds: one row for each problem not executed, each classed, and
+    the failure profile on the card against the CPU plain path on the same
+    trajectories (the failures' and the first two rows')."""
+    import numpy as np
+
+    import diagnose_failures_torch as diag
+    from vgpmp_torch.engine.validator import densify
+    from vgpmp_torch.kinematics.dh import sphere_positions
+    from vgpmp_torch.likelihoods.collision import k1_loglik, k3_min_clearance, k3_probe_clearance
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.sdf.grid import _packed_flat_index
+    from vgpmp_torch.session import PlanningSession
+
+    counters = (k1_loglik, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd, k3_min_clearance,
+                k3_probe_clearance)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, best, sess = diag.run("wam", "industrial", seed=0, adaptive_rounds=3)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    cpu = PlanningSession("wam", "industrial", device="cpu")
+    starts, goals = sess.queries()
+    failed = [r["problem"] for r in result["failures"]]
+
+    def profile_and_cells(s, i):
+        col = s.model.collision
+        as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=s.device)
+        traj, q_s, q_g = as_t(best[i]), as_t(starts[i]), as_t(goals[i])
+        prof = diag.failure_profile(col, traj, q_s, q_g, 0.5)
+        with torch.no_grad():
+            cells = [_packed_flat_index(col.scene.base_packed, sphere_positions(col.fk, q) - col.scene.base_offset)
+                     for q in (densify(traj, 8), torch.stack([q_s, q_g]))]
+        return [v.cpu().numpy().astype(np.float64) for v in prof], [c.cpu().numpy() for c in cells]
+
+    # the training lookup is the packed nearest cell: a sphere centre a float32
+    # rounding from a cell face may land in the neighbouring cell, so the
+    # clearances and violations of such configs (and of every config of a row
+    # whose endpoints do) are left out and counted; the rest, and every
+    # quantity that is plain arithmetic, are held to 1e-5
+    err, other, n_cfg = 0.0, 0, 0
+    for i in sorted(set(failed) | {0, 1}):
+        (pc, cc), (pd, cd) = profile_and_cells(cpu, i), profile_and_cells(sess, i)
+        viol, clear, dist_s, dist_g, d_s, d_g, end_err = zip(pd, pc)
+        same = (cd[0] == cc[0]).all(axis=-1)
+        ends_same = bool((cd[1] == cc[1]).all())
+        other += int((~same).sum()) + (0 if ends_same else 2)
+        n_cfg += same.size + 2
+        pairs = [dist_s, dist_g, end_err, (clear[0][same], clear[1][same])]
+        if ends_same:
+            pairs += [d_s, d_g, (viol[0][same], viol[1][same])]
+        for a, b in pairs:
+            # NaN where both devices give NaN counts as agreement, on one only as a miss
+            d = np.where(np.isnan(a) & np.isnan(b), 0.0, np.abs(a - b))
+            err = max(err, float(np.nan_to_num(d, nan=np.inf).max(initial=0.0)))
+    rec = {"robot": "wam", "env": "industrial", "seed": 0, "executed": result["executed"],
+           "problems": result["problems"], "k_eff": result["k_eff"],
+           "classes": [r["class"] for r in result["failures"]], "failed": failed,
+           "profile_max_abs_err": err, "profile_other_cell": other, "profile_configs": n_cfg,
+           "launches": launches, "run_s": t_run}
+    log(f"(q) diagnose_failures_torch wam/industrial seed 0: {result['executed']}/{result['problems']} executed, "
+        f"k_eff {result['k_eff']:.2f}, {t_run:.1f} s; failures {list(zip(failed, rec['classes']))}; profile on "
+        f"the card vs CPU plain path: max abs err {err:.2e} (<= 1e-5) over {n_cfg} configs, {other} in another "
+        f"cell; launches {launches}")
+    assert result["problems"] == 36 and len(failed) == 36 - result["executed"]
+    assert all(r["class"] in diag.CLASSES for r in result["failures"])
+    assert err <= 1e-5, "the failure profile disagrees with the CPU plain path"
+    assert other <= 1e-2 * n_cfg, "too many configs in another cell than on the CPU"
+    assert all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}"
+    return rec
+
+
+def scaling_phase(torch):
+    """(r) ``tools/batch_scaling_torch.py`` at B = 36 and 256, one steady
+    call each, one child process a size: no failed size, a finite peak, and
+    every kernel of the batched solve and the metric launched in each child."""
+    import math
+
+    import batch_scaling_torch as scaling
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = scaling.sweep("franka", "industrial", [36, 256], 1, ROOT / "chiprun_out" / "smoke_scaling.json")
+    rec["run_s"] = time.perf_counter() - t0
+    rows = rec["rows"]
+    log(f"(r) batch_scaling_torch franka/industrial, sizes 36 and 256, 1 rep ({rec['run_s']:.1f} s with the "
+        f"children's start-up): " + "; ".join(
+            f"B={r['batch']}: " + ("FAILED" if r.get("failed") else
+                                   f"{r['steady_seconds']:.3f} s, {r['solves_per_sec']:.2f} solves/s, peak "
+                                   f"{r['peak_memory_bytes']} B, executed {r['executed_share']:.4f}, "
+                                   f"launches {r['launches']}") for r in rows))
+    assert [r["batch"] for r in rows] == [36, 256] and not any(r.get("failed") for r in rows), rows
+    assert all(r["peak_memory_bytes"] is not None and math.isfinite(r["peak_memory_bytes"])
+               and r["peak_memory_bytes"] > 0 for r in rows), "no finite peak memory"
+    for r in rows:
+        missing = [k for k, v in r["launches"].items() if k != "k2_chol" and v == 0]
+        assert not missing, f"B={r['batch']}: not launched: {missing}"
+    return rec
+
+
+def breakdown_phase(torch):
+    """(s) ``tools/profile_breakdown_torch.py`` at B = 36, 10 calls a stage,
+    in a process of its own (a profiler window slows every later launch of
+    its process): every stage's device ms > 0, K1 among the ``log_prob``
+    stages' kernels, and K1 and K2's pair launched."""
+    out = ROOT / "chiprun_out" / "smoke_profile_breakdown.json"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # 10 calls a stage (the tool's default is 50): the profiled FK stages make
+    # ~1 300 launches a call, and 50 of them took 142 s of the smoke
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "profile_breakdown_torch.py"), "--batch", "36",
+                           "--reps", "10", "--json-out", str(out)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    rec = json.loads(out.read_text())
+    rec["run_s"] = time.perf_counter() - t0
+    log(f"(s) profile_breakdown_torch franka/industrial B=36 ({rec['run_s']:.1f} s with start-up), stream / "
+        f"device ms and launches per call:")
+    for name, ms in rec["stages_ms"].items():
+        log(f"  {name:<42s} {ms:9.4f} / {rec['stages_device_ms'][name]:9.4f} ms, "
+            f"{rec['stages_launches'][name]:7.1f} launches")
+    assert all(v > 0 for v in rec["stages_device_ms"].values()), rec["stages_device_ms"]
+    for name in ("FK+SDF+hinge log_prob fwd", "FK+SDF+hinge log_prob fwd+bwd"):
+        assert any("loglik_tile_kernel" in k["name"] for k in rec["stages_kernels"][name]), name
+    kl = rec["kernel_launches"]
+    assert all(kl[k] > 0 for k in ("k1_loglik", "k2_factor_solve", "k2_factor_solve_bwd")), kl
+    return rec
+
+
 def metric_profile_phase(torch, sess, best):
     """A second ``torch.profiler`` window: one ``execute_and_validate`` of the
     round's best trajectories at B = 36 (after the round's own calls warmed
@@ -2275,7 +2421,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path[:0] = [str(ROOT), str(ROOT / "tools")]  # the package, and gather_bench_torch
+    sys.path[:0] = [str(ROOT), str(ROOT / "tools")]  # the package, and the port's tools
     try:
         from vgpmp_torch import _build
         from vgpmp_torch.session import PlanningSession
@@ -2332,14 +2478,24 @@ def main() -> int:
     del flush
     log("(p) the parallel layer")
     parallel = parallel_phase(torch, sess, cpu, adaptive)
-    for rec in (velocity, resumable, replanned, ensemble, objects, parallel):
-        print(json.dumps(rec))
+    t0 = time.perf_counter()
+    diagnosed = diagnose_phase(torch)
+    scaling = scaling_phase(torch)
+    t_qr = time.perf_counter() - t0
 
     # the profile comes last: once a profiler has traced the process, its
     # kernel launches stay slower, which would inflate the rounds' seconds
     prof = profile_phase(torch, sess)
     metric_prof = metric_profile_phase(torch, sess, best)
     kernel_prof = kernel_profile_phase(torch, sess, k2, k4)
+    # (s) after them: once a child process has profiled on the card, this
+    # process's later profiler windows drop kernel records
+    # (tools/profiler_drops_torch.py)
+    t0 = time.perf_counter()
+    breakdown = breakdown_phase(torch)
+    log(f"(q)-(s) took {t_qr + time.perf_counter() - t0:.1f} s")
+    for rec in (velocity, resumable, replanned, ensemble, objects, parallel, diagnosed, scaling, breakdown):
+        print(json.dumps(rec))
 
     k1["launches"] = launches["k1_loglik"]
     k2[0]["launches"] = escalating["launches"]["k2_chol"]
@@ -2371,7 +2527,7 @@ def main() -> int:
               "metric_profile": metric_prof, "kernel_device_profile": kernel_prof,
               "scored_round": scored, "gather_bench": gather, "adaptive": adaptive,
               "velocity": velocity, "resumable": resumable, "replan": replanned, "ensemble": ensemble,
-              "parallel": parallel,
+              "parallel": parallel, "diagnose": diagnosed, "scaling": scaling, "breakdown": breakdown,
               "total_s": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -33,6 +33,10 @@ PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" 
                 ROOT / "tools" / "k2_designs.py", ROOT / "benchmarking_torch.py",
                 ROOT / "tools" / "solve_digest_torch.py", ROOT / "tools" / "launch_multihost_torch.py",
                 ROOT / "tools" / "tune_execution_torch.py"]
+PORT_TOOLS = ["tools/diagnose_failures_torch.py", "tools/batch_scaling_torch.py",
+              "tools/profile_breakdown_torch.py", "tools/gram_bench_torch.py",
+              "tools/profiler_drops_torch.py"]
+PORT_SCRIPTS += [ROOT / t for t in PORT_TOOLS]
 NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.ops.gather",
                "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver",
                "vgpmp_torch.config", "vgpmp_torch.engine.analysis", "vgpmp_torch.session",
@@ -56,7 +60,8 @@ def test_port_imports_no_jax_package():
                                                    "tools/k2_designs.py", "benchmarking_torch",
                                                    "tools/solve_digest_torch.py",
                                                    "tools/launch_multihost_torch.py",
-                                                   "tools/tune_execution_torch.py"])
+                                                   "tools/tune_execution_torch.py",
+                                                   "vgpmp_torch.sdf"] + PORT_TOOLS)
 def test_importing_the_port_loads_no_jax(target):
     """In a fresh interpreter, importing the module (or loading the script
     without running its entry point) leaves ``sys.modules`` free of JAX and of
