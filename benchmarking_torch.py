@@ -13,8 +13,8 @@ slots, ``max_rounds = len(q_mu_inits) + --adaptive-rounds``) on the packed
 SDF, so training goes through kernel K1. ``--parity`` runs the reference's own
 hyperparameters (no tuned overlay, ``jitter`` 1e-6) on the exact
 nearest-cell SDF with ``make_batch_solver`` from linear init, then
-``execute_and_validate``: on the card its Adam steps take the collision
-likelihood's plain version, not K1, which reads the packed table only.
+``execute_and_validate``: on the card its Adam steps run K1's nearest-cell
+instantiation (the unpacked float32 grid and its central difference).
 
 Each combo's record has ``benchmarking.py``'s keys plus ``card`` (the card's
 name and power limit as ``nvidia-smi`` gives them, or ``"cpu"``), the SDF mode,

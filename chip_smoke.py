@@ -95,6 +95,23 @@ Phases, any failure exits non-zero before the result line:
     averaged likelihood bit-equal on both ranks, verdicts against the CPU
     plain path), the collectives counted; then
     ``tools/launch_multihost_torch.py --processes 2 --device cuda``.
+(t) the CUDA envelope, after (p): (t1) K1's nearest-cell and trilinear
+    lookups on the real float32 grid at 36 000 x 37 against their plain
+    versions (value, d/dq, d/dσ through ``k1_dsigma``), timed, and a 20-step
+    solve on the trilinear lookup; (t2) the reference-parity protocol,
+    ``benchmarking_torch.run_combo("franka", "industrial", 1, "nearest", 0,
+    use_tuned=False)`` at full width through K1-nearest (once a step, no
+    plain ``log_prob`` on the card), its verdicts against the CPU plain path
+    and its executed count beside JAX's ``RESULTS_r05_parity.json``; (t3) K2
+    at n = 40, 64 and 128 (the block design) and in float32 at n = 12, 26
+    and 40 against the plain versions, timed beside ``torch.linalg``; 20-step
+    solves at Mc = 40 (fused, and with ``jitter_escalations=1``), and a
+    20-step float32-island solve (``solve_dtype`` float32, jitter 1e-6, 3
+    escalations: ``k2_chol`` and ``k2_trsm`` in float32), its first ELBO
+    against the CPU plain path on the same draws; (t4) a float64 session: K1 and both K3 entries against
+    their plain versions, a 20-step solve against the CPU float64 plain path
+    on the same draws, and a scored round whose verdicts are held against
+    the CPU plain path, K1 and K3 launched in float64.
 
 (q) ``tools/diagnose_failures_torch.py`` on wam/industrial (seed 0, 3
     adaptive rounds): a classed row for each problem not executed, and the
@@ -112,14 +129,17 @@ Phases, any failure exits non-zero before the result line:
 session on the card makes this process's later profiler windows drop kernel
 records. Prints one JSON line for each of (k)–(s), the
 card's name and power limit, a ``kernels`` JSON line (K1 and its d/dσ pair,
-K2 with the fused pair's velocity shapes, K3, K4, and K1 and K3 on (o)'s
-scene), and as the last line
+K2 with the fused pair's velocity shapes, K3, K4, K1 and K3 on (o)'s
+scene, and (t)'s rows: K1-nearest, K1-trilinear, K1 and K3 in float64, K2's
+block design at n = 40 and its float32 ``k2_chol`` and ``k2_trsm``), and as
+the last line
 ``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -149,7 +169,8 @@ def k1_inputs(torch, sess):
     """K1's inputs at the main path's shape: configs ``[B, S, N, L]`` near
     the straight lines between the queries, half of the samples uniform over
     the joint box (so that many spheres sit inside obstacles and the hinge and
-    its gradient are exercised), clipped to the limits."""
+    its gradient are exercised), clipped to the limits; in the session's
+    dtype (the draws in float32)."""
     dev = sess.device
     starts, goals = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in sess.queries())
     B, S, N, L = starts.shape[0], 20, 50, starts.shape[1]
@@ -158,49 +179,90 @@ def k1_inputs(torch, sess):
     q = starts[:, None, None] + (goals - starts)[:, None, None] * frac
     q = q + 0.15 * torch.randn((B, S, N, L), generator=gen, device=dev)
     lo, hi = sess.model.limits_low, sess.model.limits_high
-    q[:, S // 2:] = lo + (hi - lo) * torch.rand((B, S - S // 2, N, L), generator=gen, device=dev)
-    return torch.minimum(torch.maximum(q, lo), hi).contiguous()
+    q[:, S // 2:] = lo.float() + (hi - lo).float() * torch.rand((B, S - S // 2, N, L), generator=gen,
+                                                                 device=dev)
+    return torch.minimum(torch.maximum(q.to(lo.dtype), lo), hi).contiguous()
+
+
+def grid_sectors(torch, sc, pos, mode: str) -> int:
+    """The distinct 32-byte sectors that a K1 lookup in ``mode`` touches at
+    the world points ``pos [..., 3]`` in each grid of the scene ``sc``:
+    ``packed`` the cell's 8-byte word (four a sector), ``nearest`` the cell
+    and its six clipped neighbours (the central difference), ``trilinear``
+    the eight corners, in the grid's dtype (8 float32 or 4 float64 values a
+    sector)."""
+    from vgpmp_torch.sdf.grid import _cell_index, _flat, _packed_flat_index, trilinear_cell
+
+    if mode == "packed":
+        pairs = [(sc.base_packed, sc.base_offset),
+                 *zip(sc.extra_packed, sc.extra_offsets if sc.extra_packed else [])]
+        return sum(torch.unique(_packed_flat_index(g, pos - off).reshape(-1) // 4).numel()
+                   for g, off in pairs)
+    total = 0
+    for g, off in [(sc.base, sc.base_offset), *zip(sc.extra_grids, sc.extra_offsets if sc.extra_grids else [])]:
+        per = 32 // g.data.element_size()
+        p = pos - off
+        if mode == "nearest":
+            i = _cell_index(g.shape, g.origin, g.delta, p)
+            nmax = torch.tensor([s - 1 for s in g.shape], device=p.device)
+            steps = [torch.zeros(3, dtype=torch.int64, device=p.device)]
+            for a in range(3):
+                e = torch.zeros(3, dtype=torch.int64, device=p.device)
+                e[a] = 1
+                steps += [e, -e]
+            flats = [_flat(g.shape, torch.minimum(torch.clamp(i + e, min=0), nmax)).reshape(-1)
+                     for e in steps]
+        else:
+            _, ny, nz = g.shape
+            flat = _flat(g.shape, trilinear_cell(g, p)[0]).reshape(-1)
+            flats = [flat + dx * ny * nz + dy * nz + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+        total += torch.unique(torch.cat([torch.unique(f // per) for f in flats])).numel()
+    return total
 
 
 def k1_bound(torch, model, q):
     """K1's bound at the configs ``q [..., L]``: the distinct 32-byte sectors
-    (four 8-byte words) that the spheres' cells touch in each packed grid of
-    the scene, q and σ read and lik and d/dq written once; per config 7 DH
-    compositions (~60 flops), per sphere its position, index and hinge (~30),
-    the 7-joint torque accumulation (~16 each), and per extra source its index
+    that the spheres' lookups touch in each grid of the scene
+    (:func:`grid_sectors`, in the scene's mode), q and σ read and lik and
+    d/dq written once (in q's dtype); per config 7 DH compositions (~60
+    flops), per sphere its position, index and hinge (~30; ~25 more for the
+    central difference, ~40 for the trilinear value and gradient), the
+    7-joint torque accumulation (~16 each), and per extra source its index
     (~15 a grid) or its analytic value and gradient (~15 a sphere, ~50 a box,
-    ~35 a capsule). Returns (ms, "bytes" or "operations", sectors, bytes,
-    flops)."""
+    ~35 a capsule), at the float32 or float64 peak. Returns (ms, "bytes" or
+    "operations", sectors, bytes, flops)."""
     from vgpmp_torch.kinematics.dh import sphere_positions
-    from vgpmp_torch.sdf.grid import _packed_flat_index
 
     sc = model.scene
     with torch.no_grad():
-        pos = sphere_positions(model.fk, q)
-        sectors = sum(torch.unique(_packed_flat_index(g, pos - off).reshape(-1) // 4).numel()
-                      for g, off in [(sc.base_packed, sc.base_offset),
-                                     *zip(sc.extra_packed, sc.extra_offsets if sc.extra_packed else [])])
+        sectors = grid_sectors(torch, sc, sphere_positions(model.fk, q), sc.mode)
     L, P = q.shape[-1], model.fk.sphere_radii.shape[0]
     T = q.numel() // L
+    es = q.element_size()
     Ks, Kb, Kc = model.tables.counts
-    extra = 15 * len(sc.extra_packed) + 15 * Ks + 50 * Kb + 35 * Kc
-    nbytes = sectors * 32 + T * L * 4 + q.shape[0] * P * 4 + T * 4 + T * L * 4 + model.tables.prims.numel() * 4
-    flops = T * (L * 60 + P * (30 + L * 16 + extra))
-    return (*bound_ms(nbytes, flops, F32_FLOPS), sectors, nbytes, flops)
+    lookup = {"packed": 0, "nearest": 25, "trilinear": 40}[sc.mode]
+    extra = (15 + lookup) * len(sc.extra_grids) + 15 * Ks + 50 * Kb + 35 * Kc
+    nbytes = (sectors * 32 + (T * L + q.shape[0] * P + T + T * L + model.tables.prims.numel()) * es)
+    flops = T * (L * 60 + P * (30 + lookup + L * 16 + extra))
+    peak = F64_FLOPS if q.dtype == torch.float64 else F32_FLOPS
+    return (*bound_ms(nbytes, flops, peak), sectors, nbytes, flops)
 
 
-def k1_phase(torch, sess, flush, label=""):
+def k1_phase(torch, sess, flush, label="", model=None):
     """K1 against ``log_prob_plain``, which on the card is plain PyTorch end to
-    end (FK, ``packed_lookup_plain``'s gather and unpack, on a scene with
-    objects each extra grid's and the primitives' too, the hinge)."""
+    end (FK, the scene's lookup: ``packed_lookup_plain``'s gather and unpack,
+    or the nearest cell and its central difference, or the trilinear
+    interpolation; on a scene with objects each extra grid's and the
+    primitives' too, the hinge), in the session's dtype. ``model`` replaces
+    the session's collision model (another lookup mode of its scene)."""
     from vgpmp_torch.likelihoods import collision as col
     from vgpmp_torch.timing import time_ms
 
-    model = sess.model.collision
+    model = model or sess.model.collision
     dev = sess.device
     q = k1_inputs(torch, sess)
     B, S, N, L = q.shape
-    sigma = torch.full((B, model.fk.sphere_radii.shape[0]), 0.005, device=dev)
+    sigma = torch.full((B, model.fk.sphere_radii.shape[0]), 0.005, dtype=q.dtype, device=dev)
 
     qk = q.clone().requires_grad_()
     lik_k = model.log_prob(qk, sigma)
@@ -213,14 +275,21 @@ def k1_phase(torch, sess, flush, label=""):
     # a sphere near a voxel face may land in the neighbouring voxel: at most
     # 1e-3 of the configs may differ; the rest agree to 1e-5 relative (+1e-3
     # absolute: 37-term float32 sums in another order), their gradients to
-    # 1e-3 of the largest. A config with a sphere centre inside or on a box
-    # has a NaN d/dq (as JAX's): the pattern must agree but for 1e-3 of the
-    # configs (a centre within a rounding of a box face)
-    close = torch.isclose(lik_k, lik_p, rtol=1e-5, atol=1e-3)
-    share = (~close).float().mean().item()
-    err = (lik_k - lik_p)[close].abs().max().item()
+    # 1e-3 of the largest; in float64 to 1e-9 relative (+1e-9) and 1e-8. In
+    # trilinear mode the value is continuous across a face but its gradient
+    # is not, so there a config whose gradient differs counts in the same
+    # share. A config with a sphere centre inside or on a box has a NaN d/dq
+    # (as JAX's): the pattern must agree but for 1e-3 of the configs (a
+    # centre within a rounding of a box face)
+    rtol, atol, gtol = (1e-9, 1e-9, 1e-8) if q.dtype == torch.float64 else (1e-5, 1e-3, 1e-3)
+    close = torch.isclose(lik_k, lik_p, rtol=rtol, atol=atol)
     nan_k, nan_p = torch.isnan(gk).any(-1), torch.isnan(gp).any(-1)
     nan_differ = (nan_k != nan_p).float().mean().item()
+    if model.scene.mode == "trilinear":
+        finite = ~nan_k & ~nan_p
+        close &= ((gk - gp).abs() <= gtol * gp[finite].abs().max()).all(-1) | ~finite
+    share = (~close).float().mean().item()
+    err = (lik_k - lik_p)[close].abs().max().item()
     both = close & ~nan_k & ~nan_p
     gscale = gp[both].abs().max().item()
     gerr = (gk - gp)[both].abs().max().item()
@@ -230,7 +299,7 @@ def k1_phase(torch, sess, flush, label=""):
         f"in {int(nan_p.sum())} configs (plain), pattern differs in {nan_differ:.2e} (<= 1e-3)")
     assert active >= 0.2, "K1 check: too few configs touch an obstacle to test the hinge"
     assert share <= 1e-3, "K1: too many configs disagree with the plain version"
-    assert gerr <= 1e-3 * gscale + 1e-6, "K1: gradient disagrees with the plain version"
+    assert gerr <= gtol * gscale + 1e-6, "K1: gradient disagrees with the plain version"
     assert nan_differ <= 1e-3, "K1: the NaN pattern of d/dq disagrees with the plain version"
 
     q2 = q.reshape(-1, L)
@@ -247,7 +316,7 @@ def k1_phase(torch, sess, flush, label=""):
     log(f"K1{label} time: fwd+grad {ms:.4f} ms, fwd only {ms_fwd:.4f} ms, plain fwd+bwd {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB)")
     return {"name": "k1_collision_loglik" + label, "route": "cuda",
-            "source": "vgpmp_torch/csrc/k1_collision.cu",
+            "source": "vgpmp_torch/csrc/k1_collision.cuh",
             "replaces": "vgpmp_tpu/likelihoods/collision.py:76", "max_abs_err": err,
             "max_rel_err": err / lik_p.abs().max().item(), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -436,18 +505,18 @@ def k2_phase(torch, sess, flush):
                 "max_rel_err": max(v for k, v in worst.items() if k.startswith(prefix))}
 
     return [
-        {"name": "k2_chol", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
+        {"name": "k2_chol", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cuh",
          "replaces": "vgpmp_tpu/ops/linalg.py:30", **worst_of("chol"), **chol,
          "shape": [Tm, n, n], "at_n26": at26["chol"]},
         # the row at the extraction's grid of 100 times (gp/posterior.py)
-        {"name": "k2_trsm", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
+        {"name": "k2_trsm", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cuh",
          "replaces": "vgpmp_tpu/ops/linalg.py:52", **worst_of("trsm"), **trsm[100],
          "shape": [Tm, n, 100], "by_k": trsm, "at_n26": at26["trsm"]},
-        {"name": "k2_factor_solve", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
+        {"name": "k2_factor_solve", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cuh",
          "replaces": "vgpmp_tpu/ops/linalg.py:30", **worst_of("fused"), **fused,
          "shape": [Tm, n, kf], "by_k": fused_by_k},
         # the backward launch is held through autograd in the same checks
-        {"name": "k2_factor_solve_bwd", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cu",
+        {"name": "k2_factor_solve_bwd", "route": "cuda", "source": "vgpmp_torch/csrc/k2_linalg.cuh",
          "replaces": "vgpmp_tpu/ops/linalg.py:30", **worst_of("fused_random"), **fused_bwd,
          "shape": [Tm, n, kf]},
     ], {"relative": worst, "absolute": worst_abs}
@@ -455,13 +524,13 @@ def k2_phase(torch, sess, flush):
 
 def k3_bound(torch, model, q, extra_bytes: float, extra_flops: float):
     """K3's bound at the configs ``q [n, L]``: the distinct 32-byte sectors (8
-    float32 cells) of each grid of the scene that the eight corners of every
-    config's spheres touch, plus q (read) and the minima (written) and
-    ``extra_bytes``; per config 7 DH compositions (~60 flops), per sphere its
+    float32 or 4 float64 cells) of each grid of the scene that the eight
+    corners of every config's spheres touch, plus q (read) and the minima
+    (written) in q's dtype and ``extra_bytes``; per config 7 DH compositions (~60 flops), per sphere its
     position (18), the relative position and clamps (~20) and seven lerps (3
     flops each), as much again per extra grid, ~10 flops per analytic sphere,
-    ~40 per box and ~30 per capsule, plus ``extra_flops``. Returns (ms,
-    "bytes" or "operations", sectors)."""
+    ~40 per box and ~30 per capsule, plus ``extra_flops``, at the float32 or
+    float64 peak. Returns (ms, "bytes" or "operations", sectors)."""
     from vgpmp_torch.kinematics.dh import sphere_positions
     from vgpmp_torch.sdf.grid import _flat, trilinear_cell
 
@@ -475,13 +544,16 @@ def k3_bound(torch, model, q, extra_bytes: float, extra_flops: float):
             i0, _ = trilinear_cell(grid, pos - off)
             flat = _flat(grid.shape, i0).reshape(-1)
             corners = [dx * ny * nz + dy * nz + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
-            sectors += torch.unique(torch.cat([torch.unique((flat + c) // 8) for c in corners])).numel()
+            per = 32 // grid.data.element_size()
+            sectors += torch.unique(torch.cat([torch.unique((flat + c) // per) for c in corners])).numel()
     n, L = q.shape
     P = model.fk.sphere_radii.shape[0]
     Ks, Kb, Kc = model.tables.counts
-    nbytes = sectors * 32 + n * L * 4 + n * 4 + extra_bytes + model.tables.prims.numel() * 4
+    es = q.element_size()
+    nbytes = sectors * 32 + (n * L + n + model.tables.prims.numel()) * es + extra_bytes
     flops = n * (L * 60 + P * 60 * (1 + len(sc.extra_grids)) + P * (10 * Ks + 40 * Kb + 30 * Kc)) + extra_flops
-    return (*bound_ms(nbytes, flops, F32_FLOPS), sectors)
+    peak = F64_FLOPS if q.dtype == torch.float64 else F32_FLOPS
+    return (*bound_ms(nbytes, flops, peak), sectors)
 
 
 def k3_phase(torch, sess, flush, label=""):
@@ -492,7 +564,8 @@ def k3_phase(torch, sess, flush, label=""):
     ``k3_probe_clearance`` against ``probe_clearance_plain`` on the probes of
     the same paths plus a row without motion, a NaN row and two rows of
     random waypoints (which surely collide). ``label`` names a scene with
-    objects in the log and the records."""
+    objects, or a float64 session, in the log and the records; a float64
+    session is held to 1e-9 m where a float32 one is held to 1e-5 m."""
     from functools import partial
 
     from vgpmp_torch import sim
@@ -501,7 +574,8 @@ def k3_phase(torch, sess, flush, label=""):
 
     model = sess.model.collision
     dev = sess.device
-    starts, goals = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in sess.queries())
+    starts, goals = (torch.as_tensor(x, dtype=sess.dtype, device=dev) for x in sess.queries())
+    tol = 1e-9 if sess.dtype == torch.float64 else 1e-5
     B, T, L = starts.shape[0], sess.train_config.time_spacing_Xnew, starts.shape[1]
     gen = torch.Generator(device=dev).manual_seed(13)
     w = torch.linspace(0, 1, T, device=dev)[None, :, None]
@@ -519,13 +593,14 @@ def k3_phase(torch, sess, flush, label=""):
     # tolerance: trilinear interpolation is continuous, so a sphere centre
     # that differs by a few float32 ulps moves the value by as little; K3
     # differs from the plain version by fused multiply-adds only: 1e-5 m
+    # (1e-9 m in float64)
     err = (got - want).abs().max().item()
     negative = (want < 0).float().mean().item()
     log(f"K3{label} check: {q.shape[0]} configs ({q_path.shape[0]} PD-path probes + {q_box.shape[0]} uniform), "
-        f"max |d clearance| {err:.3e} m (<= 1e-5), negative clearance in {negative:.4f} (>= 0.1), "
+        f"max |d clearance| {err:.3e} m (<= {tol:g}), negative clearance in {negative:.4f} (>= 0.1), "
         f"range [{want.min().item():.4f}, {want.max().item():.4f}] m")
     assert torch.isfinite(got).all(), "K3: non-finite clearance"
-    assert err <= 1e-5, "K3 disagrees with the plain version"
+    assert err <= tol, "K3 disagrees with the plain version"
     assert negative >= 0.1, "K3 check: too few configs touch an obstacle"
     nan_q = q_path[:64].clone()
     nan_q[::2, 3] = float("nan")
@@ -537,7 +612,7 @@ def k3_phase(torch, sess, flush, label=""):
     b_ms, b_by, sectors = k3_bound(torch, model, q_path, 0, 0)
     log(f"K3{label} time at {q_path.shape[0]} configs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB)")
-    k3 = {"name": "k3_min_clearance" + label, "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
+    k3 = {"name": "k3_min_clearance" + label, "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cuh",
           "replaces": "vgpmp_tpu/likelihoods/collision.py:59", "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
           "negative_share": negative, "sectors": sectors, "configs_checked": q.shape[0],
@@ -565,20 +640,20 @@ def k3_phase(torch, sess, flush, label=""):
     ok = ~nan_p
     perr = (clear_k[ok] - clear_p[ok]).abs().max().item()
     # a probe within 1e-5 m of its floor may fall either way (K3's clearance
-    # is held to 1e-5 m); every other probe must count as the plain version
-    # counts it, so per segment far <= count <= far + near
-    near = visited & ((clear_p - floor).abs() <= 1e-5)
+    # is held to 1e-5 m; 1e-9 m in float64); every other probe must count as
+    # the plain version counts it, so per segment far <= count <= far + near
+    near = visited & ((clear_p - floor).abs() <= tol)
     far = sim._segment_count(seg_idx, visited & (clear_p < floor) & ~near, T)
     near_n = sim._segment_count(seg_idx, near, T)
     differ = (count_k > 0) != (count_p > 0)
     responsible = int(near_n[differ].sum())
     log(f"K3{label} probe entry check: {qs.shape[0]} rows x {qs.shape[1]} probes, max |d clearance| {perr:.3e} m "
-        f"(<= 1e-5), NaN probes {int(nan_p.sum())} on both sides: {bool(torch.equal(nan_k, nan_p))}; "
+        f"(<= {tol:g}), NaN probes {int(nan_p.sum())} on both sides: {bool(torch.equal(nan_k, nan_p))}; "
         f"violated probes {int(count_p.sum())} (plain) / {int(count_k.sum())} (kernel) in "
         f"{int((count_p > 0).sum())} / {int((count_k > 0).sum())} segments; segment flags differ in "
-        f"{int(differ.sum())}, explained by {responsible} probes within 1e-5 m of their floor")
+        f"{int(differ.sum())}, explained by {responsible} probes within {tol:g} m of their floor")
     assert torch.equal(nan_k, nan_p) and nan_p[B + 1].any() and not nan_p[:B].any(), "K3 probe: NaN in, NaN out"
-    assert perr <= 1e-5, "K3 probe entry: clearance disagrees with the plain version"
+    assert perr <= tol, "K3 probe entry: clearance disagrees with the plain version"
     assert ((far <= count_k) & (count_k <= far + near_n)).all(), "K3 probe entry: counts disagree"
     assert bool((near_n[differ] > 0).all()), "K3 probe entry: a flag differs with no probe at its floor"
     assert count_p.sum() > 0 and count_k[B].sum() == 0 and not visited[B].any(), "K3 probe check: cases"
@@ -589,11 +664,12 @@ def k3_phase(torch, sess, flush, label=""):
     # beyond K3's bytes: the segment index (8 B) a probe read, the per-row
     # inputs read, the counts written; about 20 operations a probe for the
     # distances, the ramps and the compare
-    pb_ms, pb_by, psectors = k3_bound(torch, model, qs.reshape(-1, L), n * 8 + B2 * (2 * L + 3) * 4
-                                      + B2 * T * 4, n * 20)
+    pb_ms, pb_by, psectors = k3_bound(torch, model, qs.reshape(-1, L),
+                                      n * 8 + B2 * (2 * L + 3) * qs.element_size() + B2 * T * 4,
+                                      n * 20)
     log(f"K3{label} probe entry time at {n} probes: kernel {pms:.4f} ms, plain {pplain_ms:.4f} ms, "
         f"bound {pb_ms:.4f} ms ({pb_by}: {psectors} sectors)")
-    k3p = {"name": "k3_probe_clearance" + label, "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cu",
+    k3p = {"name": "k3_probe_clearance" + label, "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cuh",
            "replaces": "vgpmp_tpu/engine/validator.py:211", "max_abs_err": perr, "ms": pms,
            "plain_ms": pplain_ms, "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None,
            "sectors": psectors, "probes": n, "violated_plain": int(count_p.sum()),
@@ -1270,12 +1346,12 @@ def trainable_phase(torch, flush, k1):
     assert finite, "non-finite ELBO, σ_obs, alpha or trajectory in the trainable solve"
     assert rows_moved == len(starts) and a_rel.max() > 0, "σ_obs or alpha did not move"
     assert launches["k1_loglik_h2"] == cfg.num_steps and launches["k1_dsigma"] == cfg.num_steps, launches
-    dsig = {"name": "k1_dsigma", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cu",
+    dsig = {"name": "k1_dsigma", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cuh",
             "replaces": "vgpmp_tpu/likelihoods/collision.py:85", "launches": launches["k1_dsigma"],
             "max_abs_err": (ds_dev.double() - ref64).abs().max().item(), "max_rel_err": red_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "e2e_rel_err": e2e_err, "shape": [T, P, B]}
-    fwd = {"name": "k1_collision_loglik_h2", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cu",
+    fwd = {"name": "k1_collision_loglik_h2", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cuh",
            "replaces": "vgpmp_tpu/likelihoods/collision.py:76", "launches": launches["k1_loglik_h2"],
            "max_abs_err": err, "ms": ms_h2, "plain_ms": plain_h2_ms, "bound_ms": bh_ms, "bound_by": bh_by,
            "library_ms": None, "frozen_forward_ms": ms_frozen, "equal_to_frozen_forward": same_forward,
@@ -2415,6 +2491,557 @@ def gather_phase(torch):
     return out, launches
 
 
+# ---------------------------------------------------------------- (t) the CUDA envelope
+
+
+def mode_model(sess, mode: str):
+    """The session's collision model with its scene looked up in ``mode``
+    (``nearest`` or ``trilinear``: the unpacked grid of the session's dtype)."""
+    from vgpmp_torch.likelihoods.collision import CollisionModel
+
+    c = sess.model.collision
+    sc = dataclasses.replace(sess.scene, mode=mode, base_packed=None, extra_packed=())
+    return CollisionModel(fk=c.fk, scene=sc, epsilon=c.epsilon)
+
+
+def dsigma_check(torch, model, q, label):
+    """K1's d/dσ in ``model``'s mode: the forward that writes h², then
+    ``k1_dsigma`` against the float64 sum of the same terms (1e-5 of
+    Σ|g|h²/(2σ²): float32 sums of ~1 000 terms in another order), and end to
+    end through autograd against the plain version, configs whose value
+    differs (a sphere in a neighbouring cell) weighted 0 (1e-4 of the same
+    scale). Returns the two relative errors."""
+    from vgpmp_torch.likelihoods import collision as col
+
+    B, S, N, L = q.shape
+    P = model.fk.sphere_radii.shape[0]
+    gen = torch.Generator(device=q.device).manual_seed(19)
+    sigma = (0.003 + 0.005 * torch.rand((B, P), generator=gen, device=q.device)).to(q.dtype)
+    g = torch.randn((B, S, N), generator=gen, device=q.device).to(q.dtype)
+    q2 = q.reshape(-1, L)
+    _, _, h2 = col.k1_loglik(model, q2, sigma, True, True)
+    ds = col.k1_dsigma(g.reshape(-1), h2, sigma)
+    ref = col.dsigma_plain(g.reshape(-1).double(), h2.double(), sigma.double())
+    scale = col.dsigma_plain(g.reshape(-1).abs().double(), h2.double(), sigma.double()).clamp(min=1e-30)
+    red = ((ds.double() - ref).abs() / scale).max().item()
+    with torch.no_grad():
+        w = g * torch.isclose(model.log_prob(q, sigma), col.log_prob_plain(model, q, sigma),
+                              rtol=1e-5, atol=1e-3)
+    out = []
+    for fn in (model.log_prob, lambda a, b: col.log_prob_plain(model, a, b)):
+        s = sigma.clone().requires_grad_()
+        out.append(torch.autograd.grad((w * fn(q, s)).sum(), s)[0])
+    e2e = ((out[0] - out[1]).abs().double() / scale).max().item()
+    log(f"K1{label} d/dσ: reduction vs float64 {red:.2e} of the absolute sum (<= 1e-5), end to end vs "
+        f"the plain version {e2e:.2e} (<= 1e-4)")
+    assert red <= 1e-5 and e2e <= 1e-4, f"K1{label} d/dσ disagrees with the plain version"
+    return red, e2e
+
+
+def grid_modes_phase(torch, sess, flush):
+    """(t1) K1's nearest-cell and trilinear lookups on the real
+    franka/industrial float32 grid at 36 000 configs x 37 spheres, against
+    the plain version (value, d/dq and d/dσ), timed beside it and the bound
+    by sectors."""
+    rows = {}
+    q = k1_inputs(torch, sess)
+    for mode in ("nearest", "trilinear"):
+        model = mode_model(sess, mode)
+        rows[mode] = k1_phase(torch, sess, flush, f"[{mode}]", model=model)
+        rows[mode]["dsigma_rel_err"], rows[mode]["dsigma_e2e_rel_err"] = dsigma_check(
+            torch, model, q, f"[{mode}]")
+    return rows
+
+
+def _capture_validate(captured):
+    """``engine.validator.execute_and_validate`` wrapped so that each call's
+    trajectories and report are kept in ``captured``; returns the original."""
+    from vgpmp_torch.engine import validator
+
+    orig = validator.execute_and_validate
+
+    def capture(collision, best, sb, gb, lo, hi, *args, **kw):
+        rep = orig(collision, best, sb, gb, lo, hi, *args, **kw)
+        captured.append((best.detach().clone(), sb, gb, rep))
+        return rep
+
+    validator.execute_and_validate = capture
+    return orig
+
+
+def _count_k1(calls):
+    """``likelihoods.collision.k1_loglik`` and ``log_prob_plain`` wrapped so
+    that each K1 launch's (mode, dtype, grad) and each plain call on a CUDA
+    tensor land in ``calls``; returns the originals."""
+    from vgpmp_torch.likelihoods import collision as col
+
+    k1, plain = col.k1_loglik, col.log_prob_plain
+
+    def k1_counting(model, q, sigma, grad, h2=False):
+        calls.append((model.scene.mode, str(q.dtype).removeprefix("torch."), bool(grad)))
+        return k1(model, q, sigma, grad, h2)
+
+    def plain_counting(model, configs, sigma_obs):
+        if configs.is_cuda:
+            calls.append(("plain", str(configs.dtype).removeprefix("torch."), True))
+        return plain(model, configs, sigma_obs)
+
+    # the original bumps its counters through the module's name, which is
+    # the wrapper's while it is patched
+    for a in ("launches", "launches_h2", "launches_by"):
+        setattr(k1_counting, a, getattr(k1, a))
+    col.k1_loglik, col.log_prob_plain = k1_counting, plain_counting
+    return k1, plain
+
+
+def parity_phase(torch):
+    """(t2) the reference-parity protocol through its entry point:
+    ``benchmarking_torch.run_combo("franka", "industrial", runs=1,
+    sdf_mode="nearest", use_tuned=False)`` at full width (B = 36, 200 steps,
+    S = 20, N = 50, M = 10, P = 37): K1's nearest instantiation once per
+    Adam step, no plain ``log_prob`` on the card, the executed verdicts held
+    against the CPU plain path on the same trajectories (>= 34 of 36), the
+    executed count beside JAX's record."""
+    import benchmarking_torch
+    from vgpmp_torch.engine import validator
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.session import PlanningSession
+
+    captured, calls = [], []
+    orig_validate = _capture_validate(captured)
+    k1, plain = _count_k1(calls)
+    t0 = time.perf_counter()
+    try:
+        rec = benchmarking_torch.run_combo("franka", "industrial", 1, "nearest", 0, use_tuned=False)
+    finally:
+        validator.execute_and_validate = orig_validate
+        col.k1_loglik, col.log_prob_plain = k1, plain
+    t_combo = time.perf_counter() - t0
+    steps = rec["budget"]["num_steps"]
+    with_grad = sum(1 for c in calls if c == ("nearest", "float32", True))
+    forward_only = sum(1 for c in calls if c == ("nearest", "float32", False))
+    plain_cuda = sum(1 for c in calls if c[0] == "plain")
+    best, sb, gb, rep = captured[-1]
+    cpu = PlanningSession("franka", "industrial", sdf_mode="nearest", use_tuned=False,
+                          overrides={"jitter": 1e-6}, device="cpu")
+    with torch.no_grad():
+        ref = orig_validate(cpu.model.collision, best.cpu(), sb.cpu(), gb.cpu(), cpu.model.limits_low,
+                            cpu.model.limits_high)
+    B = best.shape[0]
+    agree = int((rep.executed.cpu() == ref.executed).sum())
+    executed = int(rep.executed.sum())
+    jax_runs = next((r["per_run_solved"] for r in json.loads((ROOT / "RESULTS_r05_parity.json").read_text())
+                     if (r["robot"], r["problemset"]) == ("franka", "industrial")), None)
+    log(f"(t2) parity protocol, franka/industrial (nearest, untuned, jitter {rec['jitter']}): "
+        f"{executed} / {B} executed (JAX's record, RESULTS_r05_parity.json: {jax_runs}); "
+        f"{rec['steady_batch_seconds']} s a run, {t_combo:.1f} s with the session; K1-nearest "
+        f"launches {with_grad} with d/dq in {steps} steps (+{forward_only} forward only), plain "
+        f"log_prob on the card {plain_cuda}; verdicts equal to the CPU plain path on {agree} / {B}")
+    assert with_grad == steps, f"K1-nearest launched {with_grad} times with d/dq in {steps} steps"
+    assert plain_cuda == 0, "log_prob_plain ran on a CUDA tensor"
+    assert agree >= B - 2, f"parity verdicts disagree with the CPU plain path on {B - agree} rows"
+    return {"executed": executed, "rows": B, "jax_record_executed": jax_runs, "agree_with_cpu": agree,
+            "k1_nearest_launches": with_grad, "k1_nearest_forward_only": forward_only,
+            "steady_s": rec["steady_batch_seconds"], "combo_s": t_combo, "record": rec}
+
+
+def trilinear_solve_phase(torch, sess, steps: int = 20):
+    """A ``steps``-step franka/industrial solve at full width on the
+    trilinear lookup (the session's scene in ``trilinear`` mode): K1's
+    trilinear instantiation once per step, no plain ``log_prob`` on the
+    card, finite ELBOs and trajectories."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.models import vgpmp as planner
+
+    model = dataclasses.replace(sess.model, collision=mode_model(sess, "trilinear"))
+    starts, goals = sess.queries()
+    pp = sess.planner_params
+    params = planner.init_params_batch(model, starts, goals, [0] * len(starts), 0.5 * (starts + goals),
+                                       pp["lengthscales"], pp["variance"], pp["sigma_obs"], pp["alpha"])
+    calls = []
+    k1, plain = _count_k1(calls)
+    try:
+        solve = solver.make_batch_solver(model, dataclasses.replace(sess.train_config, num_steps=steps))
+        _, res = solve(params, starts, goals, torch.Generator(device=sess.device).manual_seed(4))
+        torch.cuda.synchronize()
+    finally:
+        col.k1_loglik, col.log_prob_plain = k1, plain
+    e = res.elbo_history
+    launches = sum(1 for c in calls if c == ("trilinear", "float32", True))
+    log(f"(t1) trilinear solve, {steps} steps at B = {len(starts)}: K1-trilinear launches {launches} with "
+        f"d/dq, plain log_prob on the card {sum(1 for c in calls if c[0] == 'plain')}; ELBO mean "
+        f"{e[:, 0].mean().item():.4g} -> {e[:, -1].mean().item():.4g}")
+    assert launches == steps and not any(c[0] == "plain" for c in calls)
+    assert torch.isfinite(e).all() and torch.isfinite(res.best).all()
+    return launches
+
+
+def _spd(torch, T, n, dtype, dev, gen):
+    G = torch.randn((T, n, n), generator=gen, device=dev, dtype=torch.float64)
+    return (G @ G.mT + n * torch.eye(n, device=dev, dtype=torch.float64)).to(dtype)
+
+
+def k2_shapes_check(torch, n, dtype, dev, gen, T=252):
+    """K2's four entries at ``[T, n, n]`` in ``dtype`` on random SPD matrices
+    (one made non-SPD: NaN in it and in no other), forward and backward,
+    against the plain versions; relative to the largest reference entry:
+    1e-9 in float64 (gradients 1e-8), 1e-4 in float32 (condition ~10).
+    Returns the largest absolute and relative errors."""
+    from vgpmp_torch.ops import linalg as la
+
+    tol, gtol = (1e-9, 1e-8) if dtype == torch.float64 else (1e-4, 1e-4)
+    K = _spd(torch, T, n, dtype, dev, gen)
+    K[-1, -1, -1] = -1.0
+    ok = torch.ones(T, dtype=torch.bool, device=dev)
+    ok[-1] = False
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    errs, absolute = {}, []
+    diff = lambda a, b: absolute.append((a - b).abs().max().item()) or rel(a, b)
+    Lk, Lp = la.k2_chol(K), la.cholesky_unrolled(K)
+    assert torch.isnan(Lk[-1]).any() and torch.isfinite(Lk[ok]).all(), "K2 chol: NaN out of its matrix"
+    errs["chol"] = diff(Lk[ok], Lp[ok])
+    for k in (1, 100):
+        Bm = torch.randn((T, n, k), generator=gen, device=dev, dtype=torch.float64).to(dtype)
+        for up, fp in ((False, la.solve_lower_unrolled), (True, la.solve_upper_T_unrolled)):
+            X = la.k2_trsm(Lk, Bm, up)
+            assert torch.isfinite(X[ok]).all()
+            errs[f"trsm_k{k}_{'upperT' if up else 'lower'}"] = diff(X[ok], fp(Lp[ok], Bm[ok]))
+    Bm = torch.randn((T, n, 71), generator=gen, device=dev, dtype=torch.float64).to(dtype)
+    Lf, Xf = la.k2_factor_solve(K, Bm)
+    Lq, Xq = la.factor_solve_plain(K, Bm)
+    assert torch.isnan(Lf[-1]).any() and torch.isfinite(Xf[ok]).all()
+    errs["fused_L"], errs["fused_X"] = diff(Lf[ok], Lq[ok]), diff(Xf[ok], Xq[ok])
+    WL = torch.randn((T, n, n), generator=gen, device=dev, dtype=torch.float64).to(dtype)
+    WX = torch.randn((T, n, 71), generator=gen, device=dev, dtype=torch.float64).to(dtype)
+    gK, gB = la.k2_factor_solve_bwd(Lq[ok].contiguous(), Xq[ok].contiguous(), WL[ok].contiguous(),
+                                    WX[ok].contiguous())
+    hK, hB = la.factor_solve_bwd_plain(Lq[ok], Xq[ok], WL[ok], WX[ok])
+    errs["fused_bwd_K"], errs["fused_bwd_B"] = diff(gK, hK), diff(gB, hB)
+    bad = {k: v for k, v in errs.items() if v > (gtol if "bwd" in k else tol)}
+    assert not bad, f"K2 at n = {n} in {dtype}: {bad}"
+    return max(absolute), max(errs.values())
+
+
+def k2_times(torch, n, dtype, dev, gen, flush, T=252, k_trsm=100, k_fused=71):
+    """``k2_chol``, ``k2_trsm`` (k columns), the fused pair and its backward
+    at ``[T, n, n]`` in ``dtype``, each beside its plain version, the library
+    call (``torch.linalg.cholesky``, ``solve_triangular``, both for the pair)
+    and the bound (bytes read and written once, float64 or float32 peak)."""
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.timing import time_ms
+
+    es = torch.finfo(dtype).bits // 8
+    peak = F64_FLOPS if dtype == torch.float64 else F32_FLOPS
+    K = _spd(torch, T, n, dtype, dev, gen)
+    L = la.k2_chol(K)
+    Bt = torch.randn((T, n, k_trsm), generator=gen, device=dev, dtype=torch.float64).to(dtype)
+    Bf = torch.randn((T, n, k_fused), generator=gen, device=dev, dtype=torch.float64).to(dtype)
+    gL = torch.randn((T, n, n), generator=gen, device=dev, dtype=torch.float64).to(dtype)
+    Lf, Xf = la.k2_factor_solve(K, Bf)
+    out = {}
+    b = bound_ms(2 * T * n * n * es, T * n ** 3 / 3, peak)
+    out["chol"] = {"ms": time_ms(lambda: la.k2_chol(K), flush=flush),
+                   "plain_ms": time_ms(lambda: la.cholesky_unrolled(K), reps=5, flush=flush),
+                   "library_ms": time_ms(lambda: torch.linalg.cholesky(K), flush=flush),
+                   "bound_ms": b[0], "bound_by": b[1]}
+    b = bound_ms((T * n * n + 2 * T * n * k_trsm) * es, T * n * n * k_trsm, peak)
+    out["trsm"] = {"ms": time_ms(lambda: la.k2_trsm(L, Bt, False), flush=flush),
+                   "plain_ms": time_ms(lambda: la.solve_lower_unrolled(L, Bt), reps=5, flush=flush),
+                   "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bt, upper=False),
+                                         flush=flush),
+                   "upper_t_ms": time_ms(lambda: la.k2_trsm(L, Bt, True), flush=flush),
+                   "bound_ms": b[0], "bound_by": b[1], "k": k_trsm}
+
+    def library_pair():
+        Ll = torch.linalg.cholesky(K)
+        return Ll, torch.linalg.solve_triangular(Ll, Bf, upper=False)
+
+    b = bound_ms((2 * T * n * n + 2 * T * n * k_fused) * es, T * (n ** 3 / 3 + n * n * k_fused), peak)
+    out["factor_solve"] = {"ms": time_ms(lambda: la.k2_factor_solve(K, Bf), flush=flush),
+                           "plain_ms": time_ms(lambda: la.factor_solve_plain(K, Bf), reps=5, flush=flush),
+                           "library_ms": time_ms(library_pair, flush=flush),
+                           "bound_ms": b[0], "bound_by": b[1], "k": k_fused}
+    b = bound_ms((3 * T * n * n + 3 * T * n * k_fused) * es, T * (2 * n * n * k_fused + 7 * n ** 3 / 3),
+                 peak)
+    out["factor_solve_bwd"] = {
+        "ms": time_ms(lambda: la.k2_factor_solve_bwd(Lf, Xf, gL, Bf), flush=flush),
+        "plain_ms": time_ms(lambda: la.factor_solve_bwd_plain(Lf, Xf, gL, Bf), reps=5, flush=flush),
+        "library_ms": None, "bound_ms": b[0], "bound_by": b[1], "k": k_fused}
+    return out
+
+
+def _row_noise(torch, m, cfg, B, steps, seed):
+    """Injected draws of a ``steps``-step solve of ``B`` rows, made on the
+    CPU (the card's and the CPU's generators differ), in the model's dtype."""
+    from vgpmp_torch.engine.solver import SolveNoise
+    from vgpmp_torch.gp.pathwise import draw_noise
+
+    gen = torch.Generator().manual_seed(seed)
+    Mc, L = m.num_inducing + 2, 7
+    dt = m.limits_low.dtype
+    mk = lambda S: draw_noise((B,), L, Mc, S, m.num_bases, dt, "cpu", gen, m.kernel, m.antithetic)
+    return SolveNoise(steps=[mk(m.num_samples) for _ in range(steps)],
+                      posterior=mk(cfg.num_posterior_samples))
+
+
+def _noise_to(torch, noise, dev, rows=None):
+    pick = (lambda x: x.to(dev)) if rows is None else (lambda x: x[:rows].to(dev))
+    cast = lambda pn: type(pn)(*(pick(x) for x in pn))
+    return type(noise)(steps=[cast(s) for s in noise.steps], posterior=cast(noise.posterior))
+
+
+def injected_solve(torch, sess, cpu, steps: int, rows: int, seed: int):
+    """A ``steps``-step solve of ``sess`` at full width from the linear init on
+    draws made on the CPU, and the same solve of its first ``rows`` rows by
+    each CPU session of ``cpu`` (one, or a list; the plain path) on the same
+    draws. Returns the card's result, the CPU's result (a list for a list)
+    and the K1 calls of the card's solve."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.models import vgpmp as planner
+
+    starts, goals = sess.queries()
+    pp = sess.planner_params
+    cfg = dataclasses.replace(sess.train_config, num_steps=steps)
+    noise = _row_noise(torch, sess.model, cfg, len(starts), steps, seed)
+    out = []
+    calls = []
+    cpus = cpu if isinstance(cpu, list) else [cpu]
+    for s, n in [(sess, len(starts))] + [(c, rows) for c in cpus]:
+        params = planner.init_params_batch(s.model, starts[:n], goals[:n], [0] * n,
+                                           0.5 * (starts[:n] + goals[:n]), pp["lengthscales"],
+                                           pp["variance"], pp["sigma_obs"], pp["alpha"])
+        solve = solver.make_batch_solver(s.model, cfg)
+        if s is sess:
+            k1, plain = _count_k1(calls)
+        try:
+            _, res = solve(params, starts[:n], goals[:n], noise=_noise_to(torch, noise, s.device, n))
+        finally:
+            if s is sess:
+                col.k1_loglik, col.log_prob_plain = k1, plain
+        out.append(res)
+    torch.cuda.synchronize()
+    return out[0], out[1:] if isinstance(cpu, list) else out[1], calls
+
+
+def elbo_agreement(torch, card_res, cpu_res, rtol):
+    """Rows whose first-step ELBO agrees to ``rtol`` relative (the same
+    parameters and draws), and the largest relative difference of the
+    last step's row-mean ELBO."""
+    e_k, e_p = card_res.elbo_history[: cpu_res.elbo_history.shape[0]].cpu(), cpu_res.elbo_history
+    first = ((e_k[:, 0] - e_p[:, 0]).abs() / e_p[:, 0].abs())
+    last = ((e_k[:, -1].mean() - e_p[:, -1].mean()).abs() / e_p[:, -1].mean().abs()).item()
+    return int((first <= rtol).sum()), first.max().item(), last
+
+
+def k2_envelope_phase(torch, sess, flush):
+    """(t3) K2 above n = 32 and in float32: the four entries at n = 40, 64
+    and 128 (KERNEL_MAX_N) in float64 and at n = 12, 26 and 40 in float32
+    against their plain versions, timed; then (a) a 20-step solve whose
+    ``num_inducing`` is 38 (Mc = 40: the block design in the fused pair, its
+    backward and the extraction's solves) and the same with
+    ``jitter_escalations=1`` (the lone ``k2_chol`` and ``k2_trsm`` at n = 40);
+    (b) the float32 island: a 20-step solve with ``solve_dtype`` float32
+    (jitter 1e-6, escalation on, 3 retries) launching ``k2_chol`` and
+    ``k2_trsm`` in float32, its first ELBO against the CPU plain path on the
+    same draws."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.session import PlanningSession
+
+    dev = sess.device
+    gen = torch.Generator(device=dev).manual_seed(23)
+    checks, times = {}, {}
+    for n in (40, 64, la.KERNEL_MAX_N):
+        checks[f"f64_n{n}"] = k2_shapes_check(torch, n, torch.float64, dev, gen)
+        times[f"f64_n{n}"] = k2_times(torch, n, torch.float64, dev, gen, flush)
+    for n in (12, 26, 40):
+        checks[f"f32_n{n}"] = k2_shapes_check(torch, n, torch.float32, dev, gen)
+        times[f"f32_n{n}"] = k2_times(torch, n, torch.float32, dev, gen, flush)
+    log("(t3) K2 envelope check, largest absolute / relative error: "
+        + ", ".join(f"{k} {a:.2e} / {r:.2e}" for k, (a, r) in checks.items()))
+    for k, v in times.items():
+        log(f"(t3) K2 {k} [252, n, n]: " + json.dumps(v))
+
+    counters = (la.k2_chol, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd)
+    starts, goals = sess.queries()
+    pp = sess.planner_params
+    wide = {}
+    for name, esc in (("fused", 0), ("escalating", 1)):
+        m = dataclasses.replace(sess.model, num_inducing=38, jitter_escalations=esc)
+        params = planner.init_params_batch(m, starts, goals, [0] * len(starts), 0.5 * (starts + goals),
+                                           pp["lengthscales"], pp["variance"], pp["sigma_obs"], pp["alpha"])
+        for c in counters:
+            c.launches, c.launches_by = 0, {}
+        solve = solver.make_batch_solver(m, dataclasses.replace(sess.train_config, num_steps=20))
+        _, res = solve(params, starts, goals, torch.Generator(device=dev).manual_seed(6))
+        torch.cuda.synchronize()
+        wide[name] = {"launches": {c.__name__: c.launches for c in counters},
+                      "finite_rows": int(torch.isfinite(res.elbo_history).all(dim=1).sum()),
+                      "elbo_first_mean": res.elbo_history[:, 0].mean().item(),
+                      "elbo_last_mean": res.elbo_history[:, -1].mean().item()}
+        log(f"(t3) 20-step solve at Mc = 40 ({name}): " + json.dumps(wide[name]))
+        assert wide[name]["finite_rows"] == len(starts), f"Mc = 40 ({name}): non-finite rows"
+    assert wide["fused"]["launches"]["k2_factor_solve"] > 0 and wide["fused"]["launches"]["k2_trsm"] > 0
+    assert wide["escalating"]["launches"]["k2_chol"] > 0
+
+    # The float32 island at the session's jitter of 1e-9 factors Grams of
+    # condition up to ~1e9 in float32: the CPU's own float32 and float64
+    # islands then differ by 13 % in the first ELBO, so no two float32
+    # orderings agree better. At JAX's float32 Gram jitter (1e-6,
+    # tools/gram_bench.py) the condition stays under ~1e6 and the CPU's two
+    # islands agree to 3e-3: the solve runs there.
+    t0 = time.perf_counter()
+    ov = {"solve_dtype": torch.float32, "jitter": 1e-6}
+    island = PlanningSession("franka", "industrial", overrides=ov)
+    island_cpu = PlanningSession("franka", "industrial", overrides=ov, device="cpu")
+    assert island.model.solve_dtype == torch.float32 and island.model.jitter_escalations == 3
+    for c in counters:
+        c.launches, c.launches_by = 0, {}
+    # beside the CPU's float32 island, its float64 island on the same draws:
+    # the float32 island's own error on these inputs
+    cpu64 = copy.copy(island_cpu)
+    cpu64.model = dataclasses.replace(island_cpu.model, solve_dtype=torch.float64, jitter_escalations=0)
+    res_k, (res_p, res_64), _ = injected_solve(torch, island, [island_cpu, cpu64], 20, 12, seed=29)
+    by = {c.__name__: dict(c.launches_by) for c in counters}
+    e64 = res_64.elbo_history[:, 0]
+    own = ((res_p.elbo_history[:, 0] - e64).abs() / e64.abs()).max().item()
+    card_vs_64 = ((res_k.elbo_history[:12, 0].cpu() - e64).abs() / e64.abs()).max().item()
+    # the same parameters and draws: the first step's ELBO agrees to 1e-2
+    # relative on >= 10 of the 12 rows compared (float32 factors of Grams of
+    # condition ~1e6 in two orders, the CPU's own float32 island `own` from
+    # its float64 one; a Gram whose pivot lies within a rounding of zero
+    # escalates its jitter on one side only); later steps compound it
+    # through Adam and are reported
+    agree, first_err, last_err = elbo_agreement(torch, res_k, res_p, 1e-2)
+    log(f"(t3) float32 island (solve_dtype float32, jitter 1e-6, 3 escalations), 20 steps at B = 36: "
+        f"K2 launches by dtype {by}; first-step ELBO within 1e-2 of the CPU plain path on {agree} / 12 "
+        f"rows (largest {first_err:.2e}); from the CPU's float64 island: the card's {card_vs_64:.2e}, "
+        f"the CPU's float32 island's {own:.2e}; last-step mean {last_err:.2e} apart; "
+        f"{time.perf_counter() - t0:.1f} s with both sessions")
+    assert by["k2_chol"].get("float32", 0) > 0 and by["k2_trsm"].get("float32", 0) > 0, by
+    assert torch.isfinite(res_k.elbo_history).all(), "float32 island: non-finite ELBO"
+    assert agree >= 10, "float32 island's first step disagrees with the CPU plain path"
+    return {"checks": checks, "times": times, "wide": wide,
+            "island": {"launches_by_dtype": by, "first_step_agree_rows": agree,
+                       "first_step_max_rel_err": first_err, "cpu_float32_vs_float64": own,
+                       "card_float32_vs_cpu_float64": card_vs_64,
+                       "last_step_mean_rel_err": last_err}}
+
+
+def float64_phase(torch, flush):
+    """(t4) a float64 franka/industrial session (packed, the float64 island):
+    K1 and both K3 entries against their plain float64 versions on the card,
+    a 20-step solve on draws made on the CPU against the CPU float64 plain
+    path, and one scored round (``make_round_solver``) whose verdicts are
+    held against the CPU plain path on the same trajectories; K1 and both K3
+    entries launched in float64."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.engine.validator import execute_and_validate
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.session import PlanningSession
+
+    t0 = time.perf_counter()
+    sess = PlanningSession("franka", "industrial", dtype=torch.float64)
+    cpu = PlanningSession("franka", "industrial", dtype=torch.float64, device="cpu")
+    t_sess = time.perf_counter() - t0
+    k1 = k1_phase(torch, sess, flush, "[float64]")
+    k3, k3p = k3_phase(torch, sess, flush, "[float64]")
+    for c in (col.k3_min_clearance, col.k3_probe_clearance):
+        c.launches_by = {}
+    res_k, res_p, calls = injected_solve(torch, sess, cpu, 20, 12, seed=31)
+    k1_f64 = sum(1 for c in calls if c == ("packed", "float64", True))
+    agree_e, first_err, last_err = elbo_agreement(torch, res_k, res_p, 1e-6)
+
+    starts, goals = sess.queries()
+    pp = sess.planner_params
+    B = len(starts)
+    params = planner.init_params_batch(sess.model, starts, goals, [0] * B, 0.5 * (starts + goals),
+                                       pp["lengthscales"], pp["variance"], pp["sigma_obs"], pp["alpha"])
+    round_calls = []
+    k1w, plain = _count_k1(round_calls)
+    try:
+        best, rep = solver.make_round_solver(sess.model, sess.train_config)(
+            params, starts, goals, torch.Generator(device=sess.device).manual_seed(0))
+        torch.cuda.synchronize()
+    finally:
+        col.k1_loglik, col.log_prob_plain = k1w, plain
+    k3_by = {"k3_min_clearance": dict(col.k3_min_clearance.launches_by),
+             "k3_probe_clearance": dict(col.k3_probe_clearance.launches_by)}
+    st = torch.as_tensor(starts, dtype=torch.float64)
+    gl = torch.as_tensor(goals, dtype=torch.float64)
+    with torch.no_grad():
+        ref = execute_and_validate(cpu.model.collision, best.cpu(), st, gl, cpu.model.limits_low,
+                                   cpu.model.limits_high)
+    agree = {k: int((getattr(rep, k).cpu() == getattr(ref, k)).sum()) for k in ("executed", "success")}
+    round_k1 = sum(1 for c in round_calls if c == ("packed", "float64", True))
+    log(f"(t4) float64 session (sessions {t_sess:.1f} s): 20-step solve on CPU-made draws, K1 float64 "
+        f"launches {k1_f64}; first-step ELBO within 1e-6 of the CPU float64 plain path on {agree_e} / 12 "
+        f"rows (largest {first_err:.2e}), last-step mean within {last_err:.2e}; round: "
+        f"{int(rep.executed.sum())} / {B} executed, verdicts equal to the CPU plain path {agree}, K1 "
+        f"float64 launches {round_k1}, K3 by dtype {k3_by}; best trajectories {best.dtype}")
+    assert best.dtype == torch.float64 and torch.isfinite(res_k.elbo_history).all()
+    assert k1_f64 == 20 and round_k1 == sess.train_config.num_steps, (k1_f64, round_k1)
+    assert all(v.get("float64", 0) >= 1 for v in k3_by.values()), k3_by
+    assert agree_e >= 11 and last_err <= 1e-3, "float64 solve disagrees with the CPU plain path"
+    assert min(agree.values()) >= B - 2, f"float64 verdicts disagree with the CPU plain path: {agree}"
+    k1["launches"] = k1_f64 + round_k1
+    k3["launches"] = k3_by["k3_min_clearance"]["float64"]
+    k3p["launches"] = k3_by["k3_probe_clearance"]["float64"]
+    return k1, k3, k3p, {"sessions_s": t_sess, "solve_first_agree_rows": agree_e,
+                         "solve_first_max_rel_err": first_err, "solve_last_mean_rel_err": last_err,
+                         "round_executed": int(rep.executed.sum()), "round_agree_with_cpu": agree,
+                         "k1_float64_launches": {"solve": k1_f64, "round": round_k1}, "k3_launches": k3_by}
+
+
+def envelope_phase(torch, sess, flush):
+    """(t): (t1) K1's nearest and trilinear lookups and a trilinear solve,
+    (t2) the parity protocol through K1-nearest, (t3) K2 above n = 32 and in
+    float32, (t4) a float64 session. Returns the kernel rows it adds and its
+    record."""
+    from vgpmp_torch.ops import linalg as la
+
+    t0 = time.perf_counter()
+    grid = grid_modes_phase(torch, sess, flush)
+    trilinear_launches = trilinear_solve_phase(torch, sess)
+    parity = parity_phase(torch)
+    k2 = k2_envelope_phase(torch, sess, flush)
+    k1_64, k3_64, k3p_64, f64 = float64_phase(torch, flush)
+    grid["nearest"]["launches"] = parity["k1_nearest_launches"]
+    grid["trilinear"]["launches"] = trilinear_launches
+    rows = [grid["nearest"], grid["trilinear"], k1_64, k3_64, k3p_64]
+    src, rep = "vgpmp_torch/csrc/k2_linalg.cuh", "vgpmp_tpu/ops/linalg.py:30"
+    errs = k2["checks"]
+    wide = k2["wide"]
+    # the block design at the driven path's n = 40 (times at 64 and 128 in the record)
+    for name, launches, key, replaces in (
+            ("k2_chol", wide["escalating"]["launches"]["k2_chol"], "chol", rep),
+            ("k2_trsm", wide["fused"]["launches"]["k2_trsm"], "trsm", "vgpmp_tpu/ops/linalg.py:52"),
+            ("k2_factor_solve", wide["fused"]["launches"]["k2_factor_solve"], "factor_solve", rep),
+            ("k2_factor_solve_bwd", wide["fused"]["launches"]["k2_factor_solve_bwd"], "factor_solve_bwd", rep)):
+        t = k2["times"]["f64_n40"][key]
+        rows.append({"name": f"{name}[n=40]", "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": launches, "max_abs_err": errs["f64_n40"][0],
+                     "max_rel_err": errs["f64_n40"][1], **t,
+                     "by_n": {n: {**k2["times"][f"f64_n{n}"][key], "max_abs_err": errs[f"f64_n{n}"][0]}
+                              for n in (64, la.KERNEL_MAX_N)}})
+    island = k2["island"]["launches_by_dtype"]
+    for name, key, replaces in (("k2_chol", "chol", rep), ("k2_trsm", "trsm", "vgpmp_tpu/ops/linalg.py:52")):
+        t = k2["times"]["f32_n12"][key]
+        rows.append({"name": f"{name}[float32]", "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": island[name]["float32"], "max_abs_err": errs["f32_n12"][0],
+                     "max_rel_err": errs["f32_n12"][1], **t,
+                     "by_n": {n: {**k2["times"][f"f32_n{n}"][key], "max_abs_err": errs[f"f32_n{n}"][0]}
+                              for n in (26, 40)}})
+    log(f"(t) took {time.perf_counter() - t0:.1f} s")
+    return rows, {"grid_modes": {m: {k: v for k, v in r.items() if k != "name"} for m, r in grid.items()},
+                  "parity": parity, "k2": k2, "float64": f64, "trilinear_solve_launches": trilinear_launches}
+
+
+
 def main() -> int:
     import torch
 
@@ -2478,6 +3105,10 @@ def main() -> int:
     del flush
     log("(p) the parallel layer")
     parallel = parallel_phase(torch, sess, cpu, adaptive)
+    log("(t) the CUDA envelope")
+    flush = l2_flush_buffer(sess.device)
+    envelope_rows, envelope = envelope_phase(torch, sess, flush)
+    del flush
     t0 = time.perf_counter()
     diagnosed = diagnose_phase(torch)
     scaling = scaling_phase(torch)
@@ -2516,10 +3147,11 @@ def main() -> int:
     kernels = [{k: v for k, v in d.items() if k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms", "plain_ms",
         "bound_ms", "bound_by", "library_ms", "velocity")} for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4,
-                                                                    k1o, k3o, k3po]]
+                                                                    k1o, k3o, k3po, *envelope_rows]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
-    record = {"card": smi, "build_s": secs, "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po],
-              "objects": objects,
+    record = {"card": smi, "build_s": secs,
+              "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows],
+              "objects": objects, "envelope": envelope,
               "k2_errors": k2_errs, "combos": combos, "trainable": trainable, "randomized": randomized,
               "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,

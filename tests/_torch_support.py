@@ -34,10 +34,10 @@ def smooth_grid(rng, shape, scale=0.3):
     return data
 
 
-def jax_path_noise(keys, L, Mc, num_samples, num_bases):
-    """The draws ``vgpmp_tpu.gp.pathwise.draw_paths`` makes from each key
-    (float64, no antithetic pairing), stacked over the keys as a port
-    ``PathNoise``."""
+def jax_path_noise(keys, L, Mc, num_samples, num_bases, dtype=np.float64):
+    """The draws ``vgpmp_tpu.gp.pathwise.draw_paths`` makes from each key (in
+    the model's bulk ``dtype``, no antithetic pairing), stacked over the keys
+    as a port ``PathNoise``."""
     import jax
 
     from vgpmp_tpu.gp import pathwise as jpath
@@ -47,10 +47,10 @@ def jax_path_noise(keys, L, Mc, num_samples, num_bases):
     for key in keys:
         k_omega, k_phase, k_w, k_eps = jax.random.split(key, 4)
         rows.append((
-            jpath.student_t(k_omega, 5.0, (L, num_bases), np.float64),
-            jax.random.uniform(k_phase, (L, num_bases), dtype=np.float64, maxval=jpath.TWO_PI),
-            jax.random.normal(k_w, (num_samples, L, num_bases), dtype=np.float64),
-            jax.random.normal(k_eps, (num_samples, L, Mc), dtype=np.float64),
+            jpath.student_t(k_omega, 5.0, (L, num_bases), dtype),
+            jax.random.uniform(k_phase, (L, num_bases), dtype=dtype, maxval=jpath.TWO_PI),
+            jax.random.normal(k_w, (num_samples, L, num_bases), dtype=dtype),
+            jax.random.normal(k_eps, (num_samples, L, Mc), dtype=dtype),
         ))
     return PathNoise(*(torch.as_tensor(np.stack([np.asarray(r[i]) for r in rows]))
                        for i in range(4)))
@@ -62,7 +62,8 @@ def _planner_grid():
     return data, origin, delta, np.array([0.1, 0.0, -0.05])
 
 
-def torch_planner_model(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, escalations=0):
+def torch_planner_model(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, escalations=0,
+                        dtype=torch.float64, solve_dtype=None):
     """The port's half of :func:`planner_models`, with no JAX imported (for
     rank processes)."""
     from vgpmp_torch import robots as trobots
@@ -74,19 +75,23 @@ def torch_planner_model(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6
 
     data, origin, delta, off = _planner_grid()
     tspec = trobots.load_robot("franka")
-    tsc = tscene.Scene(base=tg.SdfGrid.from_arrays(data, origin, delta, torch.float64),
-                       base_offset=torch.as_tensor(off)).packed()
+    tsc = tscene.Scene(base=tg.SdfGrid.from_arrays(data, origin, delta, dtype),
+                       base_offset=torch.as_tensor(off, dtype=dtype)).packed()
     return tm.PlannerModel(
-        collision=tcol.CollisionModel(fk=tdh.FkModel.from_spec(tspec, np.eye(4), dtype=torch.float64),
+        collision=tcol.CollisionModel(fk=tdh.FkModel.from_spec(tspec, np.eye(4), dtype=dtype),
                                       scene=tsc, epsilon=0.05),
-        ny=torch.tensor([0.0, 1.0], dtype=torch.float64),
-        limits_low=torch.as_tensor(tspec.limits_low), limits_high=torch.as_tensor(tspec.limits_high),
+        ny=torch.tensor([0.0, 1.0], dtype=dtype),
+        limits_low=torch.as_tensor(tspec.limits_low, dtype=dtype),
+        limits_high=torch.as_tensor(tspec.limits_high, dtype=dtype),
         num_samples=num_samples, num_bases=num_bases, num_inducing=num_inducing, jitter=jitter,
-        jitter_escalations=escalations, variance_lower=0.1)
+        jitter_escalations=escalations, variance_lower=0.1, solve_dtype=solve_dtype)
 
 
-def planner_models(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, escalations=0):
-    """The same small franka planner in both packages (float64, packed scene)."""
+def planner_models(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, escalations=0,
+                   dtype=np.float64, solve_dtype=None):
+    """The same small franka planner in both packages (packed scene, bulk
+    ``dtype``, the Gram island in ``solve_dtype``: the bulk's unless given;
+    both numpy dtypes)."""
     import jax.numpy as jnp
 
     from vgpmp_tpu import robots as jrobots
@@ -98,15 +103,18 @@ def planner_models(num_samples=3, num_bases=64, num_inducing=4, jitter=1e-6, esc
 
     data, origin, delta, off = _planner_grid()
     jspec = jrobots.load_robot("franka")
-    jsc = jscene.Scene(base=jg.SdfGrid.from_arrays(data, origin, delta, jnp.float64),
-                       base_offset=jnp.asarray(off)).packed()
+    jsc = jscene.Scene(base=jg.SdfGrid.from_arrays(data, origin, delta, dtype),
+                       base_offset=jnp.asarray(off, dtype)).packed()
     jmodel = jm.PlannerModel(
-        collision=jcol.CollisionModel(fk=jdh.FkModel.from_spec(jspec, np.eye(4), dtype=jnp.float64),
-                                      scene=jsc, epsilon=jnp.asarray(0.05)),
-        ny=jnp.asarray([0.0, 1.0]), limits_low=jnp.asarray(jspec.limits_low),
-        limits_high=jnp.asarray(jspec.limits_high), num_samples=num_samples, num_bases=num_bases,
-        num_inducing=num_inducing, jitter=jitter, jitter_escalations=escalations, variance_lower=0.1)
-    tmodel = torch_planner_model(num_samples, num_bases, num_inducing, jitter, escalations)
+        collision=jcol.CollisionModel(fk=jdh.FkModel.from_spec(jspec, np.eye(4), dtype=dtype),
+                                      scene=jsc, epsilon=jnp.asarray(0.05, dtype)),
+        ny=jnp.asarray([0.0, 1.0], dtype), limits_low=jnp.asarray(jspec.limits_low, dtype),
+        limits_high=jnp.asarray(jspec.limits_high, dtype), num_samples=num_samples,
+        num_bases=num_bases, num_inducing=num_inducing, jitter=jitter,
+        jitter_escalations=escalations, variance_lower=0.1, solve_dtype=solve_dtype)
+    as_torch = lambda d: None if d is None else getattr(torch, np.dtype(d).name)
+    tmodel = torch_planner_model(num_samples, num_bases, num_inducing, jitter, escalations,
+                                 as_torch(dtype), as_torch(solve_dtype))
     return jspec, jmodel, tmodel
 
 

@@ -10,6 +10,8 @@ The CPU-side checks (wrappers refuse CPU tensors, dispatch takes the plain
 path on the CPU) run everywhere.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -281,18 +283,25 @@ def test_k1_dsigma_matches_plain_on_card(robot, cuda_device):
 
 @pytest.mark.cuda
 def test_k2_refuses_what_it_does_not_take(cuda_device):
+    """K2 takes float32 and float64 up to n = 128 (KERNEL_MAX_N); it refuses,
+    before a launch, another dtype, mixed dtypes, n = 129 and mismatched
+    shapes."""
     with pytest.raises(TypeError):
-        la.chol(torch.eye(4, device=cuda_device)[None])  # float32
-    with pytest.raises(ValueError):
-        la.chol(torch.eye(33, dtype=torch.float64, device=cuda_device)[None])  # n > 32
+        la.chol(torch.eye(4, dtype=torch.float16, device=cuda_device)[None])  # float16
+    with pytest.raises(ValueError, match="n <= 128"):
+        la.chol(torch.eye(129, dtype=torch.float64, device=cuda_device)[None])  # n > KERNEL_MAX_N
     eye = torch.eye(4, dtype=torch.float64, device=cuda_device)[None]
     with pytest.raises(TypeError):
-        la.factor_solve(eye.float(), eye.float())
-    with pytest.raises(ValueError):
-        la.factor_solve(torch.eye(33, dtype=torch.float64, device=cuda_device)[None],
-                        torch.ones(1, 33, 2, dtype=torch.float64, device=cuda_device))
+        la.factor_solve(eye, eye.float())  # one float64, one float32
+    with pytest.raises(ValueError, match="n <= 128"):
+        la.factor_solve(torch.eye(129, dtype=torch.float64, device=cuda_device)[None],
+                        torch.ones(1, 129, 2, dtype=torch.float64, device=cuda_device))
     with pytest.raises(ValueError):
         la.factor_solve(eye, torch.ones(1, 5, 2, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(TypeError):
+        la.k2_trsm(eye, eye.float(), False)
+    with pytest.raises(ValueError):
+        la.k2_chol(torch.ones(1, 4, 5, dtype=torch.float64, device=cuda_device))  # not square
 
 
 def _k3_model(robot, device):
@@ -418,9 +427,11 @@ def test_k4_edges_on_card(words, n, cuda_device):
 @pytest.mark.cuda
 def test_k3_k4_refuse_what_they_do_not_take(cuda_device):
     spec, model = _collision("franka", torch.float64, cuda_device)
-    with pytest.raises(TypeError):
-        model.min_clearance_eval(torch.zeros(4, spec.dof, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(TypeError):  # float32 configs on a float64 model
+        model.min_clearance_eval(torch.zeros(4, spec.dof, dtype=torch.float32, device=cuda_device))
     _, model32 = _collision("franka", torch.float32, cuda_device)
+    with pytest.raises(TypeError):  # float64 configs on a float32 model
+        model32.min_clearance_eval(torch.zeros(4, spec.dof, dtype=torch.float64, device=cuda_device))
     with pytest.raises(ValueError):  # wrong dof
         col.k3_min_clearance(model32, torch.zeros(4, spec.dof - 1, device=cuda_device))
     B, G, T = 2, 6, 3
@@ -742,3 +753,281 @@ def test_world_of_one_nccl_solve_matches_batch_solver_on_card(cuda_device):
                               sess.model.limits_low, sess.model.limits_high)
     assert float(metrics["success_rate"] * metrics["num_problems"]) == int(rep.success.sum())
     assert metrics["num_problems"].item() == 12
+
+
+# ------------------------------------------------ the CUDA envelope
+
+
+def _grid_model(robot, dtype, device, mode, composed=False):
+    """``_collision``'s grid unpacked, looked up in ``mode`` (``nearest`` or
+    ``trilinear``, or ``packed``), in ``dtype``; ``composed`` adds
+    ``scene_objects``' extras (looked up in the same mode)."""
+    data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)
+    if composed:
+        sc = torch_scene_with_objects(data, ORIGIN, DELTA, [0.1, 0.0, -0.05], dtype, device,
+                                      packed=False)
+    else:
+        sc = scene.Scene(base=sg.SdfGrid.from_arrays(data, ORIGIN, DELTA, dtype, device),
+                         base_offset=torch.tensor([0.1, 0.0, -0.05], dtype=dtype, device=device))
+    sc = sc.packed() if mode == "packed" else dataclasses.replace(sc, mode=mode)
+    spec = robots.load_robot(robot)
+    return spec, col.CollisionModel(fk=dh.FkModel.from_spec(spec, np.eye(4), dtype=dtype, device=device),
+                                    scene=sc, epsilon=0.05)
+
+
+# float32: as K1's packed test (a sphere near a cell face may land in the
+# neighbouring cell, whose value and, in trilinear mode, gradient differ: at
+# most 1e-3 of the configs; the rest 1e-5 relative + 1e-3, gradients 1e-3 of
+# the largest); float64: the same share, the rest 1e-9 relative (+1e-9) and
+# gradients 1e-8 of the largest (FK and sums in another order)
+ENVELOPE_TOL = {torch.float32: (1e-5, 1e-3, 1e-3), torch.float64: (1e-9, 1e-9, 1e-8)}
+
+
+def _k1_mode_check(model, q, sigma, dtype):
+    rtol, atol, gtol = ENVELOPE_TOL[dtype]
+    lik_k, g_k, lik_p, g_p = _k1_against_plain(model, q, sigma)
+    assert (lik_p < 0).float().mean() > 0.2
+    nan_k, nan_p = torch.isnan(g_k).any(-1), torch.isnan(g_p).any(-1)
+    assert (nan_k != nan_p).float().mean().item() <= 1e-3
+    both = ~nan_k & ~nan_p
+    scale = g_p[both].abs().max().item()
+    close = torch.isclose(lik_k, lik_p, rtol=rtol, atol=atol) & (
+        ((g_k - g_p).abs() <= gtol * scale).all(-1) | ~both)
+    assert (~close).float().mean().item() <= 1e-3
+    torch.testing.assert_close(g_k[close & both], g_p[close & both], rtol=gtol, atol=gtol * scale)
+    return close
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k1_grid_modes_match_plain_on_card(robot, mode, dtype, cuda_device):
+    """K1's nearest-cell and trilinear lookups on the unpacked grid, in
+    float32 and float64, against the plain version (the reference's nearest
+    cell with its central-difference gradient, with the 0.1 replacement on
+    the grid's plateaus; autodiff of the trilinear interpolation) on the
+    same card, through ``log_prob``: one K1 launch of the mode and dtype, no
+    plain call. The σ-gradient forward writes h² and equals the frozen
+    forward; ``k1_dsigma`` reduces it as ``dsigma_plain`` does."""
+    spec, model = _grid_model(robot, dtype, cuda_device, mode)
+    rng = np.random.default_rng(7)
+    q = torch.as_tensor(_configs(spec, rng, (4, 2000)), dtype=dtype, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.003, 0.008, size=(4, spec.num_spheres)), dtype=dtype,
+                            device=cuda_device)
+    key = (mode, str(dtype).removeprefix("torch."))
+    before = col.k1_loglik.launches_by.get(key, 0)
+    close = _k1_mode_check(model, q, sigma, dtype)
+    assert col.k1_loglik.launches_by[key] == before + 1
+    q2 = q.reshape(-1, spec.dof)
+    lik_f, dq_f, _ = col.k1_loglik(model, q2, sigma, True)
+    lik_h, dq_h, h2 = col.k1_loglik(model, q2, sigma, True, True)
+    assert torch.equal(lik_h, lik_f) and torch.equal(dq_h, dq_f)
+    h = model.hinge_cost(q2)
+    ok = close.reshape(-1)
+    torch.testing.assert_close(h2.T[ok], (h * h)[ok], rtol=1e-4, atol=1e-7)
+    g = torch.as_tensor(rng.normal(size=(q2.shape[0],)), dtype=dtype, device=cuda_device)
+    got = col.k1_dsigma(g, h2, sigma)
+    ref = col.dsigma_plain(g.double(), h2.double(), sigma.double())
+    scale = col.dsigma_plain(g.abs().double(), h2.double(), sigma.double())
+    assert ((got.double() - ref).abs() <= (1e-5 if dtype == torch.float32 else 1e-12) * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "ur10"])
+def test_k1_packed_float64_matches_plain_on_card(robot, cuda_device):
+    """K1's packed lookup in a float64 model: the bf16 words widened to float64
+    as JAX's ``.astype`` widens them, FK and hinge in float64, against the
+    plain version to 1e-9 relative."""
+    spec, model = _grid_model(robot, torch.float64, cuda_device, "packed")
+    rng = np.random.default_rng(8)
+    q = torch.as_tensor(_configs(spec, rng, (4, 2000)), dtype=torch.float64, device=cuda_device)
+    sigma = torch.full((4, spec.num_spheres), 0.005, dtype=torch.float64, device=cuda_device)
+    before = col.k1_loglik.launches_by.get(("packed", "float64"), 0)
+    _k1_mode_check(model, q, sigma, torch.float64)
+    assert col.k1_loglik.launches_by[("packed", "float64")] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["nearest", "trilinear"])
+def test_k1_grid_modes_composed_scene_on_card(mode, dtype, cuda_device):
+    """K1 on the composed scene (two extra grids, every primitive kind) in the
+    nearest and trilinear modes, float32 and float64, against the plain
+    composition; a sphere centre inside a box gives a NaN d/dq on both sides."""
+    spec, model = _grid_model("franka", dtype, cuda_device, mode, composed=True)
+    rng = np.random.default_rng(4)
+    q = torch.as_tensor(_configs(spec, rng, (4, 2000)), dtype=dtype, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.003, 0.008, size=(4, spec.num_spheres)), dtype=dtype,
+                            device=cuda_device)
+    with torch.no_grad():
+        wins = source_wins(model.scene, dh.sphere_positions(model.fk, q), model.hinge_cost(q) > 0)
+    assert len(wins) == 6 and min(wins.values()) > 0, wins
+    _k1_mode_check(model, q, sigma, dtype)
+
+
+def _k3_model64(robot, device):
+    """``_k3_model`` in float64."""
+    data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)
+    sc = scene.Scene(base=sg.SdfGrid.from_arrays(data, np.array([-0.2, -0.3, 0.1]), 0.015,
+                                                 torch.float64, device),
+                     base_offset=torch.tensor([0.1, 0.0, -0.05], dtype=torch.float64, device=device))
+    spec = robots.load_robot(robot)
+    return spec, col.CollisionModel(fk=dh.FkModel.from_spec(spec, np.eye(4), dtype=torch.float64,
+                                                            device=device), scene=sc, epsilon=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
+def test_k3_float64_matches_plain_on_card(robot, cuda_device):
+    """K3's two entries in float64 (FK, corners, lerps and the floor in
+    double) against the plain versions: clearances to 1e-9 m, NaN configs NaN
+    on both sides, the segment counts equal but for probes within 1e-9 m of
+    their floor."""
+    from vgpmp_torch import sim
+
+    spec, model = _k3_model64(robot, cuda_device)
+    q = torch.as_tensor(_configs(spec, np.random.default_rng(3), (8000,)), dtype=torch.float64,
+                        device=cuda_device)
+    q[:5, 2] = float("nan")
+    before = col.k3_min_clearance.launches_by.get("float64", 0)
+    got = model.min_clearance_eval(q)
+    assert col.k3_min_clearance.launches_by["float64"] == before + 1
+    want = col.min_clearance_eval_plain(model, q)
+    assert torch.isnan(got[:5]).all() and torch.isnan(want[:5]).all()
+    assert (want[5:] < 0).float().mean() > 0.05
+    torch.testing.assert_close(got[5:], want[5:], rtol=0, atol=1e-9)
+
+    rng = np.random.default_rng(12)
+    B, T = 6, 15
+    lo, hi = spec.joint_limits[:, 1], spec.joint_limits[:, 0]
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    a, b = (mid + 0.6 * half * rng.uniform(-1, 1, (B, spec.dof)) for _ in range(2))
+    w = np.linspace(0, 1, T)[None, :, None]
+    traj = torch.as_tensor(a[:, None] * (1 - w) + b[:, None] * w, dtype=torch.float64, device=cuda_device)
+    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj, samples_per_segment=7)
+    q_s, q_g = traj[:, 0], traj[:, -1]
+    plain = lambda x: col.min_clearance_eval_plain(model, x)
+    depth_s, depth_g = torch.clamp(-plain(torch.cat([q_s, q_g])), min=0.0).split(B)
+    args = (q_s, q_g, depth_s, depth_g, visited[:, 0], seg_idx, T, 0.5, 5e-3)
+    before = col.k3_probe_clearance.launches_by.get("float64", 0)
+    clear, count = model.probe_clearance(qs, *args)
+    assert col.k3_probe_clearance.launches_by["float64"] == before + 1
+    want_clear, want_count = sim.probe_clearance_plain(plain, qs, *args)
+    torch.testing.assert_close(clear, want_clear, rtol=0, atol=1e-9)
+    floor = sim._floor_from_depths(qs, q_s, q_g, depth_s, depth_g, 0.5, 5e-3)
+    near = visited & ((want_clear - floor).abs() <= 1e-9)
+    far = sim._segment_count(seg_idx, visited & (want_clear < floor) & ~near, T)
+    assert ((far <= count) & (count <= far + sim._segment_count(seg_idx, near, T))).all()
+    assert want_count.sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["franka", "ur10"])
+def test_k3_float64_composed_scene_on_card(robot, cuda_device):
+    """K3 in float64 on the composed scene (extras in float64) against the
+    plain composition, to 1e-9 m."""
+    data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)
+    sc = torch_scene_with_objects(data, np.array([-0.2, -0.3, 0.1]), 0.015, [0.1, 0.0, -0.05],
+                                  torch.float64, cuda_device, packed=False)
+    spec = robots.load_robot(robot)
+    model = col.CollisionModel(fk=dh.FkModel.from_spec(spec, np.eye(4), dtype=torch.float64,
+                                                       device=cuda_device), scene=sc, epsilon=0.05)
+    q = torch.as_tensor(_configs(spec, np.random.default_rng(5), (8000,)), dtype=torch.float64,
+                        device=cuda_device)
+    got = model.min_clearance_eval(q)
+    want = col.min_clearance_eval_plain(model, q)
+    assert (want < 0).float().mean() > 0.05
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-9)
+
+
+# (n, T, k): the block design at n = 33 (its first size), 40, 64 and 128
+# (KERNEL_MAX_N); T = 1 and 5 (a non-SPD matrix among others); k either side
+# of the solve's 64-column tile and of the backward's 8-column tile
+K2_BIG_CASES = [(33, 5, 1), (40, 5, 7), (40, 1, 65), (64, 5, 64), (64, 5, 130), (100, 3, 9),
+                (128, 5, 1), (128, 3, 71), (128, 5, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,T,k", K2_BIG_CASES)
+def test_k2_block_design_matches_plain_on_card(cuda_device, n, T, k):
+    """K2 above n = 32 (one block a matrix, the triangle in shared memory):
+    the lone factorisation and both solves, forward and backward, and the
+    fused pair, forward and backward, against the plain versions; float64 on
+    well-conditioned input, so 1e-9 relative (gradients 1e-8). A non-SPD
+    matrix gives NaN in itself and in no other matrix."""
+    rng = np.random.default_rng(1000 * n + T + k)
+    K = torch.as_tensor(_spd(rng, T, n), device=cuda_device)
+    Bm = torch.as_tensor(rng.normal(size=(T, n, k)), device=cuda_device)
+    WL = torch.as_tensor(rng.normal(size=(T, n, n)), device=cuda_device)
+    ok = torch.ones(T, dtype=torch.bool, device=cuda_device)
+    if T > 1:
+        K[T // 2] = -K[T // 2]
+        ok[T // 2] = False
+    L_k = la.k2_chol(K)
+    L_p = la.cholesky_unrolled(K)
+    if T > 1:
+        assert torch.isnan(L_k[T // 2]).any() and torch.isnan(L_p[T // 2]).any()
+    torch.testing.assert_close(L_k[ok], L_p[ok], rtol=1e-9, atol=1e-12)
+    for upper_t, plain in [(False, la.solve_lower_unrolled), (True, la.solve_upper_T_unrolled)]:
+        X = la.k2_trsm(L_k, Bm, upper_t)
+        if T > 1:
+            assert torch.isnan(X[T // 2]).any()
+        torch.testing.assert_close(X[ok], plain(L_p[ok], Bm[ok]), rtol=1e-9, atol=1e-12)
+    for fn, plain in [(la.solve_lower, la.solve_lower_unrolled),
+                      (la.solve_upper_T, la.solve_upper_T_unrolled)]:
+        Kt, Bt = K[ok].clone().requires_grad_(), Bm[ok].clone().requires_grad_()
+        g_k = torch.autograd.grad(fn(la.chol(Kt), Bt).square().sum(), [Kt, Bt])
+        Kp, Bp = K[ok].clone().requires_grad_(), Bm[ok].clone().requires_grad_()
+        g_p = torch.autograd.grad(plain(la.cholesky_unrolled(Kp), Bp).square().sum(), [Kp, Bp])
+        for a, b in zip(g_k, g_p):
+            torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10 * b.abs().max().item())
+    L_f, X_f = la.k2_factor_solve(K, Bm)
+    L_fp, X_fp = la.factor_solve_plain(K, Bm)
+    if T > 1:
+        assert torch.isnan(L_f[T // 2]).any() and torch.isnan(X_f[T // 2]).any()
+    torch.testing.assert_close(L_f[ok], L_fp[ok], rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(X_f[ok], X_fp[ok], rtol=1e-9, atol=1e-12)
+    gK, gB = la.k2_factor_solve_bwd(L_fp[ok].contiguous(), X_fp[ok].contiguous(), WL[ok].contiguous(),
+                                    Bm[ok].contiguous())
+    gK_p, gB_p = la.factor_solve_bwd_plain(L_fp[ok], X_fp[ok], WL[ok], Bm[ok])
+    for a, b in ((gK, gK_p), (gB, gB_p)):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,T,k", [(12, 252, 1), (12, 252, 100), (12, 251, 71), (26, 253, 17),
+                                   (26, 251, 100), (40, 5, 20)])
+def test_k2_float32_matches_plain_on_card(cuda_device, n, T, k):
+    """K2's float32 instantiations (the warp design at n = 12 and 26, the
+    block design at 40): the lone factorisation and solves, and the fused
+    pair, against the plain versions in float32; 1e-4 relative (+1e-5 of the
+    largest entry: float32 sums in another order on matrices of condition
+    ~10). A non-positive pivot gives NaN in its own matrix and in no
+    neighbour of its warp or block, as the jitter escalation needs."""
+    rng = np.random.default_rng(1000 * n + T + k)
+    K = torch.as_tensor(_spd(rng, T, n), dtype=torch.float32, device=cuda_device)
+    Bm = torch.as_tensor(rng.normal(size=(T, n, k)), dtype=torch.float32, device=cuda_device)
+    bad = T // 2
+    K[bad, n - 1, n - 1] = -1.0  # the last pivot goes negative
+    ok = torch.ones(T, dtype=torch.bool, device=cuda_device)
+    ok[bad] = False
+    before = (la.k2_chol.launches_by.get("float32", 0), la.k2_trsm.launches_by.get("float32", 0))
+    L_k = la.k2_chol(K)
+    L_p = la.cholesky_unrolled(K)
+    assert torch.isnan(L_k[bad]).any() and torch.isnan(L_p[bad]).any()
+    assert torch.isfinite(L_k[ok]).all()
+    tol = lambda b: dict(rtol=1e-4, atol=1e-5 * b.abs().max().item())
+    torch.testing.assert_close(L_k[ok], L_p[ok], **tol(L_p[ok]))
+    for upper_t, plain in [(False, la.solve_lower_unrolled), (True, la.solve_upper_T_unrolled)]:
+        X = la.k2_trsm(L_k, Bm, upper_t)
+        assert torch.isfinite(X[ok]).all()
+        want = plain(L_p[ok], Bm[ok])
+        torch.testing.assert_close(X[ok], want, **tol(want))
+    assert (la.k2_chol.launches_by["float32"], la.k2_trsm.launches_by["float32"]) == (
+        before[0] + 1, before[1] + 2)
+    L_f, X_f = la.factor_solve(K, Bm)
+    L_fp, X_fp = la.factor_solve_plain(K, Bm)
+    assert torch.isnan(L_f[bad]).any() and torch.isfinite(L_f[ok]).all()
+    torch.testing.assert_close(L_f[ok], L_fp[ok], **tol(L_fp[ok]))
+    torch.testing.assert_close(X_f[ok], X_fp[ok], **tol(X_fp[ok]))

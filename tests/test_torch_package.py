@@ -42,7 +42,8 @@ NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.o
                "vgpmp_torch.config", "vgpmp_torch.engine.analysis", "vgpmp_torch.session",
                "vgpmp_torch.gp.velocity", "vgpmp_torch.engine.replan", "vgpmp_torch.engine.repl",
                "vgpmp_torch.utils.checkpoint", "vgpmp_torch.utils.profiling",
-               "vgpmp_torch.parallel.mesh", "vgpmp_torch.parallel.sharded", "vgpmp_torch.parallel.multihost"]
+               "vgpmp_torch.parallel.mesh", "vgpmp_torch.parallel.sharded", "vgpmp_torch.parallel.multihost",
+               "vgpmp_torch.likelihoods.collision", "vgpmp_torch.ops.linalg", "vgpmp_torch._build"]
 
 
 def test_port_imports_no_jax_package():

@@ -73,9 +73,10 @@ def test_gram_bench_writes_the_jax_keys_on_the_cpu(tools, tmp_path):
     rec = gb.main(["--batch", "2", "--reps", "2", "--device", "cpu", "--json-out", str(out)])
     assert json.loads(out.read_text()) == json.loads(json.dumps(rec))
     jax_rec = json.loads((ROOT / "GRAM_BENCH.json").read_text())
-    # the float32 Cholesky and the round-4 twin are not ported
-    assert set(rec) == (set(jax_rec) - {"gram_chol_f32_ms", "draw_eval_r4_ms"}) | {
-        "card", "reps", "device_ms", "launches", "kernels", "kernel_launches"}
+    # the round-4 twin is not ported
+    assert set(rec) == (set(jax_rec) - {"draw_eval_r4_ms"}) | {
+        "card", "reps", "device_ms", "launches", "kernels", "kernel_launches", "kernel_launches_by_dtype"}
+    assert rec["gram_chol_f32_ms"] > 0
     assert set(rec["shapes"]) == set(jax_rec["shapes"]) and rec["shapes"]["batch"] == 2
     assert set(jax_rec["roofline"]) <= set(rec["roofline"])
     assert all(rec[f"{k}_ms"] > 0 for k in rec["device_ms"])
@@ -103,6 +104,30 @@ def test_gram_piece1_matches_jax_cholesky(tools):
     want = jax.vmap(lambda l_, v_: conditioned.cholesky_kuu(
         kfn, j["ny"], j["Z"][0], l_, v_, jitter=1e-9, solve_dtype=jnp.float64)[1])(j["ls"], j["s2"])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
+
+
+def test_gram_piece1_float32_matches_jax_cholesky(tools):
+    """The float32 piece (``gram_chol_f32``, jitter 1e-6) against the JAX
+    tool's: both build and factor the Gram in float32 by the same unrolled
+    column updates. Their products L Lᵀ agree to 1e-5 (float32 rounding of
+    entries of order one); the factors' own entries to 2e-4, since the last
+    pivots of a Gram whose condition reaches ~1e6 are ~1e-3 and amplify the
+    two assemblies' last-bit differences by as much."""
+    from vgpmp_tpu.gp import conditioned
+    from vgpmp_tpu.ops import kernels as kops
+
+    _, gb = tools
+    inp = gb.inputs(5, "cpu")
+    got = gb.gram_chol_f32(inp)
+    assert got.dtype == torch.float32 and got.shape == (5, 7, 12, 12)
+    j = _jax_inputs(inp)
+    kfn = kops.KERNELS["matern52"][0]
+    want = jax.vmap(lambda l_, v_: conditioned.cholesky_kuu(
+        kfn, j["ny"], j["Z"][0], l_, v_, jitter=1e-6)[1])(j["ls"], j["s2"])
+    assert want.dtype == jnp.float32 and np.isfinite(np.asarray(want)).all()
+    want = np.asarray(want)
+    np.testing.assert_allclose((got @ got.mT).numpy(), want @ np.swapaxes(want, -1, -2), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-4)
 
 
 def test_gram_piece5_matches_jax_prior_kl(tools):

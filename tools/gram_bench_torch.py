@@ -8,8 +8,9 @@ published peaks.
 At the bench's shapes (franka/industrial: L 7, M 10, Mc 12, N 50, S 20,
 1024 bases, ``--batch`` problems), on the JAX tool's seeded inputs:
 
-1. the float64 Gram build and Cholesky (``gp/conditioned.py:cholesky_kuu``;
-   ``k2_chol`` on the card);
+1. the Gram build and Cholesky (``gp/conditioned.py:cholesky_kuu``) in
+   float64 (``gram_chol_f64``) and in float32 with jitter 1e-6
+   (``gram_chol_f32``; ``k2_chol`` in either dtype on the card);
 2. the Student-t spectral draw: Bailey's polar method
    (``gp/pathwise.py:student_t``) beside ``torch.distributions.StudentT``'s
    gamma-based sampler;
@@ -19,9 +20,9 @@ At the bench's shapes (franka/industrial: L 7, M 10, Mc 12, N 50, S 20,
 5. the conditioned prior KL (``gp/kl.py:prior_kl``; ``k2_trsm``).
 
 Each piece is timed by :func:`vgpmp_torch.timing.time_stages`: stream ms
-(CUDA events) and device ms (profiler) per call. The JAX tool's float32
-Cholesky piece and its round-4 formulation are not ported: K2 factors in
-float64 only, and no session of either package runs the round-4 draw.
+(CUDA events) and device ms (profiler) per call. The JAX tool's round-4
+formulation is not ported: no session of either package runs the round-4
+draw.
 
 Writes the JAX tool's keys (stream ms) plus ``device_ms``, ``launches``,
 ``kernels`` and ``card`` to ``--json-out``, by default
@@ -79,6 +80,15 @@ def gram_chol_f64(inp: dict) -> torch.Tensor:
                                     solve_dtype=torch.float64)[1]
 
 
+def gram_chol_f32(inp: dict) -> torch.Tensor:
+    """Piece 1, float32: ``chol(Kuu)`` built and factored in float32 with
+    jitter 1e-6, as the JAX tool's ``gram_chol_f32`` (no escalation)."""
+    from vgpmp_torch.gp import conditioned
+    from vgpmp_torch.ops.kernels import matern52
+
+    return conditioned.cholesky_kuu(matern52, inp["ny"], inp["Z"], inp["ls"], inp["s2"], jitter=1e-6)[1]
+
+
 def kl_leg(inp: dict, chol: torch.Tensor) -> torch.Tensor:
     """Piece 5: the conditioned prior KL per problem, ``[B]`` float64."""
     from vgpmp_torch.gp import kl
@@ -116,6 +126,7 @@ def pieces(inp: dict, device) -> dict:
 
     return {
         "gram_chol_f64": lambda: gram_chol_f64(inp),
+        "gram_chol_f32": lambda: gram_chol_f32(inp),
         "student_t_bailey": lambda: pathwise.student_t(DF, (B, L, BR), torch.float32, device, gen),
         "student_t_gamma": lambda: torch.distributions.StudentT(df).sample((B, L, BR)),
         "draw_eval_r5": draw_eval,
@@ -158,7 +169,7 @@ def run(batch: int = 36, reps: int = 20, device=None) -> dict:
         _build.build()
     inp = inputs(batch, device)
     for c in (la.k2_chol, la.k2_trsm):
-        c.launches = 0
+        c.launches, c.launches_by = 0, {}
     times = time_stages(pieces(inp, device), reps, device)
     out = {"device": str(device), "card": card(device),
            "shapes": dict(batch=batch, L=L, M=M, Mc=MC, N=N, S=S, B_rff=BR), "reps": reps}
@@ -171,6 +182,7 @@ def run(batch: int = 36, reps: int = 20, device=None) -> dict:
     out["launches"] = {k: t["launches"] for k, t in times.items()}
     out["kernels"] = {k: t["kernels"] for k, t in times.items()}
     out["kernel_launches"] = {c.__name__: c.launches for c in (la.k2_chol, la.k2_trsm)}
+    out["kernel_launches_by_dtype"] = {c.__name__: dict(c.launches_by) for c in (la.k2_chol, la.k2_trsm)}
     out["roofline"] = roofline(batch, out["device_ms"]["rff_eval"])
     print(f"roofline: RFF prior evaluation bound {out['roofline']['rff_bound_ms']:.4f} ms "
           f"({out['roofline']['rff_bound_by']})", flush=True)

@@ -4,8 +4,10 @@ other in one process on the card.
 
     python tools/k2_designs.py [NAME=SOURCE.cu ...] [--reps 100]
 
-Each source is a version of ``vgpmp_torch/csrc/k2_linalg.cu`` (with no
-argument: the checkout's, as ``current``). Every source is compiled with
+Each source is a version of ``vgpmp_torch/csrc/k2_linalg.cu``, the float64
+instantiation (since the float32 and block designs were added, its kernels
+live in ``k2_linalg.cuh`` beside it; with no argument: the checkout's, as
+``current``). Every source is compiled with
 ``nvcc`` for ``sm_90a`` beside a small C shim into a shared library of its own
 (seconds a build; the headers come from ``vgpmp_torch/csrc``) and loaded with
 ``ctypes``. Each case is first checked against the plain versions

@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels and load them as one PyTorch extension.
 
 The ``csrc/k*.cu`` files hold the kernels and their launch functions with no
-PyTorch headers; ``csrc/bindings.cpp`` checks the tensors and calls them.
+PyTorch headers (each instantiates a template of its ``.cuh`` for one scalar
+type and, for K1, one lookup mode); ``csrc/bindings.cpp`` checks the tensors
+and calls them.
 ``torch.utils.cpp_extension.load`` compiles every source for ``sm_90a`` with
 ninja (one compiler process per source, in parallel) into ``build/kernels/``
 at the root of the checkout, and reuses what is there when no source changed. The first call to :func:`load` builds; a process that
@@ -18,7 +20,9 @@ __all__ = ["SOURCES", "BUILD_DIR", "load", "build"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
-SOURCES = ("bindings.cpp", "k1_collision.cu", "k2_linalg.cu", "k3_clearance.cu", "k4_gather.cu")
+SOURCES = ("bindings.cpp", "k1_collision.cu", "k1_nearest.cu", "k1_trilinear.cu", "k1_packed_f64.cu",
+           "k1_nearest_f64.cu", "k1_trilinear_f64.cu", "k2_linalg.cu", "k2_linalg_f32.cu",
+           "k3_clearance.cu", "k3_clearance_f64.cu", "k4_gather.cu")
 # naming an arch here stops cpp_extension from adding its own
 CUDA_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 

@@ -39,24 +39,33 @@ void same_device(const at::Tensor& a, const at::Tensor& b, const char* what) {
                     b.device());
 }
 
-// The most floats a scene's extras may take in a block's shared memory
-// (4 096: the room K1's and K3's tiles leave under 48 KB)
+// float or double: the scalar type every tensor of a K1 or K3 call shares with
+// q (the bindings' float and double entries)
+void check_scalar(const at::Tensor& q, const char* what) {
+  TORCH_CHECK_TYPE(q.scalar_type() == at::kFloat || q.scalar_type() == at::kDouble, what,
+                   ": q must be float32 or float64, got ", q.scalar_type());
+}
+
+// The most values a scene's extras may take in a block's shared memory
+// (4 096: the room K1's and K3's float32 tiles leave under 48 KB)
 constexpr int64_t EXTRAS_FLOATS = 4096;
 
-// The checks of a scene's extras (kernels.h:SceneExtras): grid_f [G, 7]
-// float32, grid_i [G, 4] int32, cells [n, 2] int32 (packed: K1) or [n]
-// float32 (K3), prims float32 [4 Ks + 15 Kb + 7 Kc], counts (Ks, Kb, Kc).
-// Each grid's shape and first cell live on the device and are not read here:
-// the caller (likelihoods/collision.py:SceneTables) builds them and checks
-// them against cells.
+// The checks of a scene's extras (kernels.h:SceneExtras): grid_f [G, 7] and
+// prims [4 Ks + 15 Kb + 7 Kc] of the session's type S (ref's), grid_i [G, 4]
+// int32, cells [n, 2] int32 (packed: K1 in packed mode) or [n] of S (K1's
+// other modes, K3), counts (Ks, Kb, Kc). Each grid's shape and first cell
+// live on the device and are not read here: the caller
+// (likelihoods/collision.py:SceneTables) builds them and checks them against
+// cells.
 SceneExtras extras_checks(const at::Tensor& ref, const at::Tensor& grid_f,
                           const at::Tensor& grid_i, const at::Tensor& cells, bool packed,
                           const at::Tensor& prims, const std::vector<int64_t>& counts,
                           const char* what) {
-  check(grid_f, at::kFloat, 2, what, "grid_f");
+  const at::ScalarType st = ref.scalar_type();
+  check(grid_f, st, 2, what, "grid_f");
   check(grid_i, at::kInt, 2, what, "grid_i");
-  check(cells, packed ? at::kInt : at::kFloat, packed ? 2 : 1, what, "cells");
-  check(prims, at::kFloat, 1, what, "prims");
+  check(cells, packed ? at::kInt : st, packed ? 2 : 1, what, "cells");
+  check(prims, st, 1, what, "prims");
   same_device(ref, grid_f, what);
   same_device(ref, grid_i, what);
   same_device(ref, cells, what);
@@ -75,37 +84,74 @@ SceneExtras extras_checks(const at::Tensor& ref, const at::Tensor& grid_f,
                     what, ": counts must be 3 sizes (spheres, boxes, capsules)");
   const int64_t np = counts[0] * SCENE_SPHERE + counts[1] * SCENE_BOX + counts[2] * SCENE_CAPSULE;
   TORCH_CHECK_VALUE(prims.numel() == np, what, ": prims has ", prims.numel(),
-                    " floats, the counts need ", np);
+                    " values, the counts need ", np);
   TORCH_CHECK_VALUE(G * (SCENE_GRID_F + SCENE_GRID_I) + np <= EXTRAS_FLOATS, what,
                     ": the extras need ", G * (SCENE_GRID_F + SCENE_GRID_I) + np,
-                    " floats of shared memory, more than ", EXTRAS_FLOATS);
-  return SceneExtras{grid_f.data_ptr<float>(), grid_i.data_ptr<int32_t>(), cells.data_ptr(),
-                     prims.data_ptr<float>(), (int)G, (int)counts[0], (int)counts[1],
-                     (int)counts[2]};
+                    " values of shared memory, more than ", EXTRAS_FLOATS);
+  return SceneExtras{grid_f.data_ptr(), grid_i.data_ptr<int32_t>(), cells.data_ptr(),
+                     prims.data_ptr(), (int)G, (int)counts[0], (int)counts[1], (int)counts[2]};
 }
 
-// grid: base offset (3), origin (3), delta; shape: nx, ny, nz. h2: also
-// return the squared hinges [P, T] (needs grad). grid_f, grid_i, ext_words,
-// prims, counts: the scene's extras (extras_checks), all empty for the base
-// grid alone
+template <class S>
+GridArgs<S> grid_args(const std::vector<double>& grid, int64_t nx, int64_t ny, int64_t nz) {
+  return GridArgs<S>{(S)grid[0], (S)grid[1], (S)grid[2], (S)grid[3], (S)grid[4], (S)grid[5],
+                     (S)grid[6], (int)nx, (int)ny, (int)nz};
+}
+
+template <class S>
+cudaError_t k1_launch_mode(int64_t mode, const K1Args<S>& a, cudaStream_t st) {
+  if (mode == K1_PACKED) return k1_loglik_launch<S, K1_PACKED>(a, st);
+  if (mode == K1_NEAREST) return k1_loglik_launch<S, K1_NEAREST>(a, st);
+  return k1_loglik_launch<S, K1_TRILINEAR>(a, st);
+}
+
+template <class S>
+std::vector<at::Tensor> k1_run(const at::Tensor& q, const at::Tensor& sigma,
+                               const at::Tensor& robot, const at::Tensor& spheres,
+                               const at::Tensor& table, int64_t mode, const SceneExtras& ex,
+                               bool craig, bool grad, bool h2, const GridArgs<S>& g, double eps) {
+  const int64_t T = q.size(0), dof = q.size(1), R = sigma.size(0), P = sigma.size(1);
+  auto lik = at::empty({T}, q.options());
+  at::Tensor dlik, sq;
+  if (grad) dlik = at::empty({T, dof}, q.options());
+  if (h2) sq = at::empty({P, T}, q.options());
+  const K1Args<S> a{q.data_ptr<S>(), sigma.data_ptr<S>(), robot.data_ptr<S>(),
+                    spheres.data_ptr<S>(), table.data_ptr(), ex, lik.data_ptr<S>(),
+                    grad ? dlik.data_ptr<S>() : nullptr, h2 ? sq.data_ptr<S>() : nullptr, T, T / R,
+                    (int)P, (int)dof, craig, grad, g, (S)eps};
+  C10_CUDA_CHECK(k1_launch_mode<S>(mode, a, at::cuda::getCurrentCUDAStream()));
+  return {lik, dlik, sq};
+}
+
+// mode: K1_PACKED (table: the packed words [ncells, 2] int32), K1_NEAREST or
+// K1_TRILINEAR (table: the grid [nx, ny, nz] of q's type). q and every other
+// floating tensor share one type, float32 or float64. grid: base offset (3),
+// origin (3), delta; shape: nx, ny, nz. h2: also return the squared hinges
+// [P, T] (needs grad). grid_f, grid_i, ext_cells, prims, counts: the scene's
+// extras in the same mode (extras_checks), all empty for the base grid alone
 std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
                                   const at::Tensor& robot, const at::Tensor& spheres,
-                                  const at::Tensor& words, bool craig, bool grad, bool h2,
-                                  std::vector<double> grid, std::vector<int64_t> shape,
+                                  const at::Tensor& table, int64_t mode, bool craig, bool grad,
+                                  bool h2, std::vector<double> grid, std::vector<int64_t> shape,
                                   double eps, const at::Tensor& grid_f, const at::Tensor& grid_i,
-                                  const at::Tensor& ext_words, const at::Tensor& prims,
+                                  const at::Tensor& ext_cells, const at::Tensor& prims,
                                   std::vector<int64_t> counts) {
   const char* what = "k1_loglik";
-  check(q, at::kFloat, 2, what, "q");
-  check(sigma, at::kFloat, 2, what, "sigma");
-  check(robot, at::kFloat, 1, what, "robot");
-  check(spheres, at::kFloat, 2, what, "spheres");
-  check(words, at::kInt, 2, what, "words");
+  check_scalar(q, what);
+  const at::ScalarType st = q.scalar_type();
+  const bool packed = mode == K1_PACKED;
+  TORCH_CHECK_VALUE(mode == K1_PACKED || mode == K1_NEAREST || mode == K1_TRILINEAR, what,
+                    ": mode must be 0 (packed), 1 (nearest) or 2 (trilinear), got ", mode);
+  check(q, st, 2, what, "q");
+  check(sigma, st, 2, what, "sigma");
+  check(robot, st, 1, what, "robot");
+  check(spheres, st, 2, what, "spheres");
+  check(table, packed ? at::kInt : st, packed ? 2 : 3, what, "table");
   same_device(q, sigma, what);
   same_device(q, robot, what);
   same_device(q, spheres, what);
-  same_device(q, words, what);
-  const SceneExtras ex = extras_checks(q, grid_f, grid_i, ext_words, true, prims, counts, what);
+  same_device(q, table, what);
+  const SceneExtras ex = extras_checks(q, grid_f, grid_i, ext_cells, packed, prims, counts, what);
   const int64_t T = q.size(0), dof = q.size(1), R = sigma.size(0), P = sigma.size(1);
   TORCH_CHECK_VALUE(dof == 6 || dof == 7, what, ": built for 6 or 7 joints, got ", dof);
   TORCH_CHECK_VALUE(robot.numel() == 6 * dof + 12, what, ": robot constants do not match ", dof,
@@ -114,34 +160,33 @@ std::vector<at::Tensor> k1_loglik(const at::Tensor& q, const at::Tensor& sigma,
                     shape_str(spheres), " do not match sigma ", shape_str(sigma));
   TORCH_CHECK_VALUE(R > 0 && T % R == 0, what, ": sigma ", shape_str(sigma), " does not match q ",
                     shape_str(q));
-  TORCH_CHECK_VALUE(words.size(1) == 2, what, ": words must be [ncells, 2]");
+  TORCH_CHECK_VALUE(!packed || table.size(1) == 2, what, ": words must be [ncells, 2]");
   TORCH_CHECK_VALUE(grad || !h2, what, ": h2 is written only beside the gradient");
   TORCH_CHECK_VALUE(grid.size() == 7 && shape.size() == 3, what, ": grid needs 7 numbers and 3 sizes");
-  TORCH_CHECK_VALUE(words.size(0) == shape[0] * shape[1] * shape[2], what,
-                    ": words do not match the grid shape");
-  const K1Grid g{(float)grid[0], (float)grid[1], (float)grid[2], (float)grid[3], (float)grid[4],
-                 (float)grid[5], (float)grid[6], (int)shape[0], (int)shape[1], (int)shape[2]};
+  const int64_t ncells = shape[0] * shape[1] * shape[2];
+  TORCH_CHECK_VALUE((packed ? table.size(0) : table.numel()) == ncells, what,
+                    ": the table does not match the grid shape");
+  TORCH_CHECK_VALUE(packed || (shape[0] >= 2 && shape[1] >= 2 && shape[2] >= 2 &&
+                               ncells < (int64_t(1) << 31)),
+                    what, ": the grid needs at least 2 cells along each axis and fewer than 2^31 ",
+                    "in all");
   const c10::cuda::CUDAGuard guard(q.device());
-  auto lik = at::empty({T}, q.options());
-  at::Tensor dlik, sq;
-  if (grad) dlik = at::empty({T, dof}, q.options());
-  if (h2) sq = at::empty({P, T}, q.options());
-  C10_CUDA_CHECK(k1_loglik_launch(q.data_ptr<float>(), sigma.data_ptr<float>(),
-                                  robot.data_ptr<float>(), spheres.data_ptr<float>(),
-                                  words.data_ptr(), ex, lik.data_ptr<float>(),
-                                  grad ? dlik.data_ptr<float>() : nullptr,
-                                  h2 ? sq.data_ptr<float>() : nullptr, T, T / R, (int)P,
-                                  (int)dof, craig, grad, g, (float)eps,
-                                  at::cuda::getCurrentCUDAStream()));
-  return {lik, dlik, sq};
+  if (st == at::kDouble)
+    return k1_run<double>(q, sigma, robot, spheres, table, mode, ex, craig, grad, h2,
+                          grid_args<double>(grid, shape[0], shape[1], shape[2]), eps);
+  return k1_run<float>(q, sigma, robot, spheres, table, mode, ex, craig, grad, h2,
+                       grid_args<float>(grid, shape[0], shape[1], shape[2]), eps);
 }
 
-// g [T], h2 [P, T], sigma [R, P] with T a multiple of R -> dL/dsigma [R, P]
+// g [T], h2 [P, T], sigma [R, P] with T a multiple of R, float32 or float64 ->
+// dL/dsigma [R, P]
 at::Tensor k1_dsigma(const at::Tensor& g, const at::Tensor& h2, const at::Tensor& sigma) {
   const char* what = "k1_dsigma";
-  check(g, at::kFloat, 1, what, "g");
-  check(h2, at::kFloat, 2, what, "h2");
-  check(sigma, at::kFloat, 2, what, "sigma");
+  check_scalar(g, what);
+  const at::ScalarType st = g.scalar_type();
+  check(g, st, 1, what, "g");
+  check(h2, st, 2, what, "h2");
+  check(sigma, st, 2, what, "sigma");
   same_device(g, h2, what);
   same_device(g, sigma, what);
   const int64_t T = g.size(0), R = sigma.size(0), P = sigma.size(1);
@@ -151,72 +196,110 @@ at::Tensor k1_dsigma(const at::Tensor& g, const at::Tensor& h2, const at::Tensor
                     shape_str(sigma), " does not match g ", shape_str(g));
   const c10::cuda::CUDAGuard guard(g.device());
   auto out = at::empty({R, P}, sigma.options());
-  C10_CUDA_CHECK(k1_dsigma_launch(g.data_ptr<float>(), h2.data_ptr<float>(),
-                                  sigma.data_ptr<float>(), out.data_ptr<float>(), T, T / R,
-                                  (int)P, at::cuda::getCurrentCUDAStream()));
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  if (st == at::kDouble)
+    C10_CUDA_CHECK(k1_dsigma_launch<double>(g.data_ptr<double>(), h2.data_ptr<double>(),
+                                            sigma.data_ptr<double>(), out.data_ptr<double>(), T,
+                                            T / R, (int)P, stream));
+  else
+    C10_CUDA_CHECK(k1_dsigma_launch<float>(g.data_ptr<float>(), h2.data_ptr<float>(),
+                                           sigma.data_ptr<float>(), out.data_ptr<float>(), T,
+                                           T / R, (int)P, stream));
   return out;
 }
 
+// K2's matrices: float32 or float64, square, 1 <= n <= K2_MAX_N
 int64_t square_n(const at::Tensor& L, const char* what) {
+  TORCH_CHECK_TYPE(L.scalar_type() == at::kFloat || L.scalar_type() == at::kDouble, what,
+                   ": takes float32 or float64, got ", L.scalar_type());
+  check(L, L.scalar_type(), 3, what, "the matrices");
   const int64_t n = L.size(1);
-  TORCH_CHECK_VALUE(L.size(2) == n && n >= 1 && n <= 32, what, ": needs square n <= 32, got ",
-                    shape_str(L));
+  TORCH_CHECK_VALUE(L.size(2) == n && n >= 1 && n <= K2_MAX_N, what, ": needs square n <= ",
+                    K2_MAX_N, ", got ", shape_str(L));
   return n;
 }
 
 at::Tensor k2_chol(const at::Tensor& K) {
-  check(K, at::kDouble, 3, "k2_chol", "K");
   const int64_t n = square_n(K, "k2_chol");
   const c10::cuda::CUDAGuard guard(K.device());
   auto L = at::empty_like(K);
-  C10_CUDA_CHECK(k2_chol_launch(K.data_ptr<double>(), L.data_ptr<double>(), K.size(0), (int)n,
-                                at::cuda::getCurrentCUDAStream()));
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  if (K.scalar_type() == at::kDouble)
+    C10_CUDA_CHECK(k2_chol_launch<double>(K.data_ptr<double>(), L.data_ptr<double>(), K.size(0),
+                                          (int)n, st));
+  else
+    C10_CUDA_CHECK(k2_chol_launch<float>(K.data_ptr<float>(), L.data_ptr<float>(), K.size(0),
+                                         (int)n, st));
   return L;
 }
 
+template <class S>
+void trsm_run(const at::Tensor& L, const at::Tensor& B, at::Tensor& X, bool upper_t) {
+  C10_CUDA_CHECK(k2_trsm_launch<S>(L.data_ptr<S>(), B.data_ptr<S>(), X.data_ptr<S>(), L.size(0),
+                                   (int)L.size(1), (int)B.size(2), upper_t,
+                                   at::cuda::getCurrentCUDAStream()));
+}
+
 at::Tensor k2_trsm(const at::Tensor& L, const at::Tensor& B, bool upper_t) {
-  check(L, at::kDouble, 3, "k2_trsm", "L");
-  check(B, at::kDouble, 3, "k2_trsm", "B");
-  same_device(L, B, "k2_trsm");
   const int64_t n = square_n(L, "k2_trsm");
+  check(B, L.scalar_type(), 3, "k2_trsm", "B");
+  same_device(L, B, "k2_trsm");
   TORCH_CHECK_VALUE(B.size(0) == L.size(0) && B.size(1) == n && B.size(2) >= 1,
                     "k2_trsm: B ", shape_str(B), " does not match L ", shape_str(L));
   const c10::cuda::CUDAGuard guard(L.device());
   auto X = at::empty_like(B);
-  C10_CUDA_CHECK(k2_trsm_launch(L.data_ptr<double>(), B.data_ptr<double>(), X.data_ptr<double>(),
-                                L.size(0), (int)n, (int)B.size(2), upper_t,
-                                at::cuda::getCurrentCUDAStream()));
+  if (L.scalar_type() == at::kDouble)
+    trsm_run<double>(L, B, X, upper_t);
+  else
+    trsm_run<float>(L, B, X, upper_t);
   return X;
+}
+
+template <class S>
+void factor_solve_run(const at::Tensor& K, const at::Tensor& B, at::Tensor& L, at::Tensor& X) {
+  C10_CUDA_CHECK(k2_factor_solve_launch<S>(K.data_ptr<S>(), B.data_ptr<S>(), L.data_ptr<S>(),
+                                           X.data_ptr<S>(), K.size(0), (int)K.size(1),
+                                           (int)B.size(2), at::cuda::getCurrentCUDAStream()));
 }
 
 // K [T, n, n], B [T, n, k] -> (L = chol(K), X = L^-1 B), one launch
 std::vector<at::Tensor> k2_factor_solve(const at::Tensor& K, const at::Tensor& B) {
   const char* what = "k2_factor_solve";
-  check(K, at::kDouble, 3, what, "K");
-  check(B, at::kDouble, 3, what, "B");
-  same_device(K, B, what);
   const int64_t n = square_n(K, what);
+  check(B, K.scalar_type(), 3, what, "B");
+  same_device(K, B, what);
   TORCH_CHECK_VALUE(B.size(0) == K.size(0) && B.size(1) == n && B.size(2) >= 1, what, ": B ",
                     shape_str(B), " does not match K ", shape_str(K));
   const c10::cuda::CUDAGuard guard(K.device());
   auto L = at::empty_like(K);
   auto X = at::empty_like(B);
-  C10_CUDA_CHECK(k2_factor_solve_launch(K.data_ptr<double>(), B.data_ptr<double>(),
-                                        L.data_ptr<double>(), X.data_ptr<double>(), K.size(0),
-                                        (int)n, (int)B.size(2), at::cuda::getCurrentCUDAStream()));
+  if (K.scalar_type() == at::kDouble)
+    factor_solve_run<double>(K, B, L, X);
+  else
+    factor_solve_run<float>(K, B, L, X);
   return {L, X};
+}
+
+template <class S>
+void factor_solve_bwd_run(const at::Tensor& L, const at::Tensor& X, const at::Tensor& gL,
+                          const at::Tensor& gX, at::Tensor& gK, at::Tensor& gB) {
+  C10_CUDA_CHECK(k2_factor_solve_bwd_launch<S>(
+      L.data_ptr<S>(), X.data_ptr<S>(), gL.data_ptr<S>(), gX.data_ptr<S>(), gK.data_ptr<S>(),
+      gB.data_ptr<S>(), L.size(0), (int)L.size(1), (int)X.size(2),
+      at::cuda::getCurrentCUDAStream()));
 }
 
 // the pair's backward: (L, X, dL, dX) -> (dK folded onto the lower triangle, dB)
 std::vector<at::Tensor> k2_factor_solve_bwd(const at::Tensor& L, const at::Tensor& X,
                                             const at::Tensor& gL, const at::Tensor& gX) {
   const char* what = "k2_factor_solve_bwd";
-  check(L, at::kDouble, 3, what, "L");
-  check(X, at::kDouble, 3, what, "X");
-  check(gL, at::kDouble, 3, what, "gL");
-  check(gX, at::kDouble, 3, what, "gX");
-  for (const auto* t : {&X, &gL, &gX}) same_device(L, *t, what);
   const int64_t n = square_n(L, what);
+  check(X, L.scalar_type(), 3, what, "X");
+  check(gL, L.scalar_type(), 3, what, "gL");
+  check(gX, L.scalar_type(), 3, what, "gX");
+  same_device(L, X, what);
+  same_device(L, gL, what);
+  same_device(L, gX, what);
   TORCH_CHECK_VALUE(X.size(0) == L.size(0) && X.size(1) == n && X.size(2) >= 1, what, ": X ",
                     shape_str(X), " does not match L ", shape_str(L));
   TORCH_CHECK_VALUE(gL.sizes() == L.sizes() && gX.sizes() == X.sizes(), what, ": gradients ",
@@ -225,22 +308,24 @@ std::vector<at::Tensor> k2_factor_solve_bwd(const at::Tensor& L, const at::Tenso
   const c10::cuda::CUDAGuard guard(L.device());
   auto gK = at::empty_like(L);
   auto gB = at::empty_like(X);
-  C10_CUDA_CHECK(k2_factor_solve_bwd_launch(
-      L.data_ptr<double>(), X.data_ptr<double>(), gL.data_ptr<double>(), gX.data_ptr<double>(),
-      gK.data_ptr<double>(), gB.data_ptr<double>(), L.size(0), (int)n, (int)X.size(2),
-      at::cuda::getCurrentCUDAStream()));
+  if (L.scalar_type() == at::kDouble)
+    factor_solve_bwd_run<double>(L, X, gL, gX, gK, gB);
+  else
+    factor_solve_bwd_run<float>(L, X, gL, gX, gK, gB);
   return {gK, gB};
 }
 
 // K3's common checks of the configs q [n, dof], the robot and sphere tables
-// and the float32 grid; grid: base offset (3), origin (3), delta, and sdf
-// carries the shape
-K1Grid k3_checks(const at::Tensor& q, const at::Tensor& robot, const at::Tensor& spheres,
-                 const at::Tensor& sdf, const std::vector<double>& grid, const char* what) {
-  check(q, at::kFloat, 2, what, "q");
-  check(robot, at::kFloat, 1, what, "robot");
-  check(spheres, at::kFloat, 2, what, "spheres");
-  check(sdf, at::kFloat, 3, what, "sdf");
+// and the grid, all float32 or all float64; grid: base offset (3), origin
+// (3), delta, and sdf carries the shape
+void k3_checks(const at::Tensor& q, const at::Tensor& robot, const at::Tensor& spheres,
+               const at::Tensor& sdf, const std::vector<double>& grid, const char* what) {
+  check_scalar(q, what);
+  const at::ScalarType st = q.scalar_type();
+  check(q, st, 2, what, "q");
+  check(robot, st, 1, what, "robot");
+  check(spheres, st, 2, what, "spheres");
+  check(sdf, st, 3, what, "sdf");
   same_device(q, robot, what);
   same_device(q, spheres, what);
   same_device(q, sdf, what);
@@ -255,9 +340,17 @@ K1Grid k3_checks(const at::Tensor& q, const at::Tensor& robot, const at::Tensor&
   TORCH_CHECK_VALUE(sdf.numel() < (int64_t(1) << 31), what,
                     ": the grid must have fewer than 2^31 cells, got ", shape_str(sdf));
   TORCH_CHECK_VALUE(grid.size() == 7, what, ": grid needs 7 numbers");
-  return K1Grid{(float)grid[0], (float)grid[1], (float)grid[2], (float)grid[3], (float)grid[4],
-                (float)grid[5], (float)grid[6], (int)sdf.size(0), (int)sdf.size(1),
-                (int)sdf.size(2)};
+}
+
+template <class S>
+void k3_min_run(const at::Tensor& q, const at::Tensor& robot, const at::Tensor& spheres,
+                const at::Tensor& sdf, const SceneExtras& ex, at::Tensor& out, bool craig,
+                const std::vector<double>& grid) {
+  C10_CUDA_CHECK(k3_min_clearance_launch<S>(
+      q.data_ptr<S>(), robot.data_ptr<S>(), spheres.data_ptr<S>(), sdf.data_ptr<S>(), ex,
+      out.data_ptr<S>(), q.size(0), (int)spheres.size(0), (int)q.size(1), craig,
+      grid_args<S>(grid, sdf.size(0), sdf.size(1), sdf.size(2)),
+      at::cuda::getCurrentCUDAStream()));
 }
 
 // grid_f, grid_i, ext_data, prims, counts: the scene's extras (extras_checks)
@@ -267,21 +360,41 @@ at::Tensor k3_min_clearance(const at::Tensor& q, const at::Tensor& robot,
                             const at::Tensor& grid_i, const at::Tensor& ext_data,
                             const at::Tensor& prims, std::vector<int64_t> counts) {
   const char* what = "k3_min_clearance";
-  const K1Grid g = k3_checks(q, robot, spheres, sdf, grid, what);
+  k3_checks(q, robot, spheres, sdf, grid, what);
   const SceneExtras ex = extras_checks(q, grid_f, grid_i, ext_data, false, prims, counts, what);
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = at::empty({q.size(0)}, q.options());
-  C10_CUDA_CHECK(k3_min_clearance_launch(q.data_ptr<float>(), robot.data_ptr<float>(),
-                                         spheres.data_ptr<float>(), sdf.data_ptr<float>(), ex,
-                                         out.data_ptr<float>(), q.size(0), (int)spheres.size(0),
-                                         (int)q.size(1), craig, g,
-                                         at::cuda::getCurrentCUDAStream()));
+  if (q.scalar_type() == at::kDouble)
+    k3_min_run<double>(q, robot, spheres, sdf, ex, out, craig, grid);
+  else
+    k3_min_run<float>(q, robot, spheres, sdf, ex, out, craig, grid);
   return out;
 }
 
-// qs [B*G, dof] probes; q_s, q_g [B, dof]; depth_s, depth_g [B]; visited [B]
-// bool; seg_idx [B, G] int64 -> (clear [B*G], seg_count [B, T] int32);
-// grid_f, grid_i, ext_data, prims, counts: the scene's extras (extras_checks)
+template <class S>
+void k3_probe_run(const at::Tensor& qs, const at::Tensor& robot, const at::Tensor& spheres,
+                  const at::Tensor& sdf, const SceneExtras& ex, bool craig,
+                  const std::vector<double>& grid, const at::Tensor& q_s, const at::Tensor& q_g,
+                  const at::Tensor& depth_s, const at::Tensor& depth_g, const at::Tensor& visited,
+                  const at::Tensor& seg_idx, int64_t T, double radius, double slack,
+                  at::Tensor& clear, at::Tensor& count) {
+  // the division by the radius as PyTorch's CUDA division by a scalar takes
+  // it: a multiply by the reciprocal, in S, of the radius rounded to S
+  const K3Probe<S> probe{q_s.data_ptr<S>(), q_g.data_ptr<S>(), depth_s.data_ptr<S>(),
+                         depth_g.data_ptr<S>(), visited.data_ptr<bool>(),
+                         seg_idx.data_ptr<int64_t>(), count.data_ptr<int32_t>(), seg_idx.size(1),
+                         T, S(1) / (S)radius, (S)slack};
+  C10_CUDA_CHECK(k3_probe_clearance_launch<S>(
+      qs.data_ptr<S>(), robot.data_ptr<S>(), spheres.data_ptr<S>(), sdf.data_ptr<S>(), ex,
+      clear.data_ptr<S>(), qs.size(0), (int)spheres.size(0), (int)qs.size(1), craig,
+      grid_args<S>(grid, sdf.size(0), sdf.size(1), sdf.size(2)), probe,
+      at::cuda::getCurrentCUDAStream()));
+}
+
+// qs [B*G, dof] probes; q_s, q_g [B, dof]; depth_s, depth_g [B] (all of qs's
+// type); visited [B] bool; seg_idx [B, G] int64 -> (clear [B*G], seg_count
+// [B, T] int32); grid_f, grid_i, ext_data, prims, counts: the scene's extras
+// (extras_checks)
 std::vector<at::Tensor> k3_probe_clearance(const at::Tensor& qs, const at::Tensor& robot,
                                            const at::Tensor& spheres, const at::Tensor& sdf,
                                            bool craig, std::vector<double> grid,
@@ -293,12 +406,13 @@ std::vector<at::Tensor> k3_probe_clearance(const at::Tensor& qs, const at::Tenso
                                            const at::Tensor& ext_data, const at::Tensor& prims,
                                            std::vector<int64_t> counts) {
   const char* what = "k3_probe_clearance";
-  const K1Grid g = k3_checks(qs, robot, spheres, sdf, grid, what);
+  k3_checks(qs, robot, spheres, sdf, grid, what);
+  const at::ScalarType st = qs.scalar_type();
   const SceneExtras ex = extras_checks(qs, grid_f, grid_i, ext_data, false, prims, counts, what);
-  check(q_s, at::kFloat, 2, what, "q_s");
-  check(q_g, at::kFloat, 2, what, "q_g");
-  check(depth_s, at::kFloat, 1, what, "depth_s");
-  check(depth_g, at::kFloat, 1, what, "depth_g");
+  check(q_s, st, 2, what, "q_s");
+  check(q_g, st, 2, what, "q_g");
+  check(depth_s, st, 1, what, "depth_s");
+  check(depth_g, st, 1, what, "depth_g");
   check(visited, at::kBool, 1, what, "visited");
   check(seg_idx, at::kLong, 2, what, "seg_idx");
   same_device(qs, q_s, what);
@@ -321,17 +435,12 @@ std::vector<at::Tensor> k3_probe_clearance(const at::Tensor& qs, const at::Tenso
   const c10::cuda::CUDAGuard guard(qs.device());
   auto clear = at::empty({B * G}, qs.options());
   auto count = at::zeros({B, T}, qs.options().dtype(at::kInt));
-  // the division by the radius as PyTorch's CUDA division by a scalar takes
-  // it: a multiply by the float32 reciprocal of the float32 radius
-  const K3Probe probe{q_s.data_ptr<float>(), q_g.data_ptr<float>(), depth_s.data_ptr<float>(),
-                      depth_g.data_ptr<float>(), visited.data_ptr<bool>(),
-                      seg_idx.data_ptr<int64_t>(), count.data_ptr<int32_t>(), G, T,
-                      1.0f / (float)radius, (float)slack};
-  C10_CUDA_CHECK(k3_probe_clearance_launch(qs.data_ptr<float>(), robot.data_ptr<float>(),
-                                           spheres.data_ptr<float>(), sdf.data_ptr<float>(), ex,
-                                           clear.data_ptr<float>(), B * G, (int)spheres.size(0),
-                                           (int)dof, craig, g, probe,
-                                           at::cuda::getCurrentCUDAStream()));
+  if (st == at::kDouble)
+    k3_probe_run<double>(qs, robot, spheres, sdf, ex, craig, grid, q_s, q_g, depth_s, depth_g,
+                         visited, seg_idx, T, radius, slack, clear, count);
+  else
+    k3_probe_run<float>(qs, robot, spheres, sdf, ex, craig, grid, q_s, q_g, depth_s, depth_g,
+                        visited, seg_idx, T, radius, slack, clear, count);
   return {clear, count};
 }
 
@@ -362,16 +471,18 @@ at::Tensor k4_gather(const at::Tensor& table, const at::Tensor& idx) {
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("k1_loglik", &k1_loglik,
-        "K1: fused FK, packed-SDF gather and hinge; (lik, dlik/dq, squared hinges [P, T])");
+        "K1: fused FK, SDF lookup (packed, nearest or trilinear) and hinge; (lik, dlik/dq, "
+        "squared hinges [P, T])");
   m.def("k1_dsigma", &k1_dsigma, "K1's d/dsigma: row sums of g * h^2 scaled by 1/2 / sigma^2");
-  m.def("k2_chol", &k2_chol, "K2: batched float64 lower Cholesky");
-  m.def("k2_trsm", &k2_trsm, "K2: batched float64 triangular solve, L X = B or L^T X = B");
+  m.def("k2_chol", &k2_chol, "K2: batched float32 or float64 lower Cholesky, n <= 128");
+  m.def("k2_trsm", &k2_trsm, "K2: batched triangular solve, L X = B or L^T X = B, n <= 128");
   m.def("k2_factor_solve", &k2_factor_solve,
-        "K2: float64 Cholesky and the forward substitution of B in one launch; (L, L^-1 B)");
+        "K2: Cholesky and the forward substitution of B in one launch; (L, L^-1 B)");
   m.def("k2_factor_solve_bwd", &k2_factor_solve_bwd,
         "K2: backward of k2_factor_solve in one launch; (dK, dB)");
   m.def("k3_min_clearance", &k3_min_clearance,
-        "K3: fused FK and trilinear SDF lookup; minimum clearance over spheres per config");
+        "K3: fused FK and trilinear SDF lookup; minimum clearance over spheres per config "
+        "(float32 or float64)");
   m.def("k3_probe_clearance", &k3_probe_clearance,
         "K3 with the metric's tapered-floor compare and per-segment count; (clear, seg_count)");
   m.def("k4_gather", &k4_gather, "K4: out[i] = table[idx[i]] for 4-byte or 8-byte entries");

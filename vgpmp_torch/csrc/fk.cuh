@@ -1,6 +1,7 @@
-// Device code shared by K1 (k1_collision.cu) and K3 (k3_clearance.cu): the DH
-// chain and the sphere centres, written term for term as the plain
-// structure-of-arrays FK (vgpmp_torch/kinematics/dh.py:sphere_positions, after
+// Device code shared by K1 (k1_collision.cuh) and K3 (k3_clearance.cuh): the
+// DH chain and the sphere centres, in the session's scalar type S (float or
+// double), written term for term as the plain structure-of-arrays FK
+// (vgpmp_torch/kinematics/dh.py:sphere_positions, after
 // vgpmp_tpu/kinematics/dh.py:sphere_positions), so that a kernel differs from
 // the plain version by fused multiply-adds only.
 //
@@ -16,21 +17,20 @@
 // transform, from co = cos and s = sin of the joint's angle q_j + twist. c
 // points at the joint's six constants. Every FK of this file goes through
 // here, so all of them round alike.
-template <bool CRAIG>
-__device__ __forceinline__ void dh_step_cs(const float* __restrict__ c, float co, float s,
-                                           const float (&Rc)[9], const float (&tc)[3],
-                                           float (&Rn)[9], float (&tn)[3]) {
-  const float ca = c[0], sa = c[1];
-  float Tm[9], p[3];
+template <bool CRAIG, class S>
+__device__ __forceinline__ void dh_step_cs(const S* __restrict__ c, S co, S s, const S (&Rc)[9],
+                                           const S (&tc)[3], S (&Rn)[9], S (&tn)[3]) {
+  const S ca = c[0], sa = c[1];
+  S Tm[9], p[3];
   if (CRAIG) {
-    Tm[0] = co;      Tm[1] = -s;      Tm[2] = 0.f;
+    Tm[0] = co;      Tm[1] = -s;      Tm[2] = S(0);
     Tm[3] = s * ca;  Tm[4] = co * ca; Tm[5] = -sa;
     Tm[6] = s * sa;  Tm[7] = co * sa; Tm[8] = ca;
     p[0] = c[3]; p[1] = c[4]; p[2] = c[5];
   } else {
     Tm[0] = co;  Tm[1] = -s * ca; Tm[2] = s * sa;
     Tm[3] = s;   Tm[4] = co * ca; Tm[5] = -co * sa;
-    Tm[6] = 0.f; Tm[7] = sa;      Tm[8] = ca;
+    Tm[6] = S(0); Tm[7] = sa;     Tm[8] = ca;
     p[0] = c[3] * co; p[1] = c[3] * s; p[2] = c[5];
   }
 #pragma unroll
@@ -49,14 +49,20 @@ __device__ __forceinline__ void joint_cos_sin(const float* __restrict__ c, float
   co = cosf(ang);
   s = sinf(ang);
 }
+__device__ __forceinline__ void joint_cos_sin(const double* __restrict__ c, double qj, double& co,
+                                              double& s) {
+  const double ang = qj + c[2];
+  co = cos(ang);
+  s = sin(ang);
+}
 
 // One DH step at the joint angle q_j
-template <bool CRAIG>
-__device__ __forceinline__ void dh_step(const float* __restrict__ c, float qj, const float (&Rc)[9],
-                                        const float (&tc)[3], float (&Rn)[9], float (&tn)[3]) {
-  float co, s;
+template <bool CRAIG, class S>
+__device__ __forceinline__ void dh_step(const S* __restrict__ c, S qj, const S (&Rc)[9],
+                                        const S (&tc)[3], S (&Rn)[9], S (&tn)[3]) {
+  S co, s;
   joint_cos_sin(c, qj, co, s);
-  dh_step_cs<CRAIG>(c, co, s, Rc, tc, Rn, tn);
+  dh_step_cs<CRAIG, S>(c, co, s, Rc, tc, Rn, tn);
 }
 
 // Block-level FK: the same chain for one configuration, with every frame
@@ -68,12 +74,11 @@ __device__ __forceinline__ void dh_step(const float* __restrict__ c, float qj, c
 constexpr int FK_FRAME = 12;
 
 // The chain from the joints' cos and sin: cos_sin(j, co, s) gives joint j's.
-template <int DOF, bool CRAIG, class CosSin>
-__device__ __forceinline__ void fk_chain_to_shared_cs(CosSin cos_sin,
-                                                      const float* __restrict__ robot,
-                                                      float* __restrict__ frames, int stride) {
-  const float* base = robot + 6 * DOF;
-  float Rc[9], tc[3];
+template <int DOF, bool CRAIG, class S, class CosSin>
+__device__ __forceinline__ void fk_chain_to_shared_cs(CosSin cos_sin, const S* __restrict__ robot,
+                                                      S* __restrict__ frames, int stride) {
+  const S* base = robot + 6 * DOF;
+  S Rc[9], tc[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
@@ -82,15 +87,15 @@ __device__ __forceinline__ void fk_chain_to_shared_cs(CosSin cos_sin,
   }
 #pragma unroll
   for (int j = 0; j <= DOF; ++j) {
-    float* F = frames + FK_FRAME * j * stride;
+    S* F = frames + FK_FRAME * j * stride;
 #pragma unroll
     for (int e = 0; e < 9; ++e) F[e * stride] = Rc[e];
 #pragma unroll
     for (int e = 0; e < 3; ++e) F[(9 + e) * stride] = tc[e];
     if (j < DOF) {
-      float co, s, Rn[9], tn[3];
+      S co, s, Rn[9], tn[3];
       cos_sin(j, co, s);
-      dh_step_cs<CRAIG>(robot + 6 * j, co, s, Rc, tc, Rn, tn);
+      dh_step_cs<CRAIG, S>(robot + 6 * j, co, s, Rc, tc, Rn, tn);
 #pragma unroll
       for (int e = 0; e < 9; ++e) Rc[e] = Rn[e];
 #pragma unroll
@@ -99,24 +104,24 @@ __device__ __forceinline__ void fk_chain_to_shared_cs(CosSin cos_sin,
   }
 }
 
-template <int DOF, bool CRAIG>
-__device__ __forceinline__ void fk_chain_to_shared(const float* __restrict__ q,
-                                                   const float* __restrict__ robot,
-                                                   float* __restrict__ frames, int stride) {
-  float qj[DOF];
+template <int DOF, bool CRAIG, class S>
+__device__ __forceinline__ void fk_chain_to_shared(const S* __restrict__ q,
+                                                   const S* __restrict__ robot,
+                                                   S* __restrict__ frames, int stride) {
+  S qj[DOF];
 #pragma unroll
   for (int j = 0; j < DOF; ++j) qj[j] = q[j];
-  fk_chain_to_shared_cs<DOF, CRAIG>(
-      [&](int j, float& co, float& s) { joint_cos_sin(robot + 6 * j, qj[j], co, s); }, robot,
-      frames, stride);
+  fk_chain_to_shared_cs<DOF, CRAIG, S>(
+      [&](int j, S& co, S& s) { joint_cos_sin(robot + 6 * j, qj[j], co, s); }, robot, frames,
+      stride);
 }
 
 // World centre of a sphere at offset (ox, oy, oz) in frame f, from the frames
 // that fk_chain_to_shared wrote; the sum runs in the plain version's order.
-__device__ __forceinline__ void sphere_centre_shared(const float* __restrict__ frames, int stride,
-                                                     int f, float ox, float oy, float oz, float& x,
-                                                     float& y, float& z) {
-  const float* F = frames + FK_FRAME * f * stride;
+template <class S>
+__device__ __forceinline__ void sphere_centre_shared(const S* __restrict__ frames, int stride, int f,
+                                                     S ox, S oy, S oz, S& x, S& y, S& z) {
+  const S* F = frames + FK_FRAME * f * stride;
   x = F[0] * ox + F[stride] * oy + F[2 * stride] * oz + F[9 * stride];
   y = F[3 * stride] * ox + F[4 * stride] * oy + F[5 * stride] * oz + F[10 * stride];
   z = F[6 * stride] * ox + F[7 * stride] * oy + F[8 * stride] * oz + F[11 * stride];

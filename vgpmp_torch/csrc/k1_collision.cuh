@@ -1,0 +1,462 @@
+// K1: fused collision log-likelihood (FK -> SDF lookup -> hinge), forward and
+// d/dq in one pass. The kernel template; each k1_*.cu source instantiates it
+// for one scalar type and one lookup mode.
+//
+// Replaces the XLA-fused JAX chain of vgpmp_tpu/kinematics/dh.py:sphere_positions,
+// vgpmp_tpu/scene.py:Scene.distance (packed mode, through
+// vgpmp_tpu/sdf/grid.py:_packed_flat_index/_unpack_hi/_unpack_lo/
+// packed_nearest_distance; nearest mode, through nearest_distance and
+// central_difference_grad; trilinear mode, through trilinear_distance) and
+// vgpmp_tpu/likelihoods/collision.py:CollisionModel.log_prob. The plain
+// PyTorch version of the same function is
+// vgpmp_torch/likelihoods/collision.py:log_prob_plain.
+//
+// What bounds it on an H100: the random gathers from the grid (the packed
+// table is [ncells, 2] words, 222 MB for the industrial scene, the float32
+// grid 111 MB, both larger than the 50 MB L2). Each sphere lookup touches a
+// few 32-byte DRAM sectors (one for the packed word; the cell and its six
+// neighbours, or the eight corners, for the other modes), so the bound is the
+// bytes of the distinct sectors a call touches over the memory rate; the FK
+// chain and the hinge are a few hundred flops per config and never bind.
+// What a kernel has to do about it is keep many independent gathers in
+// flight and spend few instructions and registers around them.
+//
+// Design: a block of 256 threads takes a tile of 32 consecutive configurations
+// (neighbours in time along a trajectory, so neighbours in space: their
+// spheres share sectors).
+//   Phase 1: one thread per configuration runs the DH chain once
+//     (fk.cuh:fk_chain_to_shared) and leaves the frames in shared memory.
+//   Phase 2: thread (g, c) keeps local configuration c and the spheres g,
+//     g + 8, g + 16, ..., so a warp holds the tile's 32 configurations of one
+//     sphere: its shared-memory reads are conflict-free, the sphere's constants
+//     are a broadcast, and its 32 gathers land near each other. A thread
+//     computes the cells of NI spheres and starts all their gathers before it
+//     uses one (GridLookup::fetch; NI is 5 for the packed word, 2 for the
+//     seven or eight values of the other modes).
+//   Phase 3: the hinge, and for an active pair the joint torques from the
+//     frames in shared memory (dlik/dq_j = sum_p (c_p/sigma_p) z_j . ((x_p -
+//     o_j) x grad_p), from the gathered gradient, so the backward pass is a
+//     multiply by the saved result and never gathers again: what the custom
+//     VJP at vgpmp_tpu/sdf/grid.py:308-318 achieves). The eight partial sums
+//     per configuration meet in shared memory, and lik [32] and dlik [32, DOF]
+//     leave coalesced.
+// No thread holds a configuration's frames in registers: the packed float32
+// kernel takes 64 registers a thread with the gradient, 48 without, and
+// spills nothing, so eight warps of a block and several blocks share an SM
+// (PERF.md).
+//
+// The lookup modes (GridLookup): K1_PACKED gathers one 8-byte word, the bf16
+// value and central-difference gradient (widened to S). K1_NEAREST is the
+// reference's semantics on the unpacked grid: the value at the clipped cell
+// floor((p - origin) / delta), and d/dp per axis (data[clip(i + e)] -
+// data[clip(i - e)]) / (2 delta), divided as JAX divides (no reciprocal, so
+// the test for an exactly-zero quotient, which becomes 0.1, sees JAX's
+// quotient); the six neighbours are gathered only with the gradient.
+// K1_TRILINEAR interpolates the eight corners (scene.cuh:trilinear_cell,
+// lerp_corners, as K3) and takes the exact derivative that autodiff of the
+// clip, floor and lerps gives: zero along an axis clamped outside the grid,
+// half exactly on its border (jnp.clip's maximum and minimum split a tie),
+// at the upper border the cell below with fraction 1, on a cell face the
+// cell above (scene.cuh:lerp_gradient). The σ-gradient forward and
+// k1_dsigma read h^2 and work in every mode unchanged.
+//
+// The scalar type S is the session's: float32 sessions run in float, float64
+// sessions in double (the FK, the lookups' arithmetic, the hinge and the
+// sums; the packed words stay bf16 and are widened, as JAX's
+// .astype(p.dtype) does). The shared-memory frames then double in size (42 KB
+// for 7 joints and 37 spheres); above 48 KB a launch opts in to more
+// (launch.cuh:launch_smem).
+//
+// d/dsigma, where sigma_obs is trained: lik_t = -1/2 sum_p h_tp^2 / sigma_rp
+// (r the row of config t), so dL/dsigma_rp = 1/2 sum_{t in r} g_t h_tp^2 /
+// sigma_rp^2 for the upstream gradient g. The forward's H2 instantiation also
+// writes h_tp^2, sphere-major ([P, T]: a warp holds 32 consecutive configs of
+// one sphere, so its store is one 128-byte line, and the backward reads each
+// (row, sphere) segment contiguously); the frozen path's instantiations are
+// unchanged and write nothing more. k1_dsigma then reduces g * h^2 over each
+// row's configs: reading h^2 back replaces a second gather from the table.
+// It moves T (P + 1) values and does 2 T P operations, so it is bound by the
+// bytes it reads.
+// A scene with extra grids or primitives takes the EXTRA instantiation: after
+// its base gathers a thread issues, grid by grid, the spheres' gathers from
+// each extra grid in the same mode (scene.cuh's extras, copied to shared
+// memory beside the sphere table), keeps the smallest value and its gradient
+// (half of each at a tie, as autograd of the plain minimum), folds in the
+// analytic primitives, and the hinge reads that. Where a sphere
+// centre lies inside or on a box its gradient is NaN, as JAX's is
+// (scene.cuh:compose_primitives), so the config's d/dq is NaN in the joints
+// that move the sphere. The base-only instantiations are unchanged.
+// The compiler may contract the FK's products and sums into fused
+// multiply-adds, so a sphere near a voxel face can land in the neighbouring
+// voxel of the one the plain version picks; the checks bound that share.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "fk.cuh"
+#include "kernels.h"
+#include "scene.cuh"
+
+namespace {
+
+// C configurations and THREADS threads a block: the tile that was fastest of
+// six at the main path's shape (PERF.md).
+constexpr int C = 32, THREADS = 256;
+
+// gathers of NI spheres in flight a thread: five packed words, or two
+// spheres' seven or eight values
+template <int MODE>
+__host__ __device__ constexpr int k1_ni() { return MODE == K1_PACKED ? 5 : 2; }
+
+// One sphere's lookup of a grid in a mode: fetch issues its gathers, value
+// and gradient read them (the gradient only after a fetch with GRAD).
+template <class S, int MODE>
+struct GridLookup;
+
+template <class S>
+struct GridLookup<S, K1_PACKED> {
+  using Entry = uint2;
+  uint2 w;
+  template <bool GRAD>
+  __device__ __forceinline__ void fetch(const uint2* __restrict__ t, const GridArgs<S>& g, S px,
+                                        S py, S pz) {
+    int i[3];
+    w = __ldg(t + nearest_cell(px, py, pz, g, i));
+  }
+  __device__ __forceinline__ S value() const { return (S)unpack_hi(w.x); }
+  __device__ __forceinline__ void gradient(const GridArgs<S>&, S (&gr)[3]) const {
+    gr[0] = (S)unpack_lo(w.x);
+    gr[1] = (S)unpack_hi(w.y);
+    gr[2] = (S)unpack_lo(w.y);
+  }
+};
+
+template <class S>
+struct GridLookup<S, K1_NEAREST> {
+  using Entry = S;
+  S v, nb[6];  // the cell; its neighbours along +x, -x, +y, -y, +z, -z (clipped)
+  template <bool GRAD>
+  __device__ __forceinline__ void fetch(const S* __restrict__ t, const GridArgs<S>& g, S px, S py,
+                                        S pz) {
+    int i[3];
+    const S* c = t + nearest_cell(px, py, pz, g, i);
+    v = __ldg(c);
+    if (GRAD) {
+      const int sx = g.ny * g.nz, sy = g.nz;  // grids of fewer than 2^31 cells
+      nb[0] = __ldg(c + (i[0] < g.nx - 1 ? sx : 0));
+      nb[1] = __ldg(c - (i[0] > 0 ? sx : 0));
+      nb[2] = __ldg(c + (i[1] < g.ny - 1 ? sy : 0));
+      nb[3] = __ldg(c - (i[1] > 0 ? sy : 0));
+      nb[4] = __ldg(c + (i[2] < g.nz - 1 ? 1 : 0));
+      nb[5] = __ldg(c - (i[2] > 0 ? 1 : 0));
+    }
+  }
+  __device__ __forceinline__ S value() const { return v; }
+  __device__ __forceinline__ void gradient(const GridArgs<S>& g, S (&gr)[3]) const {
+    const S two_delta = S(2) * g.delta;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const S d = (nb[2 * a] - nb[2 * a + 1]) / two_delta;
+      gr[a] = d == S(0) ? S(0.1) : d;  // the reference's escape from flat plateaus
+    }
+  }
+};
+
+template <class S>
+struct GridLookup<S, K1_TRILINEAR> {
+  using Entry = S;
+  S c[8], f[3], w[3];
+  template <bool GRAD>
+  __device__ __forceinline__ void fetch(const S* __restrict__ t, const GridArgs<S>& g, S px, S py,
+                                        S pz) {
+    const int cell = trilinear_cell(px, py, pz, g, S(1) / g.delta, f, GRAD ? w : nullptr);
+    load_corners(t + cell, g.nz, g.ny * g.nz, c);
+  }
+  __device__ __forceinline__ S value() const { return lerp_corners(c, f); }
+  __device__ __forceinline__ void gradient(const GridArgs<S>& g, S (&gr)[3]) const {
+    lerp_gradient(c, f, w, g.delta, gr);
+  }
+};
+
+// The tile's work, the body of both kernel entries below. robot and
+// spheres: the constant tables described in fk.cuh; table: the base grid's
+// entries in MODE.
+// H2: also write h^2 [P, T] (only with GRAD). EXTRA: compose ex's sources.
+template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
+__device__ __forceinline__ void loglik_tile(
+    const S* __restrict__ q, const S* __restrict__ sigma, const S* __restrict__ robot,
+    const S* __restrict__ spheres, const typename GridLookup<S, MODE>::Entry* __restrict__ table,
+    SceneExtras ex, S* __restrict__ lik, S* __restrict__ dlik, S* __restrict__ h2, long long T,
+    long long K, int P, GridArgs<S> g, S eps) {
+  using Lookup = GridLookup<S, MODE>;
+  using Entry = typename Lookup::Entry;
+  constexpr int G = THREADS / C;
+  constexpr int NI = k1_ni<MODE>();
+  constexpr int NF = FK_FRAME * (DOF + 1);
+  constexpr int SLOTS = 8;  // 1 + DOF <= 8 partial sums per thread
+  // a NaN distance (a NaN configuration in trilinear mode, a zero-length
+  // capsule) stays NaN, as in the plain version's clamp
+  constexpr bool KEEP_NAN = EXTRA || MODE == K1_TRILINEAR;
+  static_assert(THREADS % C == 0 && C % 32 == 0 && DOF + 1 <= SLOTS, "tile shape");
+  static_assert(GRAD || !H2, "h^2 is written only beside the gradient");
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  S* frames = reinterpret_cast<S*>(k1_smem);  // [NF][C]
+  S* red = frames + NF * C;                    // [G][SLOTS][C]
+  S* sph = red + G * SLOTS * C;                // [P][5]
+
+  const int tid = threadIdx.x;
+  const long long tile0 = (long long)blockIdx.x * C;
+  for (int i = tid; i < 5 * P; i += THREADS) sph[i] = spheres[i];
+  ExtrasView<S> xv{};
+  if constexpr (EXTRA) xv = extras_to_shared(ex, sph + 5 * P, tid, THREADS);
+  if (tid < C && tile0 + tid < T)
+    fk_chain_to_shared<DOF, CRAIG>(q + (tile0 + tid) * DOF, robot, frames + tid, C);
+  __syncthreads();
+
+  const int c = tid % C, grp = tid / C;
+  const long long cfg = tile0 + c;
+  const bool live = cfg < T;
+  const S* fr = frames + c;
+  const S* sig = sigma + (live ? cfg / K : 0) * P;
+
+  S acc = S(0);
+  S dq[DOF];
+#pragma unroll
+  for (int j = 0; j < DOF; ++j) dq[j] = S(0);
+
+  for (int base = grp; base < P; base += G * NI) {
+    Lookup lk[NI];
+    S sg[NI];
+    S px[NI], py[NI], pz[NI];  // EXTRA: the sphere centres
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int sp = base + G * i;
+      if (live && sp < P) {
+        const S* s = sph + 5 * sp;
+        S x, y, z;
+        sphere_centre_shared(fr, C, (int)s[0], s[1], s[2], s[3], x, y, z);
+        lk[i].template fetch<GRAD>(table, g, x - g.bx, y - g.by, z - g.bz);
+        sg[i] = __ldg(sig + sp);
+        if constexpr (EXTRA) {
+          px[i] = x;
+          py[i] = y;
+          pz[i] = z;
+        }
+      }
+    }
+    // EXTRA: the composed value and gradient, from the base grid's on
+    S dv[NI], gv[NI][3];
+    if constexpr (EXTRA) {
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        if (live && base + G * i < P) {
+          dv[i] = lk[i].value();
+          if (GRAD) lk[i].gradient(g, gv[i]);
+        }
+      }
+      const Entry* cells = static_cast<const Entry*>(ex.cells);
+      for (int e = 0; e < xv.G; ++e) {
+        const GridArgs<S> eg = extra_grid(xv, e);
+        const Entry* et = cells + extra_start(xv, e);
+        Lookup le[NI];
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+          if (live && base + G * i < P)
+            le[i].template fetch<GRAD>(et, eg, px[i] - eg.bx, py[i] - eg.by, pz[i] - eg.bz);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          if (live && base + G * i < P) {
+            S gk[3] = {S(0), S(0), S(0)};
+            if (GRAD) le[i].gradient(eg, gk);
+            fold_min<GRAD, S>(le[i].value(), gk, dv[i], gv[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        if (live && base + G * i < P) {
+          bool bad = false;
+          compose_primitives<GRAD, S>(xv, px[i], py[i], pz[i], dv[i], gv[i], bad);
+          if (bad) gv[i][0] = gv[i][1] = gv[i][2] = s_nan<S>();
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int sp = base + G * i;
+      if (live && sp < P) {
+        const S* s = sph + 5 * sp;
+        const S dist = EXTRA ? dv[i] : lk[i].value();
+        const S h = KEEP_NAN ? max_keep_nan(eps - (dist - s[4]), S(0))
+                             : s_max(eps - (dist - s[4]), S(0));
+        acc += h * h / sg[i];
+        if (H2) h2[(long long)sp * T + cfg] = h * h;
+        if (GRAD && (h > S(0) || (KEEP_NAN && h != h))) {
+          const int f = (int)s[0];
+          S x, y, z;
+          sphere_centre_shared(fr, C, f, s[1], s[2], s[3], x, y, z);
+          S gr[3];
+          if constexpr (EXTRA) {
+            gr[0] = gv[i][0];
+            gr[1] = gv[i][1];
+            gr[2] = gv[i][2];
+          } else {
+            lk[i].gradient(g, gr);
+          }
+          const S k = h / sg[i];
+          const S gx = k * gr[0], gy = k * gr[1], gz = k * gr[2];
+#pragma unroll
+          for (int j = 0; j < DOF; ++j) {
+            if (j < f) {  // joint j moves frames j+1.. (both DH conventions)
+              // frame whose z axis joint j turns about
+              const S* A = fr + FK_FRAME * (CRAIG ? j + 1 : j) * C;
+              const S rx = x - A[9 * C], ry = y - A[10 * C], rz = z - A[11 * C];
+              const S mx = ry * gz - rz * gy, my = rz * gx - rx * gz, mz = rx * gy - ry * gx;
+              dq[j] += A[2 * C] * mx + A[5 * C] * my + A[8 * C] * mz;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  red[(grp * SLOTS) * C + c] = acc;
+  if (GRAD) {
+#pragma unroll
+    for (int j = 0; j < DOF; ++j) red[(grp * SLOTS + 1 + j) * C + c] = dq[j];
+  }
+  __syncthreads();
+  if (tid < C && tile0 + tid < T) {
+    S s = S(0);
+#pragma unroll
+    for (int k = 0; k < G; ++k) s += red[(k * SLOTS) * C + tid];
+    lik[tile0 + tid] = S(-0.5) * s;
+  }
+  if (GRAD) {
+    for (int e = tid; e < C * DOF; e += THREADS) {
+      const int cc = e / DOF, j = e % DOF;
+      if (tile0 + cc < T) {
+        S s = S(0);
+#pragma unroll
+        for (int k = 0; k < G; ++k) s += red[(k * SLOTS + 1 + j) * C + cc];
+        dlik[tile0 * DOF + e] = s;
+      }
+    }
+  }
+}
+
+#define K1_TILE_PARAMS                                                                           \
+  const S *__restrict__ q, const S *__restrict__ sigma, const S *__restrict__ robot,            \
+      const S *__restrict__ spheres,                                                            \
+      const typename GridLookup<S, MODE>::Entry *__restrict__ table, SceneExtras ex,            \
+      S *__restrict__ lik, S *__restrict__ dlik, S *__restrict__ h2, long long T, long long K,  \
+      int P, GridArgs<S> g, S eps
+#define K1_TILE_ARGS q, sigma, robot, spheres, table, ex, lik, dlik, h2, T, K, P, g, eps
+
+template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
+__global__ void __launch_bounds__(THREADS) loglik_tile_kernel(K1_TILE_PARAMS) {
+  loglik_tile<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(K1_TILE_ARGS);
+}
+
+// A float32 scene with extras asks for two blocks an SM, which caps a thread
+// at 128 registers: the composed lookup would take ~150 and leave one block,
+// eight warps, to hide the gathers. Naming no block count for the others
+// keeps their register budget as it was.
+template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
+__global__ void __launch_bounds__(THREADS, 2) loglik_tile_kernel_2blocks(K1_TILE_PARAMS) {
+  loglik_tile<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(K1_TILE_ARGS);
+}
+
+template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
+cudaError_t launch_kernel(const K1Args<S>& a, const typename GridLookup<S, MODE>::Entry* table,
+                          size_t smem, cudaStream_t st) {
+  const dim3 grid((unsigned)((a.T + C - 1) / C)), block(THREADS);
+  if constexpr (EXTRA && sizeof(S) == 4)
+    return launch_smem(loglik_tile_kernel_2blocks<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>, grid, block,
+                       smem, st, a.q, a.sigma, a.robot, a.spheres, table, a.ex, a.lik, a.dlik, a.h2,
+                       (long long)a.T, (long long)a.K, a.P, a.g, a.eps);
+  else
+    return launch_smem(loglik_tile_kernel<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>, grid, block, smem,
+                       st, a.q, a.sigma, a.robot, a.spheres, table, a.ex, a.lik, a.dlik, a.h2,
+                       (long long)a.T, (long long)a.K, a.P, a.g, a.eps);
+}
+
+template <class S, int MODE, int DOF, bool CRAIG, bool EXTRA>
+cudaError_t launch_tile(const K1Args<S>& a, cudaStream_t st) {
+  const size_t smem = sizeof(S) * ((size_t)FK_FRAME * (DOF + 1) * C + (size_t)(THREADS / C) * 8 * C +
+                                   5 * (size_t)a.P + (EXTRA ? (size_t)extras_floats(a.ex) : 0));
+  const auto* table = static_cast<const typename GridLookup<S, MODE>::Entry*>(a.table);
+  if (a.h2 != nullptr) return launch_kernel<S, MODE, DOF, CRAIG, true, true, EXTRA>(a, table, smem, st);
+  if (a.grad) return launch_kernel<S, MODE, DOF, CRAIG, true, false, EXTRA>(a, table, smem, st);
+  return launch_kernel<S, MODE, DOF, CRAIG, false, false, EXTRA>(a, table, smem, st);
+}
+
+template <class S, int MODE, int DOF, bool CRAIG>
+cudaError_t launch_scene(const K1Args<S>& a, cudaStream_t st) {
+  if (extras_floats(a.ex) > 0) return launch_tile<S, MODE, DOF, CRAIG, true>(a, st);
+  return launch_tile<S, MODE, DOF, CRAIG, false>(a, st);
+}
+
+// k1_dsigma: block (r, y) holds DS_WARPS warps, warp w sphere p = y * DS_WARPS
+// + w of row r. Its lanes stride over the row's K configs (coalesced reads of
+// g and of the sphere's h^2 segment), DS_UNROLL loads of each in flight before
+// the first use (a row is ~1 000 configs, so a lane makes a few such rounds
+// and the time is a few memory latencies, not ~30), a shuffle tree joins the
+// 32 lanes, and lane 0 scales by 1/2 / sigma^2.
+constexpr int DS_WARPS = 8, DS_UNROLL = 8;
+
+template <class S>
+__global__ void __launch_bounds__(DS_WARPS * 32) dsigma_kernel(
+    const S* __restrict__ g, const S* __restrict__ h2, const S* __restrict__ sigma,
+    S* __restrict__ out, long long T, long long K, int P) {
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.y * DS_WARPS + threadIdx.x / 32;
+  if (p >= P) return;  // the whole warp
+  const long long r = blockIdx.x;
+  const S* gr = g + r * K;
+  const S* hp = h2 + (long long)p * T + r * K;
+  S a0 = S(0), a1 = S(0);
+  for (long long k = lane; k < K; k += 32 * DS_UNROLL) {
+    S gv[DS_UNROLL], hv[DS_UNROLL];
+#pragma unroll
+    for (int j = 0; j < DS_UNROLL; ++j) {
+      const bool in = k + 32 * j < K;
+      gv[j] = in ? __ldg(gr + k + 32 * j) : S(0);
+      hv[j] = in ? __ldg(hp + k + 32 * j) : S(0);
+    }
+#pragma unroll
+    for (int j = 0; j < DS_UNROLL; j += 2) {
+      a0 += gv[j] * hv[j];
+      a1 += gv[j + 1] * hv[j + 1];
+    }
+  }
+  S acc = a0 + a1;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const S s = sigma[r * P + p];
+    out[r * P + p] = S(0.5) * acc / (s * s);
+  }
+}
+
+}  // namespace
+
+template <class S, int MODE>
+cudaError_t k1_loglik_launch(const K1Args<S>& a, cudaStream_t st) {
+  if (a.T == 0) return cudaSuccess;
+  if (a.h2 != nullptr && !a.grad) return cudaErrorInvalidValue;
+  if (a.dof == 7 && a.craig) return launch_scene<S, MODE, 7, true>(a, st);
+  if (a.dof == 7) return launch_scene<S, MODE, 7, false>(a, st);
+  if (a.dof == 6 && a.craig) return launch_scene<S, MODE, 6, true>(a, st);
+  if (a.dof == 6) return launch_scene<S, MODE, 6, false>(a, st);
+  return cudaErrorInvalidValue;
+}
+
+template <class S>
+cudaError_t k1_dsigma_launch(const S* g, const S* h2, const S* sigma, S* out, int64_t T,
+                             int64_t K, int P, cudaStream_t st) {
+  if (T == 0) return cudaSuccess;
+  const dim3 grid((unsigned)(T / K), (unsigned)((P + DS_WARPS - 1) / DS_WARPS));
+  dsigma_kernel<S><<<grid, DS_WARPS * 32, 0, st>>>(g, h2, sigma, out, T, K, P);
+  return cudaGetLastError();
+}

@@ -26,8 +26,8 @@ __all__ = ["FkModel", "dh_matrices", "fk_frames", "sphere_positions",
 class FkModel:
     """FK constants for one robot, as tensors plus their static float twins.
 
-    ``k1_robot``/``k1_spheres`` are the same constants laid out for kernel K1
-    (float32 on the model's device, see ``csrc/k1_collision.cu``).
+    ``k1_robot``/``k1_spheres`` are the same constants laid out for kernels K1
+    and K3 (in the model's dtype on its device, see ``csrc/fk.cuh``).
     """
 
     d: torch.Tensor              # [dof]
@@ -38,8 +38,8 @@ class FkModel:
     sphere_frame: torch.Tensor   # [P] int64 index into the (dof+1) chain frames
     sphere_offsets: torch.Tensor  # [P, 3]
     sphere_radii: torch.Tensor   # [P]
-    k1_robot: torch.Tensor       # [6 dof + 12] float32
-    k1_spheres: torch.Tensor     # [P, 5] float32: frame, offset xyz, radius
+    k1_robot: torch.Tensor       # [6 dof + 12]
+    k1_spheres: torch.Tensor     # [P, 5]: frame, offset xyz, radius
     craig: bool
     dof: int
     dh_static: tuple
@@ -73,7 +73,7 @@ class FkModel:
             d=t(spec.dh[:, 0]), a=t(spec.dh[:, 1]), alpha=t(spec.dh[:, 2]), twist=t(spec.twist),
             base=t(base_np), sphere_frame=t(frame_global, torch.int64),
             sphere_offsets=t(spec.sphere_offsets), sphere_radii=t(spec.sphere_radii),
-            k1_robot=t(k1_robot, torch.float32), k1_spheres=t(k1_spheres, torch.float32),
+            k1_robot=t(k1_robot), k1_spheres=t(k1_spheres),
             craig=bool(spec.craig_dh), dof=int(spec.dof),
             dh_static=tuple((float(d_), float(a_), float(al_)) for d_, a_, al_ in np.asarray(spec.dh)),
             twist_static=tuple(float(v) for v in np.asarray(spec.twist)),

@@ -2,11 +2,13 @@
 
 Port of ``vgpmp_tpu/likelihoods/collision.py``. ``log_prob`` is
 ``-0.5 Σ_P max(ε − (sdf − r), 0)² / σ`` (first-power σ division). On a CUDA
-tensor with a packed scene it runs kernel K1 (``csrc/k1_collision.cu``), which
-fuses FK, the packed-table gather and the hinge and computes ``∂/∂q`` in the
-same pass; where σ_obs is trained it also keeps the squared hinges, and the
-backward's :func:`k1_dsigma` reduces them to ``∂/∂σ``. On a CPU tensor it
-runs :func:`log_prob_plain`.
+tensor it runs kernel K1 (``csrc/k1_collision.cuh``) in the scene's lookup
+mode (``packed``, ``nearest`` or ``trilinear``) and the session's dtype
+(float32 or float64): K1 fuses FK, the grid lookup and the hinge and
+computes ``∂/∂q`` in the same pass; where σ_obs is trained it also keeps the
+squared hinges, and the backward's :func:`k1_dsigma` reduces them to
+``∂/∂σ``. On a CPU tensor it runs :func:`log_prob_plain`; it never hands a
+CUDA tensor to it.
 
 Both kernels compose the scene's extra grids and analytic primitives as
 :meth:`vgpmp_torch.scene.Scene.distance` does; :class:`SceneTables` holds
@@ -15,7 +17,7 @@ them as the kernels read them, built once per model, and
 
 ``min_clearance_eval`` is the success metric's clearance: the minimum over
 spheres of the trilinear-interpolated clearance. On a CUDA tensor it runs
-kernel K3 (``csrc/k3_clearance.cu``), on a CPU tensor
+kernel K3 (``csrc/k3_clearance.cuh``, float32 or float64), on a CPU tensor
 :func:`min_clearance_eval_plain`. ``probe_clearance`` is the metric's pass
 over the PD-path probes: the same clearance, the tapered floor's compare and
 the count of violated probes per segment. On a CUDA tensor it runs K3's fused
@@ -49,7 +51,9 @@ def joint_sigmoid_inverse(q: torch.Tensor, low, high) -> torch.Tensor:
     return sigmoid_box_inverse(q, low, high)
 
 
-EXTRAS_FLOATS = 4096  # the room K1's and K3's tiles leave under 48 KB of shared memory
+EXTRAS_FLOATS = 4096  # the room K1's and K3's float32 tiles leave under 48 KB of shared memory
+K1_MODES = {"packed": 0, "nearest": 1, "trilinear": 2}  # csrc/kernels.h:K1Mode
+KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
 def _prim_counts(p) -> List[int]:
@@ -61,30 +65,32 @@ def _prim_counts(p) -> List[int]:
 
 def _pose_tables(scene: Scene, device):
     """The pose-dependent tables: ``grid_f [G, 7]`` (each extra grid's world
-    offset, origin and delta) and the primitives' floats, float32."""
-    f32 = dict(dtype=torch.float32, device=device)
+    offset, origin and delta) and the primitives' values, in the base grid's
+    dtype."""
+    fd = dict(dtype=scene.base.data.dtype, device=device)
     grids = scene.extra_grids
     if grids:
-        grid_f = torch.cat([scene.extra_offsets.to(**f32), torch.stack([g.origin for g in grids]).to(**f32),
-                            torch.stack([g.delta for g in grids]).to(**f32)[:, None]], dim=1)
+        grid_f = torch.cat([scene.extra_offsets.to(**fd), torch.stack([g.origin for g in grids]).to(**fd),
+                            torch.stack([g.delta for g in grids]).to(**fd)[:, None]], dim=1)
     else:
-        grid_f = torch.zeros((0, 7), **f32)
-    p = scene.primitives if scene.primitives is not None else Primitives.empty(torch.float32, device)
+        grid_f = torch.zeros((0, 7), **fd)
+    p = scene.primitives if scene.primitives is not None else Primitives.empty(fd["dtype"], device)
     rows = [torch.cat([p.sphere_centers, p.sphere_radii[:, None]], dim=1),
             torch.cat([p.box_centers, p.box_rotations.reshape(-1, 9), p.box_half_extents], dim=1),
             torch.cat([p.capsule_a, p.capsule_b, p.capsule_radii[:, None]], dim=1)]
-    return grid_f.contiguous(), torch.cat([r.reshape(-1).to(**f32) for r in rows])
+    return grid_f.contiguous(), torch.cat([r.reshape(-1).to(**fd) for r in rows])
 
 
 @dataclass
 class SceneTables:
     """A scene's extra grids and primitives as K1 and K3 read them
-    (``csrc/kernels.h:SceneExtras``), on the scene's device: ``grid_f [G, 7]``
-    float32 (world offset, origin, delta), ``grid_i [G, 4]`` int32 (nx, ny,
-    nz, first cell), the grids' packed words concatenated (``words [n, 2]``,
-    for K1; empty unless the scene is packed) and their float32 values
-    (``data [n]``, for K3), the primitives' floats (spheres, boxes, capsules)
-    and their ``counts``. Empty for a scene of the base grid alone."""
+    (``csrc/kernels.h:SceneExtras``), on the scene's device and in its base
+    grid's dtype: ``grid_f [G, 7]`` (world offset, origin, delta), ``grid_i
+    [G, 4]`` int32 (nx, ny, nz, first cell), the grids' packed words
+    concatenated (``words [n, 2]``, for K1 in packed mode; empty unless the
+    scene is packed) and their values (``data [n]``, for K1's other modes and
+    K3), the primitives' values (spheres, boxes, capsules) and their
+    ``counts``. Empty for a scene of the base grid alone."""
 
     grid_f: torch.Tensor
     grid_i: torch.Tensor
@@ -108,8 +114,9 @@ class SceneTables:
                               device=dev).reshape(-1, 4)
         words = (torch.cat([p.words for p in scene.extra_packed]) if scene.extra_packed
                  else torch.zeros((0, 2), dtype=torch.int32, device=dev))
-        data = (torch.cat([g.data.reshape(-1) for g in scene.extra_grids]).to(torch.float32)
-                if shapes else torch.zeros(0, dtype=torch.float32, device=dev))
+        dt = scene.base.data.dtype
+        data = (torch.cat([g.data.reshape(-1) for g in scene.extra_grids]).to(dt)
+                if shapes else torch.zeros(0, dtype=dt, device=dev))
         return cls(grid_f, grid_i, words, data, prims, _prim_counts(scene.primitives))
 
     def _fits(self):
@@ -120,9 +127,10 @@ class SceneTables:
             raise ValueError(f"the scene's extras take {n} floats of a block's shared memory in K1 "
                              f"and K3, more than {EXTRAS_FLOATS}")
 
-    def k1_args(self):
+    def k1_args(self, packed: bool = True):
+        """The extras for K1: the packed words in packed mode, else the values."""
         self._fits()
-        return self.grid_f, self.grid_i, self.words, self.prims, self.counts
+        return self.grid_f, self.grid_i, self.words if packed else self.data, self.prims, self.counts
 
     def k3_args(self):
         self._fits()
@@ -212,9 +220,11 @@ class CollisionModel:
         """``[..., L] -> [...]`` collision log-density.
 
         ``sigma_obs``: ``[P]``, or ``[B, P]`` with one row per leading
-        ``configs`` row (per-problem σ in a batch).
+        ``configs`` row (per-problem σ in a batch). K1 on a CUDA tensor, in
+        every lookup mode and dtype it takes (:func:`k1_loglik` raises on
+        another); the plain version on a CPU tensor.
         """
-        if configs.is_cuda and self.scene.mode == "packed":
+        if configs.is_cuda:
             return _k1_log_prob(self, configs, sigma_obs)
         return log_prob_plain(self, configs, sigma_obs)
 
@@ -232,34 +242,55 @@ def log_prob_plain(model: CollisionModel, configs: torch.Tensor, sigma_obs: torc
     return -0.5 * (cost * cost / _sigma_rows(sigma_obs, configs)).sum(dim=-1)
 
 
+def _kernel_dtype(what: str, model: CollisionModel, *xs: torch.Tensor) -> None:
+    """Refuse, before a launch, tensors whose dtype is not the model's (float32
+    or float64): the binding's own checks would fail inside the extension."""
+    dt = model.fk.k1_robot.dtype
+    if dt not in KERNEL_DTYPES or model.scene.base.data.dtype != dt:
+        raise TypeError(f"{what}: K1 and K3 take float32 or float64 models, got FK tables of {dt} "
+                        f"and a grid of {model.scene.base.data.dtype}")
+    for x in xs:
+        if x.dtype != dt:
+            raise TypeError(f"{what}: takes {dt} tensors for this model, got {x.dtype}")
+
+
 def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad: bool,
               h2: bool = False):
-    """K1 launch: ``q [T, dof]`` float32 CUDA, ``sigma [R, P]`` float32 with
-    ``T`` a multiple of ``R`` (config ``t`` uses row ``t // (T/R)``) ->
-    ``(lik [T], dlik/dq [T, dof] or None, h² [P, T] or None)``; ``h2`` (with
-    ``grad``) also returns the squared hinges that :func:`k1_dsigma` reads.
-    ``launches_h2`` counts the launches that wrote them."""
+    """K1 launch: ``q [T, dof]`` CUDA in the model's dtype (float32 or
+    float64), ``sigma [R, P]`` likewise with ``T`` a multiple of ``R`` (config
+    ``t`` uses row ``t // (T/R)``) -> ``(lik [T], dlik/dq [T, dof] or None,
+    h² [P, T] or None)``; ``h2`` (with ``grad``) also returns the squared
+    hinges that :func:`k1_dsigma` reads. The scene's mode picks the lookup:
+    the packed words, or the grid itself (``nearest``, ``trilinear``).
+    ``launches`` counts every launch, ``launches_h2`` those that wrote h²,
+    and ``launches_by`` those of each (mode, dtype)."""
     scene, fk = model.scene, model.fk
     if not q.is_cuda:
         raise ValueError(f"k1_loglik: needs CUDA tensors, got q on {q.device}")
     if q.shape[-1] != fk.dof:
         raise ValueError(f"k1_loglik: q has {q.shape[-1]} joints, the robot {fk.dof}")
-    if scene.mode != "packed":
-        raise ValueError("k1_loglik: needs a packed scene")
+    if scene.mode not in K1_MODES:
+        raise ValueError(f"k1_loglik: no K1 lookup for the SDF mode {scene.mode!r}; it takes "
+                         f"{sorted(K1_MODES)}")
     if h2 and not grad:
         raise ValueError("k1_loglik: h2 is written only beside the gradient")
-    packed = scene.base_packed
+    _kernel_dtype("k1_loglik", model, q, sigma)
+    packed = scene.mode == "packed"
+    table = scene.base_packed.words if packed else scene.base.data.contiguous()
     lik, dlik, sq = _build.load().k1_loglik(
-        q, sigma, fk.k1_robot, fk.k1_spheres, packed.words, fk.craig, grad, h2,
-        [*model._base_offset_host, *packed.host_origin, packed.host_delta], list(packed.shape),
-        model.epsilon, *model.tables.k1_args())
+        q, sigma, fk.k1_robot, fk.k1_spheres, table, K1_MODES[scene.mode], fk.craig, grad, h2,
+        [*model._base_offset_host, *model._grid_host], list(scene.base.shape), model.epsilon,
+        *model.tables.k1_args(packed))
     k1_loglik.launches += 1
     k1_loglik.launches_h2 += int(h2)
+    key = (scene.mode, str(q.dtype).removeprefix("torch."))
+    k1_loglik.launches_by[key] = k1_loglik.launches_by.get(key, 0) + 1
     return lik, dlik, sq
 
 
 k1_loglik.launches = 0
 k1_loglik.launches_h2 = 0
+k1_loglik.launches_by = {}
 
 
 def dsigma_plain(g: torch.Tensor, h2: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -274,13 +305,16 @@ def dsigma_plain(g: torch.Tensor, h2: torch.Tensor, sigma: torch.Tensor) -> torc
 
 def k1_dsigma(g: torch.Tensor, h2: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """K1's d/dσ launch: the upstream gradient ``g [T]``, the forward's squared
-    hinges ``h2 [P, T]`` and ``sigma [R, P]``, float32 CUDA -> ``[R, P]``
-    (see :func:`dsigma_plain`)."""
+    hinges ``h2 [P, T]`` and ``sigma [R, P]``, CUDA, all float32 or all
+    float64 -> ``[R, P]`` (see :func:`dsigma_plain`)."""
     if not g.is_cuda:
         raise ValueError(f"k1_dsigma: needs CUDA tensors, got g on {g.device}")
     if g.ndim != 1 or h2.shape != (sigma.shape[-1], g.shape[0]):
         raise ValueError(f"k1_dsigma: g {tuple(g.shape)}, h2 {tuple(h2.shape)} and sigma "
                          f"{tuple(sigma.shape)} are not [T], [P, T] and [R, P]")
+    if g.dtype not in KERNEL_DTYPES or h2.dtype != g.dtype or sigma.dtype != g.dtype:
+        raise TypeError(f"k1_dsigma: takes float32 or float64 tensors of one dtype, got "
+                        f"{g.dtype}, {h2.dtype} and {sigma.dtype}")
     out = _build.load().k1_dsigma(g.contiguous(), h2, sigma.contiguous())
     k1_dsigma.launches += 1
     return out
@@ -296,32 +330,39 @@ def min_clearance_eval_plain(model: CollisionModel, configs: torch.Tensor) -> to
 
 
 def k3_min_clearance(model: CollisionModel, q: torch.Tensor) -> torch.Tensor:
-    """K3 launch: ``q [T, dof]`` float32 CUDA -> ``[T]`` minimum over spheres of
-    the trilinear clearance against the scene (base grid, extra grids and
-    primitives)."""
+    """K3 launch: ``q [T, dof]`` CUDA in the model's dtype (float32 or
+    float64) -> ``[T]`` minimum over spheres of the trilinear clearance
+    against the scene (base grid, extra grids and primitives).
+    ``launches_by`` counts the launches of each dtype."""
     scene, fk = model.scene, model.fk
     if not q.is_cuda:
         raise ValueError(f"k3_min_clearance: needs CUDA tensors, got q on {q.device}")
     if q.shape[-1] != fk.dof:
         raise ValueError(f"k3_min_clearance: q has {q.shape[-1]} joints, the robot {fk.dof}")
+    _kernel_dtype("k3_min_clearance", model, q)
     out = _build.load().k3_min_clearance(
         q, fk.k1_robot, fk.k1_spheres, scene.base.data, fk.craig,
         [*model._base_offset_host, *model._grid_host], *model.tables.k3_args())
     k3_min_clearance.launches += 1
+    key = str(q.dtype).removeprefix("torch.")
+    k3_min_clearance.launches_by[key] = k3_min_clearance.launches_by.get(key, 0) + 1
     return out
 
 
 k3_min_clearance.launches = 0
+k3_min_clearance.launches_by = {}
 
 
 def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tensor,
                        q_g: torch.Tensor, depth_s: torch.Tensor, depth_g: torch.Tensor,
                        visited: torch.Tensor, seg_idx: torch.Tensor, T: int, radius: float,
                        slack: float):
-    """K3's fused entry: ``qs [B, G, dof]`` float32 CUDA probes, per row the
-    endpoints ``q_s``/``q_g [B, dof]``, their depths ``[B]`` and ``visited [B]``
-    bool, ``seg_idx [B, G]`` int64 -> ``(clear [B, G], seg_count [B, T]
-    int32)`` in one launch (see :func:`vgpmp_torch.sim.probe_clearance_plain`)."""
+    """K3's fused entry: ``qs [B, G, dof]`` CUDA probes in the model's dtype
+    (float32 or float64), per row the endpoints ``q_s``/``q_g [B, dof]`` and
+    their depths ``[B]`` in the same dtype, ``visited [B]`` bool, ``seg_idx
+    [B, G]`` int64 -> ``(clear [B, G], seg_count [B, T] int32)`` in one launch
+    (see :func:`vgpmp_torch.sim.probe_clearance_plain`). ``launches_by``
+    counts the launches of each dtype."""
     scene, fk = model.scene, model.fk
     if not qs.is_cuda:
         raise ValueError(f"k3_probe_clearance: needs CUDA tensors, got qs on {qs.device}")
@@ -332,6 +373,7 @@ def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tenso
     if shapes != [(B, L), (B, L), (B,), (B,), (B,), (B, G)]:
         raise ValueError(f"k3_probe_clearance: q_s, q_g, depth_s, depth_g, visited and seg_idx "
                          f"{shapes} do not match qs {tuple(qs.shape)}")
+    _kernel_dtype("k3_probe_clearance", model, qs, q_s, q_g, depth_s, depth_g)
     clear, count = _build.load().k3_probe_clearance(
         qs.detach().reshape(B * G, L).contiguous(), fk.k1_robot, fk.k1_spheres, scene.base.data,
         fk.craig, [*model._base_offset_host, *model._grid_host], q_s.detach().contiguous(),
@@ -339,10 +381,13 @@ def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tenso
         visited.contiguous(), seg_idx.contiguous(), int(T), float(radius), float(slack),
         *model.tables.k3_args())
     k3_probe_clearance.launches += 1
+    key = str(qs.dtype).removeprefix("torch.")
+    k3_probe_clearance.launches_by[key] = k3_probe_clearance.launches_by.get(key, 0) + 1
     return clear.reshape(B, G), count
 
 
 k3_probe_clearance.launches = 0
+k3_probe_clearance.launches_by = {}
 
 
 class _K1Fn(torch.autograd.Function):

@@ -1,4 +1,4 @@
-"""Small batched linear algebra for the conditioned-Gram island (float64).
+"""Small batched linear algebra for the conditioned-Gram island.
 
 Port of ``vgpmp_tpu/ops/linalg.py``. The plain versions
 (:func:`cholesky_unrolled`, :func:`solve_lower_unrolled`,
@@ -8,9 +8,12 @@ negative pivot gives NaN through ``sqrt`` and is never clamped.
 
 On a CUDA tensor the entry points (:func:`chol`, :func:`solve_lower`,
 :func:`solve_upper_T`, :func:`cho_solve`, :func:`factor_solve`) run kernel K2
-(``csrc/k2_linalg.cu``) through ``torch.autograd.Function``s whose backward
+(``csrc/k2_linalg.cuh``) through ``torch.autograd.Function``s whose backward
 passes are K2 launches too; on a CPU tensor they run the plain versions.
-K2 takes float64 and ``n <= 32``; anything else on CUDA raises.
+K2 takes float64 (the island of a float32 session, and float64 sessions) and
+float32 (a session whose ``solve_dtype`` is float32) for ``n <=``
+:data:`KERNEL_MAX_N` (128): a warp's rows up to ``n = 32``, a block a matrix
+above. Another dtype, or a larger ``n``, raises on CUDA before any launch.
 
 :func:`factor_solve` is the fused pair: the factorisation and the forward
 substitution of every right-hand side that shares the factor in one launch
@@ -26,7 +29,7 @@ import torch
 from vgpmp_torch import _build
 
 __all__ = [
-    "MAX_UNROLL", "KERNEL_MAX_N",
+    "MAX_UNROLL", "KERNEL_MAX_N", "KERNEL_DTYPES",
     "cholesky_unrolled", "solve_lower_unrolled", "solve_upper_T_unrolled",
     "cho_solve_unrolled", "factor_solve_plain", "factor_solve_bwd_plain",
     "k2_chol", "k2_trsm", "k2_factor_solve", "k2_factor_solve_bwd",
@@ -34,7 +37,8 @@ __all__ = [
 ]
 
 MAX_UNROLL = 40   # plain path: unrolled up to here, torch.linalg beyond (CPU only)
-KERNEL_MAX_N = 32  # K2: one warp per matrix row set
+KERNEL_MAX_N = 128  # K2 (csrc/kernels.h:K2_MAX_N): what a block's shared memory holds in float64
+KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
 # ----------------------------------------------------------------- plain versions
@@ -115,56 +119,65 @@ def factor_solve_bwd_plain(L: torch.Tensor, X: torch.Tensor, gL: torch.Tensor, g
 # ----------------------------------------------------------------- K2 wrappers
 
 
-def _require_cuda(x: torch.Tensor, what: str) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"{what}: needs CUDA tensors, got one on {x.device}")
+def _k2_checks(what: str, K: torch.Tensor, *others: torch.Tensor) -> None:
+    """What K2 takes, checked before a launch: CUDA tensors of one dtype,
+    float32 or float64, and square matrices ``[T, n, n]`` with ``n <=``
+    :data:`KERNEL_MAX_N` (a failing check inside the extension can take the
+    process down)."""
+    if not K.is_cuda:
+        raise ValueError(f"{what}: needs CUDA tensors, got one on {K.device}")
+    if K.ndim != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"{what}: needs square matrices [T, n, n], got {tuple(K.shape)}")
+    _cuda_n(K, what, *others)
+
+
+def _count(fn, x: torch.Tensor) -> None:
+    """One launch of the K2 wrapper ``fn``, in all and by dtype."""
+    fn.launches += 1
+    key = str(x.dtype).removeprefix("torch.")
+    fn.launches_by[key] = fn.launches_by.get(key, 0) + 1
 
 
 def k2_chol(K: torch.Tensor) -> torch.Tensor:
-    """K2 Cholesky: ``K [T, n, n]`` float64 on CUDA, ``n <= 32`` -> lower ``L``."""
-    _require_cuda(K, "k2_chol")
+    """K2 Cholesky: ``K [T, n, n]`` float32 or float64 on CUDA, ``n <= 128``
+    -> lower ``L`` (NaN from a non-positive pivot on, in that matrix only)."""
+    _k2_checks("k2_chol", K)
     L = _build.load().k2_chol(K)
-    k2_chol.launches += 1
+    _count(k2_chol, K)
     return L
-
-
-k2_chol.launches = 0
 
 
 def k2_trsm(L: torch.Tensor, B: torch.Tensor, upper_t: bool) -> torch.Tensor:
     """K2 triangular solve: ``L X = B`` (``upper_t`` False) or ``Lᵀ X = B``
-    (True), ``L [T, n, n]``, ``B [T, n, k]`` float64 on CUDA, ``n <= 32``."""
-    _require_cuda(L, "k2_trsm")
+    (True), ``L [T, n, n]``, ``B [T, n, k]`` float32 or float64 on CUDA,
+    ``n <= 128``."""
+    _k2_checks("k2_trsm", L, B)
     X = _build.load().k2_trsm(L, B, upper_t)
-    k2_trsm.launches += 1
+    _count(k2_trsm, L)
     return X
 
 
-k2_trsm.launches = 0
-
-
 def k2_factor_solve(K: torch.Tensor, B: torch.Tensor):
-    """K2 fused pair, forward: ``K [T, n, n]``, ``B [T, n, k]`` float64 on CUDA,
-    ``n <= 32`` -> ``(L, X = L⁻¹B)`` in one launch."""
-    _require_cuda(K, "k2_factor_solve")
+    """K2 fused pair, forward: ``K [T, n, n]``, ``B [T, n, k]`` float32 or
+    float64 on CUDA, ``n <= 128`` -> ``(L, X = L⁻¹B)`` in one launch."""
+    _k2_checks("k2_factor_solve", K, B)
     L, X = _build.load().k2_factor_solve(K, B)
-    k2_factor_solve.launches += 1
+    _count(k2_factor_solve, K)
     return L, X
-
-
-k2_factor_solve.launches = 0
 
 
 def k2_factor_solve_bwd(L: torch.Tensor, X: torch.Tensor, gL: torch.Tensor, gX: torch.Tensor):
     """K2 fused pair, backward: ``(L, X, L̄, X̄) -> (K̄, B̄)`` in one launch, as
     :func:`factor_solve_bwd_plain`."""
-    _require_cuda(L, "k2_factor_solve_bwd")
+    _k2_checks("k2_factor_solve_bwd", L, X, gL, gX)
     gK, gB = _build.load().k2_factor_solve_bwd(L, X, gL, gX)
-    k2_factor_solve_bwd.launches += 1
+    _count(k2_factor_solve_bwd, L)
     return gK, gB
 
 
-k2_factor_solve_bwd.launches = 0
+for _fn in (k2_chol, k2_trsm, k2_factor_solve, k2_factor_solve_bwd):
+    _fn.launches, _fn.launches_by = 0, {}
+del _fn
 
 
 class _FactorSolveFn(torch.autograd.Function):
@@ -225,10 +238,17 @@ class _TrsmFn(torch.autograd.Function):
 # ----------------------------------------------------------------- entry points
 
 
-def _cuda_n(L: torch.Tensor, what: str) -> int:
+def _cuda_n(L: torch.Tensor, what: str, *others: torch.Tensor) -> int:
+    """The matrices' size, checked against K2's envelope before any launch
+    (a failing check inside the extension can take the process down)."""
     n = L.shape[-1]
     if n > KERNEL_MAX_N:
-        raise ValueError(f"{what}: K2 takes n <= {KERNEL_MAX_N} on CUDA, got n={n}")
+        raise ValueError(f"{what}: K2 takes n <= {KERNEL_MAX_N} on CUDA (the most a block's shared "
+                         f"memory holds in float64), got n={n}")
+    for x in (L, *others):
+        if x.dtype not in KERNEL_DTYPES or x.dtype != L.dtype:
+            raise TypeError(f"{what}: K2 takes float32 or float64 tensors of one dtype on CUDA, got "
+                            f"{L.dtype} and {x.dtype}")
     return n
 
 
@@ -244,7 +264,7 @@ def chol(K: torch.Tensor) -> torch.Tensor:
 
 
 def _solve(L: torch.Tensor, B: torch.Tensor, upper_t: bool) -> torch.Tensor:
-    n = _cuda_n(L, "solve")
+    n = _cuda_n(L, "solve", B)
     batch = torch.broadcast_shapes(L.shape[:-2], B.shape[:-2])
     Lf = L.expand(batch + (n, n)).reshape(-1, n, n).contiguous()
     Bf = B.expand(batch + B.shape[-2:]).reshape(-1, n, B.shape[-1]).contiguous()
@@ -279,7 +299,7 @@ def factor_solve(K: torch.Tensor, B: torch.Tensor):
     ``B [..., n, k]`` with the same leading axes. On CUDA one fused K2 launch;
     on the CPU :func:`chol` then :func:`solve_lower`."""
     if K.is_cuda:
-        n = _cuda_n(K, "factor_solve")
+        n = _cuda_n(K, "factor_solve", B)
         if B.shape[:-1] != K.shape[:-1]:
             raise ValueError(f"factor_solve: B {tuple(B.shape)} does not match K {tuple(K.shape)}")
         L, X = _FactorSolveFn.apply(K.reshape(-1, n, n).contiguous(),

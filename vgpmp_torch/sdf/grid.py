@@ -264,9 +264,11 @@ def trilinear_cell(grid: SdfGrid, points: torch.Tensor):
     """The cell a trilinear lookup interpolates in: its base corner ``[..., 3]``
     int64 and the fractions ``[..., 3]`` inside it. The relative position is
     clamped to ``[0, n-1]`` and the base index to ``[0, n-2]``, so a fraction
-    reaches exactly 1 on the upper border."""
+    reaches exactly 1 on the upper border. The clamp is JAX's ``jnp.clip``, a
+    maximum then a minimum, so its gradient is halved where the position lies
+    exactly on the border (``torch.clamp``'s would pass it whole)."""
     nmax = torch.tensor([s - 1 for s in grid.data.shape], dtype=points.dtype, device=points.device)
-    rel = torch.clamp((points - grid.origin) / grid.delta, torch.zeros_like(nmax), nmax)
+    rel = torch.minimum(torch.maximum((points - grid.origin) / grid.delta, torch.zeros_like(nmax)), nmax)
     nmax_i = (nmax - 1).to(torch.int64)
     i0 = torch.clamp(torch.floor(rel).to(torch.int64), torch.zeros_like(nmax_i), nmax_i)
     return i0, rel - i0.to(points.dtype)

@@ -57,9 +57,11 @@ def base_pose_matrix(position, orientation_xyzw) -> np.ndarray:
 class PlanningSession:
     """One robot x environment planning context.
 
-    ``sdf_mode``: ``'packed'`` (bf16 fast path, kernel K1 on CUDA),
-    ``'nearest'`` or ``'trilinear'``. ``use_tuned`` applies the problemset's
-    ``planner_params_tuned`` overlay; ``overrides`` go on top.
+    ``sdf_mode``: ``'packed'`` (bf16 fast path), ``'nearest'`` (the
+    reference's nearest cell and central-difference gradient) or
+    ``'trilinear'``; on CUDA kernel K1 runs each of the three, in the
+    session's ``dtype`` (float32 or float64). ``use_tuned`` applies the
+    problemset's ``planner_params_tuned`` overlay; ``overrides`` go on top.
     """
 
     robot_name: str
