@@ -103,8 +103,9 @@ Phases, any failure exits non-zero before the result line:
     use_tuned=False)`` at full width through K1-nearest (once a step, no
     plain ``log_prob`` on the card), its verdicts against the CPU plain path
     and its executed count beside JAX's ``RESULTS_r05_parity.json``; (t3) K2
-    at n = 40, 64 and 128 (the block design) and in float32 at n = 12, 26
-    and 40 against the plain versions, timed beside ``torch.linalg``; 20-step
+    at n = 40, 64 and 128 (the block design: panels of 32, the float64
+    products on the tensor cores) and in float32 at n = 12, 26, 40, 64 and
+    128 against the plain versions, timed beside ``torch.linalg``; 20-step
     solves at Mc = 40 (fused, and with ``jitter_escalations=1``), and a
     20-step float32-island solve (``solve_dtype`` float32, jitter 1e-6, 3
     escalations: ``k2_chol`` and ``k2_trsm`` in float32), its first ELBO
@@ -131,7 +132,8 @@ records. Prints one JSON line for each of (k)–(s), the
 card's name and power limit, a ``kernels`` JSON line (K1 and its d/dσ pair,
 K2 with the fused pair's velocity shapes, K3, K4, K1 and K3 on (o)'s
 scene, and (t)'s rows: K1-nearest, K1-trilinear, K1 and K3 in float64, K2's
-block design at n = 40 and its float32 ``k2_chol`` and ``k2_trsm``), and as
+block design at n = 40 (``[n=40]``, ``"design": "blocked"``, with n = 64 and 128
+in the record) and its float32 ``k2_chol`` and ``k2_trsm``), and as
 the last line
 ``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
@@ -150,10 +152,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 and
-# float64 rates outside the tensor cores.
+# float64 rates outside the tensor cores, and float64 on the tensor cores
+# (DMMA), where K2's block design runs its products.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
+F64_TC_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -163,6 +167,16 @@ def log(msg: str) -> None:
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_bound(entry: str, T: int, n: int, k: int, itemsize: int, peak_flops: float):
+    """The bound of a K2 entry on ``T`` matrices from what each must move and
+    compute (``vgpmp_torch.ops.linalg.k2_work``: triangular inputs read as
+    their lower triangles)."""
+    from vgpmp_torch.ops.linalg import k2_work
+
+    values, ops = k2_work(entry, n, k)
+    return bound_ms(T * values * itemsize, T * ops, peak_flops)
 
 
 def k1_inputs(torch, sess):
@@ -415,7 +429,7 @@ def k2_phase(torch, sess, flush):
         """``k2_chol`` at ``[T, n, n]`` beside the plain version,
         ``torch.linalg.cholesky`` and the bound."""
         Tt, nt = K.shape[0], K.shape[-1]
-        b_ms, b_by = bound_ms(2 * Tt * nt * nt * 8, Tt * nt ** 3 / 3, F64_FLOPS)
+        b_ms, b_by = k2_bound("chol", Tt, nt, 0, 8, F64_FLOPS)
         return {"ms": time_ms(lambda: la.k2_chol(K), flush=flush),
                 "plain_ms": time_ms(lambda: la.cholesky_unrolled(K), flush=flush),
                 "library_ms": time_ms(lambda: torch.linalg.cholesky(K), flush=flush),
@@ -426,7 +440,7 @@ def k2_phase(torch, sess, flush):
         version, ``solve_triangular`` and the bound."""
         Tt, nt = L.shape[0], L.shape[-1]
         Bm = torch.randn((Tt, nt, k), generator=gen, device=dev, dtype=torch.float64)
-        b_ms, b_by = bound_ms((Tt * nt * nt + 2 * Tt * nt * k) * 8, Tt * nt * nt * k, F64_FLOPS)
+        b_ms, b_by = k2_bound("trsm", Tt, nt, k, 8, F64_FLOPS)
         return {"ms": time_ms(lambda: la.k2_trsm(L, Bm, False), flush=flush),
                 "plain_ms": time_ms(lambda: la.solve_lower_unrolled(L, Bm), flush=flush),
                 "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bm, upper=False),
@@ -468,8 +482,7 @@ def k2_phase(torch, sess, flush):
     fused_by_k = {}
     for k in (71, 251):
         Bm = torch.randn((Tm, n, k), generator=gen, device=dev, dtype=torch.float64)
-        b_ms, b_by = bound_ms((2 * Tm * n * n + 2 * Tm * n * k) * 8, Tm * (n ** 3 / 3 + n * n * k),
-                              F64_FLOPS)
+        b_ms, b_by = k2_bound("pair", Tm, n, k, 8, F64_FLOPS)
         fused_by_k[k] = {"ms": time_ms(lambda: la.k2_factor_solve(Kc, Bm), flush=flush),
                          "plain_ms": time_ms(lambda: la.factor_solve_plain(Kc, Bm), flush=flush),
                          "library_ms": time_ms(lambda: library_pair(Bm), flush=flush),
@@ -485,10 +498,7 @@ def k2_phase(torch, sess, flush):
     fused_bwd = {"ms": time_ms(lambda: la.k2_factor_solve_bwd(Lf, Xf, gL, gX), flush=flush),
                  "plain_ms": time_ms(lambda: la.factor_solve_bwd_plain(Lf, Xf, gL, gX), flush=flush),
                  "library_ms": None}
-    # one substitution of k columns, the lower half of dB X^T, L^T G and two
-    # substitutions of n columns
-    fused_bwd["bound_ms"], fused_bwd["bound_by"] = bound_ms(
-        (3 * Tm * n * n + 3 * Tm * n * kf) * 8, Tm * (2 * n * n * kf + 7 * n ** 3 / 3), F64_FLOPS)
+    fused_bwd["bound_ms"], fused_bwd["bound_by"] = k2_bound("bwd", Tm, n, kf, 8, F64_FLOPS)
     log(f"K2 chol [{Tm},{n},{n}]: " + json.dumps(chol))
     for k, v in trsm.items():
         log(f"K2 trsm [{Tm},{n},{k}] (lower, and upper_t): " + json.dumps(v))
@@ -1452,7 +1462,7 @@ def velocity_phase(torch, sess, cpu, flush):
             Ll = torch.linalg.cholesky(K)
             return Ll, torch.linalg.solve_triangular(Ll, Bm, upper=False)
 
-        b_ms, b_by = bound_ms((2 * T * n * n + 2 * T * n * k) * 8, T * (n ** 3 / 3 + n * n * k), F64_FLOPS)
+        b_ms, b_by = k2_bound("pair", T, n, k, 8, F64_FLOPS)
         shapes[label] = {"combo": f"{robot}/{ps}", "shape": [T, n, k], "max_rel_err": err,
                          "ms": time_ms(lambda: la.k2_factor_solve(K, Bm), flush=flush),
                          "plain_ms": time_ms(lambda: la.factor_solve_plain(K, Bm), flush=flush),
@@ -2727,12 +2737,14 @@ def k2_times(torch, n, dtype, dev, gen, flush, T=252, k_trsm=100, k_fused=71):
     """``k2_chol``, ``k2_trsm`` (k columns), the fused pair and its backward
     at ``[T, n, n]`` in ``dtype``, each beside its plain version, the library
     call (``torch.linalg.cholesky``, ``solve_triangular``, both for the pair)
-    and the bound (bytes read and written once, float64 or float32 peak)."""
+    and the bound (:func:`k2_bound`; the operations at the float64 tensor
+    cores' peak, where the block design runs its products, or the float32
+    peak)."""
     from vgpmp_torch.ops import linalg as la
     from vgpmp_torch.timing import time_ms
 
     es = torch.finfo(dtype).bits // 8
-    peak = F64_FLOPS if dtype == torch.float64 else F32_FLOPS
+    peak = F64_TC_FLOPS if dtype == torch.float64 else F32_FLOPS
     K = _spd(torch, T, n, dtype, dev, gen)
     L = la.k2_chol(K)
     Bt = torch.randn((T, n, k_trsm), generator=gen, device=dev, dtype=torch.float64).to(dtype)
@@ -2740,12 +2752,12 @@ def k2_times(torch, n, dtype, dev, gen, flush, T=252, k_trsm=100, k_fused=71):
     gL = torch.randn((T, n, n), generator=gen, device=dev, dtype=torch.float64).to(dtype)
     Lf, Xf = la.k2_factor_solve(K, Bf)
     out = {}
-    b = bound_ms(2 * T * n * n * es, T * n ** 3 / 3, peak)
+    b = k2_bound("chol", T, n, 0, es, peak)
     out["chol"] = {"ms": time_ms(lambda: la.k2_chol(K), flush=flush),
                    "plain_ms": time_ms(lambda: la.cholesky_unrolled(K), reps=5, flush=flush),
                    "library_ms": time_ms(lambda: torch.linalg.cholesky(K), flush=flush),
                    "bound_ms": b[0], "bound_by": b[1]}
-    b = bound_ms((T * n * n + 2 * T * n * k_trsm) * es, T * n * n * k_trsm, peak)
+    b = k2_bound("trsm", T, n, k_trsm, es, peak)
     out["trsm"] = {"ms": time_ms(lambda: la.k2_trsm(L, Bt, False), flush=flush),
                    "plain_ms": time_ms(lambda: la.solve_lower_unrolled(L, Bt), reps=5, flush=flush),
                    "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bt, upper=False),
@@ -2757,13 +2769,12 @@ def k2_times(torch, n, dtype, dev, gen, flush, T=252, k_trsm=100, k_fused=71):
         Ll = torch.linalg.cholesky(K)
         return Ll, torch.linalg.solve_triangular(Ll, Bf, upper=False)
 
-    b = bound_ms((2 * T * n * n + 2 * T * n * k_fused) * es, T * (n ** 3 / 3 + n * n * k_fused), peak)
+    b = k2_bound("pair", T, n, k_fused, es, peak)
     out["factor_solve"] = {"ms": time_ms(lambda: la.k2_factor_solve(K, Bf), flush=flush),
                            "plain_ms": time_ms(lambda: la.factor_solve_plain(K, Bf), reps=5, flush=flush),
                            "library_ms": time_ms(library_pair, flush=flush),
                            "bound_ms": b[0], "bound_by": b[1], "k": k_fused}
-    b = bound_ms((3 * T * n * n + 3 * T * n * k_fused) * es, T * (2 * n * n * k_fused + 7 * n ** 3 / 3),
-                 peak)
+    b = k2_bound("bwd", T, n, k_fused, es, peak)
     out["factor_solve_bwd"] = {
         "ms": time_ms(lambda: la.k2_factor_solve_bwd(Lf, Xf, gL, Bf), flush=flush),
         "plain_ms": time_ms(lambda: la.factor_solve_bwd_plain(Lf, Xf, gL, Bf), reps=5, flush=flush),
@@ -2837,8 +2848,9 @@ def elbo_agreement(torch, card_res, cpu_res, rtol):
 
 def k2_envelope_phase(torch, sess, flush):
     """(t3) K2 above n = 32 and in float32: the four entries at n = 40, 64
-    and 128 (KERNEL_MAX_N) in float64 and at n = 12, 26 and 40 in float32
-    against their plain versions, timed; then (a) a 20-step solve whose
+    and 128 (KERNEL_MAX_N) in float64 and at n = 12, 26, 40, 64 and 128 in
+    float32 against their plain versions, timed beside the library calls;
+    then (a) a 20-step solve whose
     ``num_inducing`` is 38 (Mc = 40: the block design in the fused pair, its
     backward and the extraction's solves) and the same with
     ``jitter_escalations=1`` (the lone ``k2_chol`` and ``k2_trsm`` at n = 40);
@@ -2857,7 +2869,7 @@ def k2_envelope_phase(torch, sess, flush):
     for n in (40, 64, la.KERNEL_MAX_N):
         checks[f"f64_n{n}"] = k2_shapes_check(torch, n, torch.float64, dev, gen)
         times[f"f64_n{n}"] = k2_times(torch, n, torch.float64, dev, gen, flush)
-    for n in (12, 26, 40):
+    for n in (12, 26, 40, 64, la.KERNEL_MAX_N):
         checks[f"f32_n{n}"] = k2_shapes_check(torch, n, torch.float32, dev, gen)
         times[f"f32_n{n}"] = k2_times(torch, n, torch.float32, dev, gen, flush)
     log("(t3) K2 envelope check, largest absolute / relative error: "
@@ -3016,15 +3028,16 @@ def envelope_phase(torch, sess, flush):
     src, rep = "vgpmp_torch/csrc/k2_linalg.cuh", "vgpmp_tpu/ops/linalg.py:30"
     errs = k2["checks"]
     wide = k2["wide"]
-    # the block design at the driven path's n = 40 (times at 64 and 128 in the record)
+    # the block design (panels of 32, the float64 products on the tensor
+    # cores) at the driven path's n = 40 (times at 64 and 128 in the record)
     for name, launches, key, replaces in (
             ("k2_chol", wide["escalating"]["launches"]["k2_chol"], "chol", rep),
             ("k2_trsm", wide["fused"]["launches"]["k2_trsm"], "trsm", "vgpmp_tpu/ops/linalg.py:52"),
             ("k2_factor_solve", wide["fused"]["launches"]["k2_factor_solve"], "factor_solve", rep),
             ("k2_factor_solve_bwd", wide["fused"]["launches"]["k2_factor_solve_bwd"], "factor_solve_bwd", rep)):
         t = k2["times"]["f64_n40"][key]
-        rows.append({"name": f"{name}[n=40]", "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches, "max_abs_err": errs["f64_n40"][0],
+        rows.append({"name": f"{name}[n=40]", "design": "blocked", "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches, "max_abs_err": errs["f64_n40"][0],
                      "max_rel_err": errs["f64_n40"][1], **t,
                      "by_n": {n: {**k2["times"][f"f64_n{n}"][key], "max_abs_err": errs[f"f64_n{n}"][0]}
                               for n in (64, la.KERNEL_MAX_N)}})
@@ -3035,7 +3048,7 @@ def envelope_phase(torch, sess, flush):
                      "launches": island[name]["float32"], "max_abs_err": errs["f32_n12"][0],
                      "max_rel_err": errs["f32_n12"][1], **t,
                      "by_n": {n: {**k2["times"][f"f32_n{n}"][key], "max_abs_err": errs[f"f32_n{n}"][0]}
-                              for n in (26, 40)}})
+                              for n in (26, 40, 64, la.KERNEL_MAX_N)}})
     log(f"(t) took {time.perf_counter() - t0:.1f} s")
     return rows, {"grid_modes": {m: {k: v for k, v in r.items() if k != "name"} for m, r in grid.items()},
                   "parity": parity, "k2": k2, "float64": f64, "trilinear_solve_launches": trilinear_launches}
@@ -3144,10 +3157,10 @@ def main() -> int:
     k3po["launches"] = olaunch["k3_probe_clearance"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    kernels = [{k: v for k, v in d.items() if k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms", "velocity")} for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4,
-                                                                    k1o, k3o, k3po, *envelope_rows]]
+    keys = ("name", "design", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "velocity")
+    kernels = [{k: v for k, v in d.items() if k in keys}
+               for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
     record = {"card": smi, "build_s": secs,
               "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows],

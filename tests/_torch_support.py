@@ -199,3 +199,20 @@ def source_wins(scene, points, active=None, mode_override=None):
     if active is not None:
         win = win[active]
     return {n: int((win == i).sum()) for i, n in enumerate(names)}
+
+
+def mc40_grams():
+    """The real conditioned Grams of a franka/industrial session with
+    ``num_inducing = 38`` (Mc = 40, K2's block design), as a float64 CPU
+    tensor ``[252, 40, 40]``: the session's 36 queries x 7 joints at the
+    tuned init, jitter 1e-9; their condition number is ~8e9."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.models import vgpmp as tm
+    from vgpmp_torch.session import PlanningSession
+
+    s = PlanningSession("franka", "industrial", device="cpu", overrides={"num_inducing": 38})
+    starts, goals = s.queries()
+    params = solver.init_batch(s.model, starts, goals, s.planner_params)
+    with torch.no_grad():
+        K = tm._kuu(s.model, tm.constrain(params, s.model.variance_lower))
+    return K.reshape(-1, *K.shape[-2:]).contiguous()

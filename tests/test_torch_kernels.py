@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_support import cuda_device, smooth_grid, source_wins, torch_scene_with_objects  # noqa: F401
+from _torch_support import cuda_device, mc40_grams, smooth_grid, source_wins, torch_scene_with_objects  # noqa: F401
 from vgpmp_torch import robots, scene
 from vgpmp_torch.kinematics import dh
 from vgpmp_torch.likelihoods import collision as col
@@ -943,15 +943,19 @@ def test_k3_float64_composed_scene_on_card(robot, cuda_device):
 
 # (n, T, k): the block design at n = 33 (its first size), 40, 64 and 128
 # (KERNEL_MAX_N); T = 1 and 5 (a non-SPD matrix among others); k either side
-# of the solve's 64-column tile and of the backward's 8-column tile
+# of the solves' 128-column tile (129, 130: two blocks a matrix) and of the
+# backward's 16- to 64-column tiles; the last panel's ragged edges (n = 63,
+# 65, 96, 97, 127: 31, 1, 32, 1 and 31 rows); T = 252, more blocks than SMs;
+# k = 33 at n = 128, whose backward tile is narrower than k rounded up to 16
 K2_BIG_CASES = [(33, 5, 1), (40, 5, 7), (40, 1, 65), (64, 5, 64), (64, 5, 130), (100, 3, 9),
-                (128, 5, 1), (128, 3, 71), (128, 5, 129)]
+                (128, 5, 1), (128, 3, 71), (128, 5, 129), (63, 5, 33), (65, 5, 17), (96, 3, 100),
+                (97, 5, 71), (127, 3, 16), (128, 3, 33), (40, 252, 100), (128, 252, 71)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,T,k", K2_BIG_CASES)
 def test_k2_block_design_matches_plain_on_card(cuda_device, n, T, k):
-    """K2 above n = 32 (one block a matrix, the triangle in shared memory):
+    """K2 above n = 32 (one block a matrix, its lower tiles in shared memory):
     the lone factorisation and both solves, forward and backward, and the
     fused pair, forward and backward, against the plain versions; float64 on
     well-conditioned input, so 1e-9 relative (gradients 1e-8). A non-SPD
@@ -997,11 +1001,11 @@ def test_k2_block_design_matches_plain_on_card(cuda_device, n, T, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,T,k", [(12, 252, 1), (12, 252, 100), (12, 251, 71), (26, 253, 17),
-                                   (26, 251, 100), (40, 5, 20)])
+                                   (26, 251, 100), (40, 5, 20), (64, 5, 71), (128, 5, 100)])
 def test_k2_float32_matches_plain_on_card(cuda_device, n, T, k):
     """K2's float32 instantiations (the warp design at n = 12 and 26, the
-    block design at 40): the lone factorisation and solves, and the fused
-    pair, against the plain versions in float32; 1e-4 relative (+1e-5 of the
+    block design at 40, 64 and 128): the lone factorisation and solves, and
+    the fused pair, against the plain versions in float32; 1e-4 relative (+1e-5 of the
     largest entry: float32 sums in another order on matrices of condition
     ~10). A non-positive pivot gives NaN in its own matrix and in no
     neighbour of its warp or block, as the jitter escalation needs."""
@@ -1031,3 +1035,35 @@ def test_k2_float32_matches_plain_on_card(cuda_device, n, T, k):
     assert torch.isnan(L_f[bad]).any() and torch.isfinite(L_f[ok]).all()
     torch.testing.assert_close(L_f[ok], L_fp[ok], **tol(L_fp[ok]))
     torch.testing.assert_close(X_f[ok], X_fp[ok], **tol(X_fp[ok]))
+
+
+@pytest.mark.cuda
+def test_k2_block_design_on_real_grams_on_card(cuda_device):
+    """K2's block design on the real conditioned Grams of a franka/industrial
+    session at Mc = 40 (condition ~8e9), against the plain versions, all four
+    entries. Relative to the largest reference entry: the factor to 1e-9
+    (its rounding in another order, amplified by the square root of the
+    condition: 4e-11 in a float64 emulation of the blocked order); the solves
+    and the backward, given the same factor, to 1e-9 (4e-14 there); the
+    fused pair's X = L^-1 B, whose own factor differs by that 4e-11, to 1e-6
+    (the solve multiplies it by the factor's condition, ~1e5: 6e-8 there)."""
+    K = mc40_grams().to(cuda_device)
+    T, n = K.shape[0], K.shape[-1]
+    rng = np.random.default_rng(40)
+    Bm = torch.as_tensor(rng.normal(size=(T, n, 71)), device=cuda_device)
+    WL = torch.as_tensor(rng.normal(size=(T, n, n)), device=cuda_device)
+    close = lambda got, want, tol: torch.testing.assert_close(got, want, rtol=0,
+                                                              atol=tol * want.abs().max().item())
+    L_p = la.cholesky_unrolled(K)
+    close(la.k2_chol(K), L_p, 1e-9)
+    for upper_t, plain in [(False, la.solve_lower_unrolled), (True, la.solve_upper_T_unrolled)]:
+        close(la.k2_trsm(L_p, Bm, upper_t), plain(L_p, Bm), 1e-9)
+    L_f, X_f = la.k2_factor_solve(K, Bm)
+    L_q, X_q = la.factor_solve_plain(K, Bm)
+    close(L_f, L_q, 1e-9)
+    close(X_f, X_q, 1e-6)
+    gK, gB = la.k2_factor_solve_bwd(L_q, X_q, WL, Bm)
+    gK_p, gB_p = la.factor_solve_bwd_plain(L_q, X_q, WL, Bm)
+    close(gK, gK_p, 1e-9)
+    close(gB, gB_p, 1e-9)
+    assert torch.isfinite(gK).all() and torch.isfinite(X_f).all()

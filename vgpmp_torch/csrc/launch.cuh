@@ -8,13 +8,15 @@
 
 namespace {
 
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block of an H100 may take (227 KB)
+
 // A launch of kernel with smem bytes of dynamic shared memory: above the
-// default 48 KB the kernel is opted in first (up to the 227 KB a block of an
-// H100 may take); above that the launch is refused.
+// default 48 KB the kernel is opted in first (up to MAX_SMEM); above that the
+// launch is refused.
 template <class Kernel, class... Args>
 cudaError_t launch_smem(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t st,
                         Args... args) {
-  constexpr size_t DEFAULT_SMEM = 48 * 1024, MAX_SMEM = 232448;
+  constexpr size_t DEFAULT_SMEM = 48 * 1024;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   if (smem > DEFAULT_SMEM) {
     const cudaError_t e =

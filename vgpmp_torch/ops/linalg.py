@@ -41,6 +41,22 @@ KERNEL_MAX_N = 128  # K2 (csrc/kernels.h:K2_MAX_N): what a block's shared memory
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
+def k2_work(entry: str, n: int, k: int = 0) -> tuple[int, float]:
+    """What one matrix of a K2 entry must move and compute, the floor of its
+    bound: ``(values, operations)``. ``entry`` is ``chol``, ``trsm``, ``pair``
+    (the fused pair) or ``bwd`` (its backward); ``k`` the right-hand sides'
+    columns. A triangular input (K, L, dL) is read as its lower triangle, a
+    dense input (B, dX, X) once, and every output (L, X, dK, dB) written once
+    in full."""
+    tri, sq, nk = n * (n + 1) // 2, n * n, n * k
+    return {"chol": (tri + sq, n ** 3 / 3),
+            "trsm": (tri + 2 * nk, n * n * k),
+            "pair": (tri + sq + 2 * nk, n ** 3 / 3 + n * n * k),
+            # one substitution of k columns, the lower half of dB X^T, L^T G
+            # and two substitutions of n columns
+            "bwd": (2 * tri + sq + 3 * nk, 2 * n * n * k + 7 * n ** 3 / 3)}[entry]
+
+
 # ----------------------------------------------------------------- plain versions
 
 
