@@ -133,7 +133,10 @@ card's name and power limit, a ``kernels`` JSON line (K1 and its d/dσ pair,
 K2 with the fused pair's velocity shapes, K3, K4, K1 and K3 on (o)'s
 scene, and (t)'s rows: K1-nearest, K1-trilinear, K1 and K3 in float64, K2's
 block design at n = 40 (``[n=40]``, ``"design": "blocked"``, with n = 64 and 128
-in the record) and its float32 ``k2_chol`` and ``k2_trsm``), and as
+in the record) and its float32 ``k2_chol`` and ``k2_trsm``; each K1 row
+names its design, ``one-pass`` or ``split``, and its bound counts, in
+nearest mode, the neighbours of the hinge-active pairs only, with the count
+of every pair's neighbours beside it in the record), and as
 the last line
 ``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
@@ -198,13 +201,15 @@ def k1_inputs(torch, sess):
     return torch.minimum(torch.maximum(q.to(lo.dtype), lo), hi).contiguous()
 
 
-def grid_sectors(torch, sc, pos, mode: str) -> int:
+def grid_sectors(torch, sc, pos, mode: str, need=None) -> int:
     """The distinct 32-byte sectors that a K1 lookup in ``mode`` touches at
     the world points ``pos [..., 3]`` in each grid of the scene ``sc``:
     ``packed`` the cell's 8-byte word (four a sector), ``nearest`` the cell
-    and its six clipped neighbours (the central difference), ``trilinear``
-    the eight corners, in the grid's dtype (8 float32 or 4 float64 values a
-    sector)."""
+    and, for the gradient, its six clipped neighbours (the central
+    difference) where ``need`` (a bool mask of ``pos``'s leading shape per
+    grid, base first: :func:`gradient_pairs`) holds, or everywhere where it
+    is None, ``trilinear`` the eight corners, in the grid's dtype (8 float32
+    or 4 float64 values a sector)."""
     from vgpmp_torch.sdf.grid import _cell_index, _flat, _packed_flat_index, trilinear_cell
 
     if mode == "packed":
@@ -213,19 +218,20 @@ def grid_sectors(torch, sc, pos, mode: str) -> int:
         return sum(torch.unique(_packed_flat_index(g, pos - off).reshape(-1) // 4).numel()
                    for g, off in pairs)
     total = 0
-    for g, off in [(sc.base, sc.base_offset), *zip(sc.extra_grids, sc.extra_offsets if sc.extra_grids else [])]:
+    grids = [(sc.base, sc.base_offset), *zip(sc.extra_grids, sc.extra_offsets if sc.extra_grids else [])]
+    for k, (g, off) in enumerate(grids):
         per = 32 // g.data.element_size()
         p = pos - off
         if mode == "nearest":
             i = _cell_index(g.shape, g.origin, g.delta, p)
+            flats = [_flat(g.shape, i).reshape(-1)]
+            ni = i.reshape(-1, 3) if need is None else i[need[k]]
             nmax = torch.tensor([s - 1 for s in g.shape], device=p.device)
-            steps = [torch.zeros(3, dtype=torch.int64, device=p.device)]
             for a in range(3):
                 e = torch.zeros(3, dtype=torch.int64, device=p.device)
                 e[a] = 1
-                steps += [e, -e]
-            flats = [_flat(g.shape, torch.minimum(torch.clamp(i + e, min=0), nmax)).reshape(-1)
-                     for e in steps]
+                flats += [_flat(g.shape, torch.minimum(torch.clamp(ni + d, min=0), nmax)).reshape(-1)
+                          for d in (e, -e)]
         else:
             _, ny, nz = g.shape
             flat = _flat(g.shape, trilinear_cell(g, p)[0]).reshape(-1)
@@ -234,32 +240,90 @@ def grid_sectors(torch, sc, pos, mode: str) -> int:
     return total
 
 
-def k1_bound(torch, model, q):
-    """K1's bound at the configs ``q [..., L]``: the distinct 32-byte sectors
+def gradient_pairs(torch, model, pos):
+    """The hinge-active sphere evaluations (h > 0) at the centres ``pos
+    [..., P, 3]`` of ``model``'s scene, and per grid (base first) those
+    whose d/dq reads that grid's gradient: the active ones where the grid
+    attains the composed minimum (the minimum's gradient gives no weight to
+    a source above it). Bool masks of ``pos``'s leading shape."""
+    srcs = [d for _, d in model.scene.sources(pos)]
+    dmin = torch.stack(srcs).amin(0)
+    active = model.epsilon - (dmin - model.fk.sphere_radii) > 0
+    return active, [active & (d == dmin) for d in srcs[:1 + len(model.scene.extra_grids)]]
+
+
+def k1_bound(torch, model, q, sigma, grad=True, h2=False, recount=True):
+    """K1's bound at the configs ``q [..., L]`` with ``sigma``, σ a row as K1
+    takes it: the distinct 32-byte sectors
     that the spheres' lookups touch in each grid of the scene
-    (:func:`grid_sectors`, in the scene's mode), q and σ read and lik and
-    d/dq written once (in q's dtype); per config 7 DH compositions (~60
-    flops), per sphere its position, index and hinge (~30; ~25 more for the
-    central difference, ~40 for the trilinear value and gradient), the
-    7-joint torque accumulation (~16 each), and per extra source its index
-    (~15 a grid) or its analytic value and gradient (~15 a sphere, ~50 a box,
-    ~35 a capsule), at the float32 or float64 peak. Returns (ms, "bytes" or
+    (:func:`grid_sectors`, in the scene's mode; in nearest mode a cell's
+    neighbours only where :func:`gradient_pairs` needs them, or with
+    ``recount`` False, the earlier count, for every sphere; none without
+    ``grad``), q and σ read and lik (and d/dq with ``grad``, h² with ``h2``)
+    written once (in q's dtype); per config 7 DH compositions (~60 flops),
+    per sphere its position, index and hinge (~30, ~40 more for the
+    trilinear interpolation) and per extra source its index (~15 a grid) or
+    its analytic value and gradient (~15 a sphere, ~50 a box, ~35 a
+    capsule), and with ``grad`` per hinge-active pair the 7-joint torque
+    accumulation (~16 each) and the lookup's gradient (~25 for the central
+    difference), at the float32 or float64 peak. Returns (ms, "bytes" or
     "operations", sectors, bytes, flops)."""
     from vgpmp_torch.kinematics.dh import sphere_positions
 
     sc = model.scene
-    with torch.no_grad():
-        sectors = grid_sectors(torch, sc, sphere_positions(model.fk, q), sc.mode)
     L, P = q.shape[-1], model.fk.sphere_radii.shape[0]
     T = q.numel() // L
+    with torch.no_grad():
+        pos = sphere_positions(model.fk, q)
+        active, need = gradient_pairs(torch, model, pos)
+        if not grad:
+            need = [torch.zeros_like(active)] * len(need)
+        elif not recount:
+            need = None
+        sectors = grid_sectors(torch, sc, pos, sc.mode, need)
     es = q.element_size()
     Ks, Kb, Kc = model.tables.counts
-    lookup = {"packed": 0, "nearest": 25, "trilinear": 40}[sc.mode]
-    extra = (15 + lookup) * len(sc.extra_grids) + 15 * Ks + 50 * Kb + 35 * Kc
-    nbytes = (sectors * 32 + (T * L + q.shape[0] * P + T + T * L + model.tables.prims.numel()) * es)
-    flops = T * (L * 60 + P * (30 + lookup + L * 16 + extra))
+    extra = 15 * len(sc.extra_grids) + 15 * Ks + 50 * Kb + 35 * Kc
+    value = 30 + (40 if sc.mode == "trilinear" else 0) + extra
+    gradient = L * 16 + (25 if sc.mode == "nearest" else 0)
+    written = T * (1 + (L if grad else 0) + (P if h2 else 0))
+    nbytes = sectors * 32 + (T * L + sigma.numel() + written + model.tables.prims.numel()) * es
+    flops = T * (L * 60 + P * value) + (int(active.sum()) * gradient if grad else 0)
     peak = F64_FLOPS if q.dtype == torch.float64 else F32_FLOPS
     return (*bound_ms(nbytes, flops, peak), sectors, nbytes, flops)
+
+
+def k1_agreement(torch, lik_k, gk, lik_p, gp, trilinear=False):
+    """K1's (lik, d/dq) against the plain version's on the same configs.
+    Tolerance: K1's FK may fuse multiply-adds and sum in another order, so a
+    sphere near a voxel face may land in the neighbouring voxel: at most 1e-3
+    of the configs may differ; the rest agree to 1e-5 relative (+1e-3
+    absolute: 37-term float32 sums in another order), their gradients to
+    1e-3 of the largest; in float64 to 1e-9 relative (+1e-9) and 1e-8. In
+    trilinear mode the value is continuous across a face but its gradient is
+    not, so there a config whose gradient differs counts in the same share.
+    A config with a sphere centre inside or on a box has a NaN d/dq (as
+    JAX's): the pattern must agree but for 1e-3 of the configs (a centre
+    within a rounding of a box face). Asserts all that; returns the configs
+    that agree and the record's numbers."""
+    rtol, atol, gtol = (1e-9, 1e-9, 1e-8) if lik_k.dtype == torch.float64 else (1e-5, 1e-3, 1e-3)
+    close = torch.isclose(lik_k, lik_p, rtol=rtol, atol=atol)
+    nan_k, nan_p = torch.isnan(gk).any(-1), torch.isnan(gp).any(-1)
+    nan_differ = (nan_k != nan_p).float().mean().item()
+    if trilinear:
+        finite = ~nan_k & ~nan_p
+        close &= ((gk - gp).abs() <= gtol * gp[finite].abs().max()).all(-1) | ~finite
+    share = (~close).float().mean().item()
+    err = (lik_k - lik_p)[close].abs().max().item()
+    both = close & ~nan_k & ~nan_p
+    gscale = gp[both].abs().max().item()
+    gerr = (gk - gp)[both].abs().max().item()
+    assert share <= 1e-3, "K1: too many configs disagree with the plain version"
+    assert gerr <= gtol * gscale + 1e-6, "K1: gradient disagrees with the plain version"
+    assert nan_differ <= 1e-3, "K1: the NaN pattern of d/dq disagrees with the plain version"
+    return close, {"max_abs_err": err, "max_rel_err": err / lik_p.abs().max().item(), "other_voxel_share": share,
+                   "max_grad_err": gerr, "grad_scale": gscale, "nan_dq_configs": int(nan_p.sum()),
+                   "nan_pattern_differs": nan_differ}
 
 
 def k1_phase(torch, sess, flush, label="", model=None):
@@ -285,36 +349,13 @@ def k1_phase(torch, sess, flush, label="", model=None):
     lik_p = col.log_prob_plain(model, qp, sigma)
     (gp,) = torch.autograd.grad(lik_p.sum(), qp)
     torch.cuda.synchronize()
-    # tolerance: K1's FK may fuse multiply-adds and sum in another order, so
-    # a sphere near a voxel face may land in the neighbouring voxel: at most
-    # 1e-3 of the configs may differ; the rest agree to 1e-5 relative (+1e-3
-    # absolute: 37-term float32 sums in another order), their gradients to
-    # 1e-3 of the largest; in float64 to 1e-9 relative (+1e-9) and 1e-8. In
-    # trilinear mode the value is continuous across a face but its gradient
-    # is not, so there a config whose gradient differs counts in the same
-    # share. A config with a sphere centre inside or on a box has a NaN d/dq
-    # (as JAX's): the pattern must agree but for 1e-3 of the configs (a
-    # centre within a rounding of a box face)
-    rtol, atol, gtol = (1e-9, 1e-9, 1e-8) if q.dtype == torch.float64 else (1e-5, 1e-3, 1e-3)
-    close = torch.isclose(lik_k, lik_p, rtol=rtol, atol=atol)
-    nan_k, nan_p = torch.isnan(gk).any(-1), torch.isnan(gp).any(-1)
-    nan_differ = (nan_k != nan_p).float().mean().item()
-    if model.scene.mode == "trilinear":
-        finite = ~nan_k & ~nan_p
-        close &= ((gk - gp).abs() <= gtol * gp[finite].abs().max()).all(-1) | ~finite
-    share = (~close).float().mean().item()
-    err = (lik_k - lik_p)[close].abs().max().item()
-    both = close & ~nan_k & ~nan_p
-    gscale = gp[both].abs().max().item()
-    gerr = (gk - gp)[both].abs().max().item()
     active = (lik_p < 0).float().mean().item()
-    log(f"K1{label} check: {B * S * N} configs, hinge active in {active:.4f} (>= 0.2), other-voxel share "
-        f"{share:.2e} (<= 1e-3), max |dlik| {err:.3e}, max |d grad| {gerr:.3e} of {gscale:.3e}; NaN d/dq "
-        f"in {int(nan_p.sum())} configs (plain), pattern differs in {nan_differ:.2e} (<= 1e-3)")
     assert active >= 0.2, "K1 check: too few configs touch an obstacle to test the hinge"
-    assert share <= 1e-3, "K1: too many configs disagree with the plain version"
-    assert gerr <= gtol * gscale + 1e-6, "K1: gradient disagrees with the plain version"
-    assert nan_differ <= 1e-3, "K1: the NaN pattern of d/dq disagrees with the plain version"
+    _, agree = k1_agreement(torch, lik_k, gk, lik_p, gp, model.scene.mode == "trilinear")
+    log(f"K1{label} check: {B * S * N} configs, hinge active in {active:.4f} (>= 0.2), other-voxel share "
+        f"{agree['other_voxel_share']:.2e} (<= 1e-3), max |dlik| {agree['max_abs_err']:.3e}, max |d grad| "
+        f"{agree['max_grad_err']:.3e} of {agree['grad_scale']:.3e}; NaN d/dq in {agree['nan_dq_configs']} "
+        f"configs (plain), pattern differs in {agree['nan_pattern_differs']:.2e} (<= 1e-3)")
 
     q2 = q.reshape(-1, L)
     # 100 calls each: at 20 a single slow call moves the mean by a tenth
@@ -326,17 +367,29 @@ def k1_phase(torch, sess, flush, label="", model=None):
         torch.autograd.grad(col.log_prob_plain(model, qq, sigma).sum(), qq)
 
     plain_ms = time_ms(plain, reps=5, flush=flush)
-    b_ms, b_by, sectors, nbytes, flops = k1_bound(torch, model, q)
+    b_ms, b_by, sectors, nbytes, flops = k1_bound(torch, model, q, sigma)
+    # the earlier count (every sphere's six neighbours in nearest mode), beside it
+    old_ms, _, old_sectors, _, _ = k1_bound(torch, model, q, sigma, recount=False)
     log(f"K1{label} time: fwd+grad {ms:.4f} ms, fwd only {ms_fwd:.4f} ms, plain fwd+bwd {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB)")
-    return {"name": "k1_collision_loglik" + label, "route": "cuda",
+        f"bound {b_ms:.4f} ms ({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB; every pair's "
+        f"neighbours "
+        f"{old_sectors} sectors, {old_ms:.4f} ms)")
+    return {"name": "k1_collision_loglik" + label, "design": k1_design(model), "route": "cuda",
             "source": "vgpmp_torch/csrc/k1_collision.cuh",
-            "replaces": "vgpmp_tpu/likelihoods/collision.py:76", "max_abs_err": err,
-            "max_rel_err": err / lik_p.abs().max().item(), "ms": ms,
+            "replaces": "vgpmp_tpu/likelihoods/collision.py:76", **agree, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "other_voxel_share": share, "hinge_active_share": active, "max_grad_err": gerr,
-            "grad_scale": gscale, "ms_forward_only": ms_fwd, "sectors": sectors, "nbytes": nbytes,
-            "flops": flops, "nan_dq_configs": int(nan_p.sum()), "nan_pattern_differs": nan_differ}
+            "hinge_active_share": active, "ms_forward_only": ms_fwd, "sectors": sectors, "nbytes": nbytes,
+            "flops": flops, "sectors_every_pair": old_sectors, "bound_ms_every_pair": old_ms}
+
+
+def k1_design(model) -> str:
+    """The design of K1 that ``model``'s lookup runs
+    (``csrc/k1_collision.cuh:k1_split``): ``split`` (every source's value
+    first, the gradient only for hinge-active pairs) for the composed packed
+    lookup and the nearest cell, ``one-pass`` for the rest."""
+    sc = model.scene
+    composed = bool(sc.extra_grids) or sum(model.tables.counts) > 0
+    return "split" if sc.mode == "nearest" or (sc.mode == "packed" and composed) else "one-pass"
 
 
 def k2_phase(torch, sess, flush):
@@ -1361,7 +1414,8 @@ def trainable_phase(torch, flush, k1):
             "max_abs_err": (ds_dev.double() - ref64).abs().max().item(), "max_rel_err": red_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "e2e_rel_err": e2e_err, "shape": [T, P, B]}
-    fwd = {"name": "k1_collision_loglik_h2", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cuh",
+    fwd = {"name": "k1_collision_loglik_h2", "design": k1_design(model), "route": "cuda",
+           "source": "vgpmp_torch/csrc/k1_collision.cuh",
            "replaces": "vgpmp_tpu/likelihoods/collision.py:76", "launches": launches["k1_loglik_h2"],
            "max_abs_err": err, "ms": ms_h2, "plain_ms": plain_h2_ms, "bound_ms": bh_ms, "bound_by": bh_by,
            "library_ms": None, "frozen_forward_ms": ms_frozen, "equal_to_frozen_forward": same_forward,
@@ -1795,26 +1849,29 @@ OBJECTS = (("table", (0.9, 0.0, -0.25)), ("duck", (0.5, 0.3, 0.5)), ("pringles",
 DUCK_MOVED = (0.45, -0.1, 0.45)
 
 
-def object_sessions(sess, cpu):
-    """For each of the sessions ``sess`` (the card) and ``cpu``: a
-    ``SceneBuilder`` on its base grid holding OBJECTS, and franka/industrial's
-    session with the built scene's extras."""
+def object_session(s):
+    """A ``SceneBuilder`` on the base grid of the session ``s`` holding
+    OBJECTS, and franka/industrial's session on ``s``'s device and in its
+    dtype with the built scene's extras."""
     from vgpmp_torch.robots import ASSET_DIR
     from vgpmp_torch.scene import SceneBuilder
     from vgpmp_torch.sdf.grid import SdfGrid
     from vgpmp_torch.session import PlanningSession
 
-    out = []
-    for s in (sess, cpu):
-        b = SceneBuilder(base=s.sdf, base_offset=s.scene_offset, device=s.device)
-        for name, pos in OBJECTS:
-            grid = SdfGrid.load(ASSET_DIR / "scenes" / "boxes.npz", device=s.device) if name == "boxes" else None
-            b.add_object(name, pos, grid=grid)
-        sc = b.build()
-        out.append((b, PlanningSession("franka", "industrial", extra_grids=sc.extra_grids,
-                                       extra_offsets=sc.extra_offsets, primitives=sc.primitives,
-                                       device=s.device)))
-    return out
+    dt = s.sdf.data.dtype
+    b = SceneBuilder(base=s.sdf, base_offset=s.scene_offset, dtype=dt, device=s.device)
+    for name, pos in OBJECTS:
+        grid = (SdfGrid.load(ASSET_DIR / "scenes" / "boxes.npz", dt, device=s.device)
+                if name == "boxes" else None)
+        b.add_object(name, pos, grid=grid)
+    sc = b.build()
+    return b, PlanningSession("franka", "industrial", extra_grids=sc.extra_grids, extra_offsets=sc.extra_offsets,
+                              primitives=sc.primitives, device=s.device, dtype=dt)
+
+
+def object_sessions(sess, cpu):
+    """:func:`object_session` of the card's session ``sess`` and of ``cpu``."""
+    return [object_session(s) for s in (sess, cpu)]
 
 
 def hinge_active_wins(torch, model, q):

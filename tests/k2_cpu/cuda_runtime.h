@@ -1,5 +1,6 @@
-// What K2's block design (vgpmp_torch/csrc/k2_linalg.cuh) takes from CUDA,
-// on the CPU, so that its source can be compiled by g++ and run by the tests.
+// What K2's block design (vgpmp_torch/csrc/k2_linalg.cuh) and K1
+// (vgpmp_torch/csrc/k1_collision.cuh) take from CUDA, on the CPU, so that
+// their sources can be compiled by g++ and run by the tests.
 // A launch runs its blocks one after another; a block runs as BLK_THREADS
 // std::threads. __syncthreads is a barrier of the block, __syncwarp one of the
 // warp, and __shfl_sync and the m8n8k4 float64 product (mma.sync, as
@@ -24,6 +25,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __shared__
 #define __launch_bounds__(...)
 #define __align__(x)
@@ -42,6 +44,21 @@ template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline double rsqrt(double x) { return 1 / std::sqrt(x); }
+// K1's gathers, bit casts and rounded products
+struct uint2 {
+  unsigned x, y;
+};
+template <class T>
+T __ldg(const T* p) { return *p; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 using std::max;
 using std::min;
 

@@ -866,6 +866,71 @@ def test_k1_grid_modes_composed_scene_on_card(mode, dtype, cuda_device):
     _k1_mode_check(model, q, sigma, dtype)
 
 
+# the split design's cases: few hinge-active pairs (ε = -5 cm: 1-15 % of the
+# pairs), every pair active (ε = 5 m), and 2013 configs (a tail tile of 29);
+# ε = 5 cm on 8000 configs otherwise
+SPLIT_CASES = {"sparse_active": (-0.05, 8000), "all_active": (5.0, 8000), "tail_tile": (0.05, 2013)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("lookup", ["composed packed", "nearest", "composed nearest"])
+def test_k1_split_design_cases_on_card(lookup, case, cuda_device):
+    """K1's split design (every source's value first, the gradient only for
+    hinge-active pairs: the composed packed lookup and the nearest cell,
+    alone and composed) against the plain version on the same card, with few
+    pairs active, every pair active and a tail tile. Tolerances as
+    ``_k1_mode_check``'s (float32), but for the share of active configs; the
+    forward without d/dq gives the same lik, and the σ-gradient forward the
+    same lik and d/dq, bit for bit, and h² the plain hinge squared. A sphere
+    centre inside a box makes d/dq NaN where its pair is hinge-active, in
+    the kernel as in JAX; where it is not (only at ε < 0), the plain
+    version's autodiff still gives NaN (the maximum's zero times the norm's
+    NaN) and K1 takes no gradient (ROADMAP.md Queue 3): each side's NaN
+    configs are held to that rule."""
+    eps, T = SPLIT_CASES[case]
+    if lookup == "composed packed":
+        spec, model = _composed("franka", cuda_device)
+    else:
+        spec, model = _grid_model("franka", torch.float32, cuda_device, "nearest",
+                                  composed=lookup.startswith("composed"))
+    model = dataclasses.replace(model, epsilon=eps)
+    rng = np.random.default_rng(13)
+    q = torch.as_tensor(_configs(spec, rng, (1, T)), dtype=torch.float32, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.003, 0.008, size=(1, spec.num_spheres)), dtype=torch.float32,
+                            device=cuda_device)
+    with torch.no_grad():
+        pairs = model.hinge_cost(q) > 0
+        inside = dict(model.scene.sources(dh.sphere_positions(model.fk, q))).get("boxes")
+        inside = torch.zeros_like(pairs) if inside is None else inside <= 0
+    active = pairs.float().mean().item()
+    if case == "all_active":
+        assert active == 1.0
+    elif case == "sparse_active":
+        assert 0.01 < active < 0.15, active
+    rtol, atol, gtol = ENVELOPE_TOL[torch.float32]
+    lik_k, g_k, lik_p, g_p = _k1_against_plain(model, q, sigma)
+    nan_k, nan_p = torch.isnan(g_k).any(-1), torch.isnan(g_p).any(-1)
+    assert (nan_k != (inside & pairs).any(-1)).float().mean().item() <= 1e-3
+    assert (nan_p != inside.any(-1)).float().mean().item() <= 1e-3
+    both = ~nan_k & ~nan_p
+    scale = g_p[both].abs().max().item()
+    close = torch.isclose(lik_k, lik_p, rtol=rtol, atol=atol) & (
+        ((g_k - g_p).abs() <= gtol * scale).all(-1) | ~both)
+    assert (~close).float().mean().item() <= 1e-3
+    torch.testing.assert_close(g_k[close & both], g_p[close & both], rtol=gtol, atol=gtol * scale)
+    q2 = q.reshape(T, spec.dof)
+    lik_f, dq_f, _ = col.k1_loglik(model, q2, sigma, True)
+    lik_0, _, _ = col.k1_loglik(model, q2, sigma, False)
+    lik_h, dq_h, h2 = col.k1_loglik(model, q2, sigma, True, True)
+    assert torch.equal(lik_0, lik_f) and torch.equal(lik_h, lik_f)
+    torch.testing.assert_close(dq_h, dq_f, rtol=0, atol=0, equal_nan=True)
+    with torch.no_grad():
+        h = model.hinge_cost(q2)
+    ok = close.reshape(T)
+    torch.testing.assert_close(h2.T[ok], (h * h)[ok], rtol=1e-4, atol=1e-7)
+
+
 def _k3_model64(robot, device):
     """``_k3_model`` in float64."""
     data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)

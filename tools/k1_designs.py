@@ -1,0 +1,262 @@
+#!/usr/bin/env python3
+"""Time designs of kernel K1 against each other in one process on the card.
+
+    python tools/k1_designs.py [NAME=SOURCE ...] [--reps 30]
+
+Each SOURCE is a version of ``vgpmp_torch/csrc/k1_collision.cuh``; the
+headers it includes (``scene.cuh``, ``fk.cuh``, ``kernels.h``,
+``launch.cuh``) come from its own directory first, then from
+``vgpmp_torch/csrc``. With no argument: the checkout's header, as
+``current``. Every version is compiled with ``nvcc`` for ``sm_90a`` beside a
+small C shim, one shared library for each (scalar type, lookup mode) it is
+timed in, all at once, and loaded with ``ctypes``.
+
+The cases, franka/industrial at ``chip_smoke.py:k1_inputs``' 36 000 configs
+x 37 spheres, σ per row: every instantiation of the template, the base
+packed lookup (the main path), nearest and trilinear, each also composed on
+``chip_smoke.py:OBJECTS``' scene, in float32 and float64; each forward only,
+with d/dq, and (packed and nearest) with h² beside d/dq. Each case is first checked against
+``vgpmp_torch.likelihoods.collision.log_prob_plain`` for every version
+(``chip_smoke.py:k1_agreement``'s tolerances; h² against the plain hinge
+squared), then timed in turns (``k2_designs.py:time_turns``: A, B, B, A,
+...) with the 50 MB L2 flushed before every launch, one launch between two
+CUDA events, beside its bound
+(``chip_smoke.py:k1_bound``: the distinct sectors this run's lookups need,
+in nearest mode with d/dq the neighbours of the hinge-active pairs only, at
+3.35 TB/s). Prints one line per case with each version's mean, median and
+standard deviation and its share of the bound, and writes
+``chiprun_out/k1_designs.json``. Needs a CUDA device and ``nvcc``.
+
+To time an earlier design, pass its source, e.g. from git:
+``git show <commit>:vgpmp_torch/csrc/k1_collision.cuh > .proof/old/k1_collision.cuh``
+(and its ``scene.cuh`` beside it, where that changed too). ``--unchecked
+NAME ...`` times those versions without the check: an ablation that drops
+work to show what that work costs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
+
+import chip_smoke  # noqa: E402
+from k2_designs import time_turns  # noqa: E402
+from vgpmp_torch.likelihoods import collision as col  # noqa: E402
+from vgpmp_torch.timing import card, l2_flush_buffer  # noqa: E402
+
+CSRC = ROOT / "vgpmp_torch" / "csrc"
+OUT = ROOT / "chiprun_out"
+BUILD = ROOT / "build" / "k1_designs"
+FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# the (scalar type, lookup mode) libraries a version is built into
+LIBS = {("float", "packed"): "K1_PACKED", ("float", "nearest"): "K1_NEAREST",
+        ("float", "trilinear"): "K1_TRILINEAR", ("double", "packed"): "K1_PACKED",
+        ("double", "nearest"): "K1_NEAREST", ("double", "trilinear"): "K1_TRILINEAR"}
+
+SHIM = r"""
+#include "k1_collision.cuh"
+using S = K1D_SCALAR;
+template cudaError_t k1_loglik_launch<S, K1D_MODE>(const K1Args<S>&, cudaStream_t);
+// grid: base offset (3), origin (3), delta; shape: nx, ny, nz; counts: G, Ks, Kb, Kc
+extern "C" int k1d_run(const S* q, const S* sigma, const S* robot, const S* spheres, const void* table,
+                       const double* grid, const int* shape, const S* grid_f, const int* grid_i,
+                       const void* cells, const S* prims, const int* counts, S* lik, S* dlik, S* h2,
+                       long long T, long long K, int P, int dof, int craig, int grad, double eps,
+                       void* st) {
+  const SceneExtras ex{grid_f, grid_i, cells, prims, counts[0], counts[1], counts[2], counts[3]};
+  const GridArgs<S> g{(S)grid[0], (S)grid[1], (S)grid[2], (S)grid[3], (S)grid[4], (S)grid[5],
+                      (S)grid[6], shape[0], shape[1], shape[2]};
+  const K1Args<S> a{q, sigma, robot, spheres, table, ex, lik, dlik, h2, T, K, P, dof, craig != 0,
+                    grad != 0, g, (S)eps};
+  return (int)k1_loglik_launch<S, K1D_MODE>(a, (cudaStream_t)st);
+}
+"""
+
+
+def build_one(name: str, source: Path, scalar: str, mode: str):
+    """``name``'s library for one (scalar type, lookup mode)."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    d = BUILD / name
+    d.mkdir(parents=True, exist_ok=True)
+    shim = d / f"shim_{scalar}_{mode}.cu"
+    shim.write_text(f"#define K1D_SCALAR {scalar}\n#define K1D_MODE {LIBS[scalar, mode]}\n" + SHIM)
+    lib = d / f"libk1_{scalar}_{mode}.so"
+    res = subprocess.run([nvcc, *FLAGS, f"-I{source.parent}", f"-I{CSRC}", "-o", str(lib), str(shim)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"k1_designs: nvcc failed on {source} ({scalar}, {mode}):\n{res.stderr}")
+    so = ctypes.CDLL(str(lib))
+    vp, i64, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
+    so.k1d_run.argtypes = [vp] * 15 + [i64, i64, i32, i32, i32, i32, f64, vp]
+    return so
+
+
+def build(sources: dict) -> dict:
+    """``{name: {(scalar, mode): library}}``, one ``nvcc`` a library, all at
+    once."""
+    with ThreadPoolExecutor(len(sources) * len(LIBS)) as pool:
+        futs = {(nm, key): pool.submit(build_one, nm, Path(p).resolve(), *key)
+                for nm, p in sources.items() for key in LIBS}
+        libs = {nm: {} for nm in sources}
+        for (nm, key), f in futs.items():
+            libs[nm][key] = f.result()
+    return libs
+
+
+def launcher(so, model, q, sigma, grad: bool, h2: bool):
+    """A call that launches ``so``'s K1 on ``model``'s tables, as
+    ``collision.k1_loglik`` hands them to the extension, into outputs made
+    once (so that the timed window holds the launch alone)."""
+    sc, fk = model.scene, model.fk
+    packed = sc.mode == "packed"
+    table = sc.base_packed.words if packed else sc.base.data.contiguous()
+    grid_f, grid_i, cells, prims, counts = model.tables.k1_args(packed)
+    T, dof = q.shape
+    P = sigma.shape[1]
+    grid = (ctypes.c_double * 7)(*model._base_offset_host, *model._grid_host)
+    shape = (ctypes.c_int * 3)(*sc.base.shape)
+    cnt = (ctypes.c_int * 4)(grid_f.shape[0], *counts)
+    st = torch.cuda.current_stream().cuda_stream
+    lik = torch.empty(T, dtype=q.dtype, device=q.device)
+    dlik = torch.empty(T, dof, dtype=q.dtype, device=q.device) if grad else None
+    sq = torch.empty(P, T, dtype=q.dtype, device=q.device) if h2 else None
+    p = lambda t: None if t is None else t.data_ptr()
+
+    def run():
+        rc = so.k1d_run(p(q), p(sigma), p(fk.k1_robot), p(fk.k1_spheres), p(table), grid, shape, p(grid_f),
+                        p(grid_i), p(cells), p(prims), cnt, p(lik), p(dlik), p(sq), T, T // sigma.shape[0],
+                        P, dof, int(fk.craig), int(grad), model.epsilon, st)
+        if rc != 0:
+            raise RuntimeError(f"k1_designs: launch failed with cudaError {rc}")
+        return lik, dlik, sq
+
+    return run
+
+
+def models():
+    """``{case: (collision model, scalar)}`` on the card: franka/industrial
+    in each mode and dtype the cases time, with and without OBJECTS."""
+    from vgpmp_torch.session import PlanningSession
+
+    s32 = PlanningSession("franka", "industrial")
+    s64 = PlanningSession("franka", "industrial", dtype=torch.float64)
+    o32, o64 = chip_smoke.object_session(s32)[1], chip_smoke.object_session(s64)[1]
+    mode = chip_smoke.mode_model
+    return {"packed": (s32.model.collision, "float"), "composed packed": (o32.model.collision, "float"),
+            "nearest": (mode(s32, "nearest"), "float"), "composed nearest": (mode(o32, "nearest"), "float"),
+            "trilinear": (mode(s32, "trilinear"), "float"),
+            "composed trilinear": (mode(o32, "trilinear"), "float"),
+            "packed float64": (s64.model.collision, "double"),
+            "composed packed float64": (o64.model.collision, "double"),
+            "nearest float64": (mode(s64, "nearest"), "double"),
+            "composed nearest float64": (mode(o64, "nearest"), "double"),
+            "trilinear float64": (mode(s64, "trilinear"), "double"),
+            "composed trilinear float64": (mode(o64, "trilinear"), "double")}, (s32, s64)
+
+
+def check(runs: dict, model, q, sigma, grad: bool, h2: bool) -> dict:
+    """Each version's launch against the plain version (value and, with
+    ``grad``, d/dq; with ``h2``, h² against the plain hinge squared on the
+    configs whose value agrees); returns each version's record."""
+    B, P = sigma.shape
+    x = q.clone().requires_grad_(grad)
+    lik_p = col.log_prob_plain(model, x.reshape(B, -1, q.shape[-1]), sigma).reshape(-1)
+    gp = torch.autograd.grad(lik_p.sum(), x)[0] if grad else None
+    lik_p = lik_p.detach()
+    out = {}
+    for nm, fn in runs.items():
+        lik, dlik, sq = fn()
+        if grad:
+            close, rec = chip_smoke.k1_agreement(torch, lik, dlik, lik_p, gp, model.scene.mode == "trilinear")
+        else:
+            rtol, atol = (1e-9, 1e-9) if q.dtype == torch.float64 else (1e-5, 1e-3)
+            close = torch.isclose(lik, lik_p, rtol=rtol, atol=atol)
+            share = (~close).float().mean().item()
+            assert share <= 1e-3, f"{nm}: {share:.2e} of the configs disagree with the plain version"
+            rec = {"other_voxel_share": share, "max_abs_err": (lik - lik_p)[close].abs().max().item()}
+        if h2:
+            with torch.no_grad():
+                h = model.hinge_cost(q)
+            hh = (h * h).T
+            err = ((sq - hh).abs() / (1e-4 * hh.abs() + 1e-7))[:, close].max().item()
+            assert err <= 1, f"{nm}: h² disagrees with the plain hinge squared"
+            rec["h2_err_of_tol"] = err
+        out[nm] = rec
+    torch.cuda.synchronize()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sources", nargs="*", help="NAME=PATH of a k1_collision.cuh version")
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--unchecked", nargs="*", default=[],
+                    help="versions timed without the check: ablations that drop work")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("k1_designs: no CUDA device", file=sys.stderr)
+        return 1
+    sources = dict(s.split("=", 1) for s in args.sources) or {"current": str(CSRC / "k1_collision.cuh")}
+    t0 = time.perf_counter()
+    libs = build(sources)
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    smi = card(dev)
+    print(f"k1_designs: built {list(sources)} in {build_s:.1f} s on {smi}", flush=True)
+    cases, (s32, _) = models()
+    flush = l2_flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    q32 = chip_smoke.k1_inputs(torch, s32)
+    B, L = q32.shape[0], q32.shape[-1]
+    P = s32.model.collision.fk.sphere_radii.shape[0]
+    sig32 = 0.003 + 0.005 * torch.rand((B, P), generator=gen, device=dev)
+    rows = []
+    for case, (model, scalar) in cases.items():
+        dt = torch.float64 if scalar == "double" else torch.float32
+        q, sigma = q32.to(dt).reshape(-1, L).contiguous(), sig32.to(dt)
+        mode = model.scene.mode
+        for grad, h2 in ((False, False), (True, False), (True, True)):
+            if h2 and mode == "trilinear":
+                continue
+            runs = {nm: launcher(lib[scalar, mode], model, q, sigma, grad, h2) for nm, lib in libs.items()}
+            errs = check({nm: fn for nm, fn in runs.items() if nm not in args.unchecked}, model, q, sigma,
+                         grad, h2)
+            times = time_turns(runs, args.reps, flush)
+            b_ms, b_by, sectors, nbytes, _ = chip_smoke.k1_bound(torch, model, q, sigma, grad, h2)
+            what = "h2" if h2 else "grad" if grad else "forward"
+            row = {"case": case, "dtype": str(dt).removeprefix("torch."), "mode": mode, "what": what,
+                   "design": chip_smoke.k1_design(model), "shape": [q.shape[0], P], "errors": errs,
+                   "bound_ms": b_ms, "bound_by": b_by, "sectors": sectors, "nbytes": nbytes,
+                   "mean_ms": {nm: statistics.fmean(v) for nm, v in times.items()},
+                   "median_ms": {nm: statistics.median(v) for nm, v in times.items()},
+                   "stdev_ms": {nm: statistics.stdev(v) for nm, v in times.items()},
+                   "min_ms": {nm: min(v) for nm, v in times.items()}}
+            row["share_of_bound"] = {nm: b_ms / m for nm, m in row["mean_ms"].items()}
+            rows.append(row)
+            print(f"{case} {what} (bound {b_ms:.4f} ms by {b_by}, {sectors} sectors): "
+                  + ", ".join(f"{nm} {row['mean_ms'][nm]:.4f} / {row['median_ms'][nm]:.4f} "
+                              f"± {row['stdev_ms'][nm]:.4f} ({100 * row['share_of_bound'][nm]:.1f} %)"
+                              for nm in runs)
+                  + " ms (mean / median ± stdev, share of bound)", flush=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "k1_designs.json").write_text(json.dumps(
+        {"card": smi, "reps": args.reps, "sources": sources, "build_s": build_s, "cases": rows}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
 // K1: fused collision log-likelihood (FK -> SDF lookup -> hinge), forward and
-// d/dq in one pass. The kernel template; each k1_*.cu source instantiates it
+// d/dq in one launch. The kernel template; each k1_*.cu source instantiates it
 // for one scalar type and one lookup mode.
 //
 // Replaces the XLA-fused JAX chain of vgpmp_tpu/kinematics/dh.py:sphere_positions,
@@ -14,12 +14,12 @@
 // What bounds it on an H100: the random gathers from the grid (the packed
 // table is [ncells, 2] words, 222 MB for the industrial scene, the float32
 // grid 111 MB, both larger than the 50 MB L2). Each sphere lookup touches a
-// few 32-byte DRAM sectors (one for the packed word; the cell and its six
-// neighbours, or the eight corners, for the other modes), so the bound is the
-// bytes of the distinct sectors a call touches over the memory rate; the FK
-// chain and the hinge are a few hundred flops per config and never bind.
-// What a kernel has to do about it is keep many independent gathers in
-// flight and spend few instructions and registers around them.
+// few 32-byte DRAM sectors (one for the packed word; the cell, and for the
+// gradient of a hinge-active pair its six neighbours; or the eight corners),
+// so the bound is the bytes of the distinct sectors a call needs over the
+// memory rate; the FK chain and the hinge are a few hundred flops per config
+// and never bind. What a kernel has to do about it is keep many independent
+// gathers in flight and spend few instructions and registers around them.
 //
 // Design: a block of 256 threads takes a tile of 32 consecutive configurations
 // (neighbours in time along a trajectory, so neighbours in space: their
@@ -32,7 +32,7 @@
 //     are a broadcast, and its 32 gathers land near each other. A thread
 //     computes the cells of NI spheres and starts all their gathers before it
 //     uses one (GridLookup::fetch; NI is 5 for the packed word, 2 for the
-//     seven or eight values of the other modes).
+//     eight corners of the trilinear lookup).
 //   Phase 3: the hinge, and for an active pair the joint torques from the
 //     frames in shared memory (dlik/dq_j = sum_p (c_p/sigma_p) z_j . ((x_p -
 //     o_j) x grad_p), from the gathered gradient, so the backward pass is a
@@ -44,6 +44,21 @@
 // kernel takes 64 registers a thread with the gradient, 48 without, and
 // spills nothing, so eight warps of a block and several blocks share an SM
 // (PERF.md).
+//
+// That one-pass loop serves the base grid's packed word (the main path: the
+// word carries the gradient) and the trilinear lookup (its value needs all
+// eight corners), base-only and composed. The nearest cell and a composed scene take the split
+// design instead (loglik_split, k1_split): phases 2 and 3 in two passes over
+// NV spheres at a time. The value pass gathers one cell entry of each grid
+// per sphere, all in flight together, and computes the primitives' values
+// while they fly; it keeps the minimum's value and the source that attains
+// it. The gradient pass runs only for hinge-active pairs (12-26 % of them at
+// the main path's inputs) and takes only that source's gradient: the
+// neighbours of a nearest cell are gathered then, and a primitive's gradient
+// is computed then. This drops the gathers and the arithmetic that d/dq
+// never reads, and the registers the old pass held across its gathers (a
+// composed float32 kernel: 80 registers, three blocks an SM, where the
+// one-pass loop took 128 and spilled; PERF.md).
 //
 // The lookup modes (GridLookup): K1_PACKED gathers one 8-byte word, the bf16
 // value and central-difference gradient (widened to S). K1_NEAREST is the
@@ -77,15 +92,16 @@
 // row's configs: reading h^2 back replaces a second gather from the table.
 // It moves T (P + 1) values and does 2 T P operations, so it is bound by the
 // bytes it reads.
-// A scene with extra grids or primitives takes the EXTRA instantiation: after
-// its base gathers a thread issues, grid by grid, the spheres' gathers from
-// each extra grid in the same mode (scene.cuh's extras, copied to shared
-// memory beside the sphere table), keeps the smallest value and its gradient
-// (half of each at a tie, as autograd of the plain minimum), folds in the
-// analytic primitives, and the hinge reads that. Where a sphere
+// A scene with extra grids or primitives takes the EXTRA instantiation: each
+// extra grid is looked up in the same mode (scene.cuh's extras, copied to
+// shared memory beside the sphere table), the smallest value wins (its
+// gradient; half of each at a tie, as autograd of the plain minimum), with
+// the analytic primitives folded in, and the hinge reads that. Where a sphere
 // centre lies inside or on a box its gradient is NaN, as JAX's is
 // (scene.cuh:compose_primitives), so the config's d/dq is NaN in the joints
-// that move the sphere. The base-only instantiations are unchanged.
+// that move the sphere, where its pair is hinge-active (JAX's autodiff gives
+// NaN there even for an inactive pair, which only a negative epsilon makes
+// possible; ROADMAP.md Queue 3).
 // The compiler may contract the FK's products and sums into fused
 // multiply-adds, so a sphere near a voxel face can land in the neighbouring
 // voxel of the one the plain version picks; the checks bound that share.
@@ -103,13 +119,38 @@ namespace {
 // six at the main path's shape (PERF.md).
 constexpr int C = 32, THREADS = 256;
 
-// gathers of NI spheres in flight a thread: five packed words, or two
-// spheres' seven or eight values
+// the one-pass loop's gathers of NI spheres in flight a thread: five packed
+// words, or two spheres' eight trilinear corners
 template <int MODE>
 __host__ __device__ constexpr int k1_ni() { return MODE == K1_PACKED ? 5 : 2; }
 
-// One sphere's lookup of a grid in a mode: fetch issues its gathers, value
-// and gradient read them (the gradient only after a fetch with GRAD).
+// Which instantiations take the split design (loglik_split): the value of
+// every source first, the gradient only for hinge-active pairs. The
+// base-only packed lookup (the main path: its word already carries the
+// gradient) and the trilinear lookup (its value needs all eight corners)
+// keep the one-pass loop.
+template <class S, int MODE, bool EXTRA>
+__host__ __device__ constexpr bool k1_split() {
+  return MODE == K1_NEAREST || (MODE == K1_PACKED && EXTRA);
+}
+
+// The split design's spheres a thread takes at a time, one cell entry of
+// each grid apiece in flight: one for a composed scene, and for the float64
+// nearest cell with the gradient, where the registers of a second would cut
+// the blocks an SM holds more than its gathers gain; two otherwise (PERF.md).
+// XG: the extra grids whose cells are gathered with the base grid's; grids
+// beyond it are gathered one grid at a time after them.
+template <class S, bool EXTRA, bool GRAD>
+__host__ __device__ constexpr int k1_nv() {
+  return EXTRA || (sizeof(S) == 8 && GRAD) ? 1 : 2;
+}
+constexpr int XG = 1;
+
+// One sphere's lookup of a grid in a mode. The one-pass loop's (packed,
+// trilinear): fetch issues its gathers, value and gradient read them (the
+// gradient only after a fetch with GRAD). The split design's (packed,
+// nearest): value_of reads the cell's entry, gradient_at gathers what the
+// gradient needs.
 template <class S, int MODE>
 struct GridLookup;
 
@@ -123,6 +164,15 @@ struct GridLookup<S, K1_PACKED> {
     int i[3];
     w = __ldg(t + nearest_cell(px, py, pz, g, i));
   }
+  // the split design: the word's value; the gradient from the word gathered
+  // again
+  __device__ __forceinline__ static S value_of(uint2 e) { return (S)unpack_hi(e.x); }
+  __device__ __forceinline__ static void gradient_at(const uint2* __restrict__ t, const GridArgs<S>& g,
+                                                     S px, S py, S pz, S (&gr)[3]) {
+    GridLookup lk;
+    lk.template fetch<true>(t, g, px, py, pz);
+    lk.gradient(g, gr);
+  }
   __device__ __forceinline__ S value() const { return (S)unpack_hi(w.x); }
   __device__ __forceinline__ void gradient(const GridArgs<S>&, S (&gr)[3]) const {
     gr[0] = (S)unpack_lo(w.x);
@@ -134,24 +184,28 @@ struct GridLookup<S, K1_PACKED> {
 template <class S>
 struct GridLookup<S, K1_NEAREST> {
   using Entry = S;
-  S v, nb[6];  // the cell; its neighbours along +x, -x, +y, -y, +z, -z (clipped)
-  template <bool GRAD>
-  __device__ __forceinline__ void fetch(const S* __restrict__ t, const GridArgs<S>& g, S px, S py,
-                                        S pz) {
-    int i[3];
-    const S* c = t + nearest_cell(px, py, pz, g, i);
-    v = __ldg(c);
-    if (GRAD) {
-      const int sx = g.ny * g.nz, sy = g.nz;  // grids of fewer than 2^31 cells
-      nb[0] = __ldg(c + (i[0] < g.nx - 1 ? sx : 0));
-      nb[1] = __ldg(c - (i[0] > 0 ? sx : 0));
-      nb[2] = __ldg(c + (i[1] < g.ny - 1 ? sy : 0));
-      nb[3] = __ldg(c - (i[1] > 0 ? sy : 0));
-      nb[4] = __ldg(c + (i[2] < g.nz - 1 ? 1 : 0));
-      nb[5] = __ldg(c - (i[2] > 0 ? 1 : 0));
-    }
+  S nb[6];  // the cell's neighbours along +x, -x, +y, -y, +z, -z (clipped)
+  // the six clipped neighbours of the cell c at indices i
+  __device__ __forceinline__ void neighbours(const S* __restrict__ c, const int (&i)[3],
+                                             const GridArgs<S>& g) {
+    const int sx = g.ny * g.nz, sy = g.nz;  // grids of fewer than 2^31 cells
+    nb[0] = __ldg(c + (i[0] < g.nx - 1 ? sx : 0));
+    nb[1] = __ldg(c - (i[0] > 0 ? sx : 0));
+    nb[2] = __ldg(c + (i[1] < g.ny - 1 ? sy : 0));
+    nb[3] = __ldg(c - (i[1] > 0 ? sy : 0));
+    nb[4] = __ldg(c + (i[2] < g.nz - 1 ? 1 : 0));
+    nb[5] = __ldg(c - (i[2] > 0 ? 1 : 0));
   }
-  __device__ __forceinline__ S value() const { return v; }
+  // the split design: the cell's value; the gradient from its six clipped
+  // neighbours, gathered only then
+  __device__ __forceinline__ static S value_of(S e) { return e; }
+  __device__ __forceinline__ static void gradient_at(const S* __restrict__ t, const GridArgs<S>& g, S px,
+                                                     S py, S pz, S (&gr)[3]) {
+    GridLookup lk;
+    int i[3];
+    lk.neighbours(t + nearest_cell(px, py, pz, g, i), i, g);
+    lk.gradient(g, gr);
+  }
   __device__ __forceinline__ void gradient(const GridArgs<S>& g, S (&gr)[3]) const {
     const S two_delta = S(2) * g.delta;
 #pragma unroll
@@ -177,6 +231,188 @@ struct GridLookup<S, K1_TRILINEAR> {
     lerp_gradient(c, f, w, g.delta, gr);
   }
 };
+
+// The split design's gradient at (x, y, z) where two sources tie for the
+// minimum (rare): every source's gradient, folded in the plain version's
+// order (fold_min, compose_primitives). Out of line, so that its registers
+// do not count against the split design's.
+template <class S, int MODE>
+__device__ __noinline__ void tie_gradient(const GridArgs<S> g,
+                                          const typename GridLookup<S, MODE>::Entry* table,
+                                          const typename GridLookup<S, MODE>::Entry* cells,
+                                          const ExtrasView<S> xv, int prim0, S x, S y, S z,
+                                          S (&gr)[3]) {
+  using Lookup = GridLookup<S, MODE>;
+  S dd = s_inf<S>();
+  for (int src = 0; src < prim0; ++src) {
+    const GridArgs<S> gg = src == 0 ? g : extra_grid(xv, src - 1);
+    const auto* t = src == 0 ? table : cells + extra_start(xv, src - 1);
+    int ix[3];
+    S gk[3];
+    Lookup::gradient_at(t, gg, x - gg.bx, y - gg.by, z - gg.bz, gk);
+    const S dk = Lookup::value_of(__ldg(t + nearest_cell(x - gg.bx, y - gg.by, z - gg.bz, gg, ix)));
+    fold_min<true, S>(dk, gk, dd, gr);
+  }
+  bool unused = false;
+  compose_primitives<true, S>(xv, x, y, z, dd, gr, unused);
+}
+
+// The split design: loglik_tile's phases 2 and 3 for the instantiations
+// k1_split picks, a round of NV spheres of one thread at a time.
+//   Value pass: for each sphere, its centre, the cell entry of the base grid
+//     and of the first XG extra grids, all gathers issued before one is read;
+//     the primitives' values computed while they fly (the centre is then
+//     dead); the grids beyond XG one grid at a time. The composed value is
+//     their minimum (a NaN kept), and beside it the source that attains it,
+//     or -1 where another ties it (scene.cuh:fold_source), and the
+//     primitives' NaN rule (bad); then the hinge, and a bit for each
+//     hinge-active sphere (h > 0, or NaN where KEEP_NAN). Of the entries only
+//     the winning grid's packed word, which carries the gradient, outlives
+//     the pass.
+//   Gradient pass, only for the active spheres: the centre again from the
+//     frames and the gradient of the source that attains the minimum alone:
+//     a grid's from its packed word, or in nearest mode from the cell's six
+//     neighbours, gathered now; a primitive's from
+//     scene.cuh:primitive_gradient. At a tie, every source's
+//     (tie_gradient). Then the torques.
+// lik and d/dq sum in the one-pass loop's order.
+template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
+__device__ __forceinline__ void loglik_split(
+    const S* __restrict__ fr, const S* __restrict__ sph, const S* __restrict__ sig, bool live,
+    long long cfg, int grp, const typename GridLookup<S, MODE>::Entry* __restrict__ table,
+    const SceneExtras& ex, const ExtrasView<S>& xv, S* __restrict__ h2, long long T, int P,
+    const GridArgs<S>& g, S eps, S& acc, S (&dq)[DOF]) {
+  using Lookup = GridLookup<S, MODE>;
+  using Entry = typename Lookup::Entry;
+  constexpr int G = THREADS / C;
+  constexpr int NE = EXTRA ? XG : 0;  // extra grids gathered beside the base grid
+  constexpr int NV = k1_nv<S, EXTRA, GRAD>();
+  constexpr bool KEEP_NAN = EXTRA;    // a zero-length capsule's NaN stays
+  const Entry* cells = static_cast<const Entry*>(ex.cells);
+  // a source's index: 0 the base grid, 1 + e extra grid e, 1 + G + k primitive k
+  const int prim0 = 1 + xv.G;
+  // grid source src's placement and entries
+  auto grid_of = [&](int src) { return src == 0 ? g : extra_grid(xv, src - 1); };
+  auto entries_of = [&](int src) { return src == 0 ? table : cells + extra_start(xv, src - 1); };
+  for (int base = grp; base < P; base += G * NV) {
+    S k[NV];  // h / sigma
+    int win[NV];
+    Entry wn[MODE == K1_PACKED ? NV : 1];
+    unsigned bad = 0, active = 0;  // a bit a sphere
+    {
+      Entry eb[NV], ee[NE > 0 ? NE : 1][NV];
+      S d[NV], sg[NV];
+      bool tie[NV];
+      // fold grid source src's entry en into sphere i's minimum
+      auto fold_grid = [&](int i, int src, Entry en) {
+        fold_source(Lookup::value_of(en), src, d[i], win[i], tie[i]);
+        if constexpr (MODE == K1_PACKED)
+          if (win[i] == src) wn[i] = en;  // each source is folded once
+      };
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int sp = base + G * i;
+        if (live && sp < P) {
+          const S* s = sph + 5 * sp;
+          S x, y, z;
+          int ix[3];
+          sphere_centre_shared(fr, C, (int)s[0], s[1], s[2], s[3], x, y, z);
+          eb[i] = __ldg(table + nearest_cell(x - g.bx, y - g.by, z - g.bz, g, ix));
+#pragma unroll
+          for (int e = 0; e < NE; ++e) {
+            if (e < xv.G) {
+              const GridArgs<S> eg = extra_grid(xv, e);
+              ee[e][i] = __ldg(cells + extra_start(xv, e) +
+                               nearest_cell(x - eg.bx, y - eg.by, z - eg.bz, eg, ix));
+            }
+          }
+          sg[i] = __ldg(sig + sp);
+          d[i] = s_inf<S>();
+          win[i] = -2;  // none yet
+          tie[i] = false;
+          if constexpr (EXTRA) {
+            bool b = false;
+            primitives_min<GRAD, S>(xv, x, y, z, prim0, d[i], win[i], tie[i], b);
+            bad |= unsigned(b) << i;
+          }
+        }
+      }
+      if constexpr (EXTRA) {
+        for (int e = NE; e < xv.G; ++e) {
+          const GridArgs<S> eg = extra_grid(xv, e);
+          const Entry* et = cells + extra_start(xv, e);
+          Entry en[NV];
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int sp = base + G * i;
+            if (live && sp < P) {
+              const S* s = sph + 5 * sp;
+              S x, y, z;
+              int ix[3];
+              sphere_centre_shared(fr, C, (int)s[0], s[1], s[2], s[3], x, y, z);
+              en[i] = __ldg(et + nearest_cell(x - eg.bx, y - eg.by, z - eg.bz, eg, ix));
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < NV; ++i)
+            if (live && base + G * i < P) fold_grid(i, 1 + e, en[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int sp = base + G * i;
+        if (live && sp < P) {
+          fold_grid(i, 0, eb[i]);
+#pragma unroll
+          for (int e = 0; e < NE; ++e)
+            if (e < xv.G) fold_grid(i, 1 + e, ee[e][i]);
+          if (tie[i]) win[i] = -1;
+          const S rad = sph[5 * sp + 4];
+          const S h = KEEP_NAN ? max_keep_nan(eps - (d[i] - rad), S(0)) : s_max(eps - (d[i] - rad), S(0));
+          acc += h * h / sg[i];
+          if (H2) h2[(long long)sp * T + cfg] = h * h;
+          k[i] = h / sg[i];
+          if (h > S(0) || (KEEP_NAN && h != h)) active |= 1u << i;
+        }
+      }
+    }
+    if (!GRAD || active == 0) continue;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (!(active >> i & 1)) continue;
+      const int wi = win[i];
+      const S* s = sph + 5 * (base + G * i);
+      const int f = (int)s[0];
+      S x, y, z;
+      sphere_centre_shared(fr, C, f, s[1], s[2], s[3], x, y, z);
+      S gr[3] = {S(0), S(0), S(0)};
+      if (EXTRA && wi >= prim0) {
+        primitive_gradient(xv, wi - prim0, x, y, z, gr);
+      } else if (!EXTRA || wi >= 0) {
+        if constexpr (MODE == K1_PACKED) {
+          GridLookup<S, K1_PACKED> lk{wn[i]};
+          lk.gradient(g, gr);
+        } else {
+          const GridArgs<S> gg = grid_of(wi);
+          Lookup::gradient_at(entries_of(wi), gg, x - gg.bx, y - gg.by, z - gg.bz, gr);
+        }
+      } else {
+        tie_gradient<S, MODE>(g, table, cells, xv, prim0, x, y, z, gr);
+      }
+      if (bad >> i & 1) gr[0] = gr[1] = gr[2] = s_nan<S>();
+      const S gx = k[i] * gr[0], gy = k[i] * gr[1], gz = k[i] * gr[2];
+#pragma unroll
+      for (int j = 0; j < DOF; ++j) {
+        if (j < f) {  // joint j moves frames j+1.. (both DH conventions)
+          const S* A = fr + FK_FRAME * (CRAIG ? j + 1 : j) * C;
+          const S rx = x - A[9 * C], ry = y - A[10 * C], rz = z - A[11 * C];
+          const S mx = ry * gz - rz * gy, my = rz * gx - rx * gz, mz = rx * gy - ry * gx;
+          dq[j] += A[2 * C] * mx + A[5 * C] * my + A[8 * C] * mz;
+        }
+      }
+    }
+  }
+}
 
 // The tile's work, the body of both kernel entries below. robot and
 // spheres: the constant tables described in fk.cuh; table: the base grid's
@@ -224,7 +460,10 @@ __device__ __forceinline__ void loglik_tile(
 #pragma unroll
   for (int j = 0; j < DOF; ++j) dq[j] = S(0);
 
-  for (int base = grp; base < P; base += G * NI) {
+  if constexpr (k1_split<S, MODE, EXTRA>())
+    loglik_split<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(fr, sph, sig, live, cfg, grp, table, ex, xv,
+                                                       h2, T, P, g, eps, acc, dq);
+  else for (int base = grp; base < P; base += G * NI) {
     Lookup lk[NI];
     S sg[NI];
     S px[NI], py[NI], pz[NI];  // EXTRA: the sphere centres
@@ -244,7 +483,9 @@ __device__ __forceinline__ void loglik_tile(
         }
       }
     }
-    // EXTRA: the composed value and gradient, from the base grid's on
+    // EXTRA (here only the composed trilinear lookup; the composed packed and
+    // nearest ones take the split design): the composed value and gradient,
+    // from the base grid's on
     S dv[NI], gv[NI][3];
     if constexpr (EXTRA) {
 #pragma unroll
@@ -358,12 +599,19 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(K1_TILE_PARAMS) {
   loglik_tile<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(K1_TILE_ARGS);
 }
 
-// A float32 scene with extras asks for two blocks an SM, which caps a thread
-// at 128 registers: the composed lookup would take ~150 and leave one block,
-// eight warps, to hide the gathers. Naming no block count for the others
-// keeps their register budget as it was.
+// A float32 scene with extras names the blocks an SM must hold, which caps a
+// thread's registers: three (80 registers) for the split design, which fits
+// them without a spill (one sphere at a time, the tie path out of line); two
+// (128) for the one-pass trilinear lookup, which would take ~150 and leave
+// one block, eight warps, to hide the gathers. Naming no block count for the
+// others keeps their register budget as it was.
+template <class S, int MODE, bool EXTRA>
+__host__ __device__ constexpr int k1_extra_blocks() {
+  return k1_split<S, MODE, EXTRA>() ? 3 : 2;
+}
 template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
-__global__ void __launch_bounds__(THREADS, 2) loglik_tile_kernel_2blocks(K1_TILE_PARAMS) {
+__global__ void __launch_bounds__(THREADS, (k1_extra_blocks<S, MODE, EXTRA>()))
+    loglik_tile_kernel_blocks(K1_TILE_PARAMS) {
   loglik_tile<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(K1_TILE_ARGS);
 }
 
@@ -372,7 +620,7 @@ cudaError_t launch_kernel(const K1Args<S>& a, const typename GridLookup<S, MODE>
                           size_t smem, cudaStream_t st) {
   const dim3 grid((unsigned)((a.T + C - 1) / C)), block(THREADS);
   if constexpr (EXTRA && sizeof(S) == 4)
-    return launch_smem(loglik_tile_kernel_2blocks<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>, grid, block,
+    return launch_smem(loglik_tile_kernel_blocks<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>, grid, block,
                        smem, st, a.q, a.sigma, a.robot, a.spheres, table, a.ex, a.lik, a.dlik, a.h2,
                        (long long)a.T, (long long)a.K, a.P, a.g, a.eps);
   else

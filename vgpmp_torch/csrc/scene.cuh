@@ -259,6 +259,59 @@ __device__ __forceinline__ void fold_min(S dk, const S (&gk)[3], S& d, S (&g)[3]
   }
 }
 
+// Each primitive kind's signed distance at the world point (x, y, z) and
+// its gradient, from the primitive's values p (kernels.h:SceneExtras): the
+// value returns dk and keeps what the gradient reads. Every composition
+// takes them: compose_primitives (K1's one-pass loop, K3) and K1's split
+// design (primitives_min, primitive_gradient).
+template <class S>
+__device__ __forceinline__ S sphere_value(const S* p, S x, S y, S z, S (&v)[3], S& n) {
+  v[0] = x - p[0];
+  v[1] = y - p[1];
+  v[2] = z - p[2];
+  n = s_sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
+  return n - p[3];
+}
+// p: centre (3), world->box rotation (9, row-major), half extents (3); l the
+// local point, m its excess over the half extents (>= 0), outside |m|
+template <class S>
+__device__ __forceinline__ S box_value(const S* p, S x, S y, S z, S (&l)[3], S (&m)[3], S& outside) {
+  const S wx = x - p[0], wy = y - p[1], wz = z - p[2];
+  S q[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    l[i] = p[3 + 3 * i] * wx + p[4 + 3 * i] * wy + p[5 + 3 * i] * wz;
+    q[i] = s_abs(l[i]) - p[12 + i];
+    m[i] = s_max(q[i], S(0));
+  }
+  outside = s_sqrt(m[0] * m[0] + m[1] * m[1] + m[2] * m[2]);
+  const S inside = s_min(s_max(q[0], s_max(q[1], q[2])), S(0));
+  return outside + inside;
+}
+// R^T (sign(l) * m / outside); inside, the NaN comes from bad
+template <class S>
+__device__ __forceinline__ void box_gradient(const S* p, const S (&l)[3], const S (&m)[3], S outside,
+                                             S (&gk)[3]) {
+  S gl[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) gl[i] = s_copysign(m[i] / outside, l[i]);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) gk[j] = p[3 + j] * gl[0] + p[6 + j] * gl[1] + p[9 + j] * gl[2];
+}
+// p: segment start a (3), end b (3), radius; v from the closest point
+template <class S>
+__device__ __forceinline__ S capsule_value(const S* p, S x, S y, S z, S (&v)[3], S& n) {
+  const S abx = p[3] - p[0], aby = p[4] - p[1], abz = p[5] - p[2];
+  const S apx = x - p[0], apy = y - p[1], apz = z - p[2];
+  const S t = clamp_keep_nan((apx * abx + apy * aby + apz * abz) / (abx * abx + aby * aby + abz * abz),
+                             S(1));
+  v[0] = x - (p[0] + t * abx);
+  v[1] = y - (p[1] + t * aby);
+  v[2] = z - (p[2] + t * abz);
+  n = s_sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
+  return n - p[6];
+}
+
 // The primitives folded into the running minimum d at the world point
 // (x, y, z) (fold_min), with (GRAD) its gradient g.
 // bad is set where JAX's gradient of its composition is NaN, whatever source
@@ -270,48 +323,89 @@ __device__ __forceinline__ void compose_primitives(const ExtrasView<S>& v, S x, 
                                                    S (&g)[3], bool& bad) {
   const S* p = v.pr;
   for (int k = 0; k < v.Ks; ++k, p += SCENE_SPHERE) {
-    const S vx = x - p[0], vy = y - p[1], vz = z - p[2];
-    const S n = s_sqrt(vx * vx + vy * vy + vz * vz);
-    const S dk = n - p[3];
+    S u[3], n;
+    const S dk = sphere_value(p, x, y, z, u, n);
     if (GRAD) bad |= n == S(0);
-    if (takes(dk, d) || (GRAD && dk == d)) fold_min<GRAD, S>(dk, {vx / n, vy / n, vz / n}, d, g);
+    if (takes(dk, d) || (GRAD && dk == d)) fold_min<GRAD, S>(dk, {u[0] / n, u[1] / n, u[2] / n}, d, g);
   }
   for (int k = 0; k < v.Kb; ++k, p += SCENE_BOX) {
-    // p: centre (3), world->box rotation (9, row-major), half extents (3)
-    const S wx = x - p[0], wy = y - p[1], wz = z - p[2];
-    S l[3], m[3], q[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      l[i] = p[3 + 3 * i] * wx + p[4 + 3 * i] * wy + p[5 + 3 * i] * wz;
-      q[i] = s_abs(l[i]) - p[12 + i];
-      m[i] = s_max(q[i], S(0));
-    }
-    const S outside = s_sqrt(m[0] * m[0] + m[1] * m[1] + m[2] * m[2]);
-    const S inside = s_min(s_max(q[0], s_max(q[1], q[2])), S(0));
-    const S dk = outside + inside;
+    S l[3], m[3], outside;
+    const S dk = box_value(p, x, y, z, l, m, outside);
     if (GRAD) bad |= outside == S(0);
     if (takes(dk, d) || (GRAD && dk == d)) {
-      // R^T (sign(l) * m / outside); inside, the NaN comes from bad
-      S gl[3], gk[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) gl[i] = s_copysign(m[i] / outside, l[i]);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) gk[j] = p[3 + j] * gl[0] + p[6 + j] * gl[1] + p[9 + j] * gl[2];
+      S gk[3];
+      box_gradient(p, l, m, outside, gk);
       fold_min<GRAD, S>(dk, gk, d, g);
     }
   }
   for (int k = 0; k < v.Kc; ++k, p += SCENE_CAPSULE) {
-    // p: segment start a (3), end b (3), radius
-    const S abx = p[3] - p[0], aby = p[4] - p[1], abz = p[5] - p[2];
-    const S apx = x - p[0], apy = y - p[1], apz = z - p[2];
-    const S t = clamp_keep_nan((apx * abx + apy * aby + apz * abz) /
-                                   (abx * abx + aby * aby + abz * abz), S(1));
-    const S vx = x - (p[0] + t * abx), vy = y - (p[1] + t * aby), vz = z - (p[2] + t * abz);
-    const S n = s_sqrt(vx * vx + vy * vy + vz * vz);
-    const S dk = n - p[6];
+    S u[3], n;
+    const S dk = capsule_value(p, x, y, z, u, n);
     if (GRAD) bad |= n == S(0);
-    // the closest point's own motion is along the segment, normal to v
-    if (takes(dk, d) || (GRAD && dk == d)) fold_min<GRAD, S>(dk, {vx / n, vy / n, vz / n}, d, g);
+    // the closest point's own motion is along the segment, normal to u
+    if (takes(dk, d) || (GRAD && dk == d)) fold_min<GRAD, S>(dk, {u[0] / n, u[1] / n, u[2] / n}, d, g);
+  }
+}
+
+// K1's split design: the running minimum d of a sphere's sources, the
+// source src it came from and whether another source ties it (the gradient
+// pass then takes src's gradient alone, or at a tie folds every source's
+// in the plain version's order). A NaN replaces the minimum as takes() says.
+template <class S>
+__device__ __forceinline__ void fold_source(S dk, int src, S& d, int& win, bool& tie) {
+  if (takes(dk, d)) {
+    d = dk;
+    win = src;
+    tie = false;
+  } else if (dk == d) {
+    tie = true;
+  }
+}
+
+// The primitives' values folded into (d, win, tie), the first primitive as
+// source src0 (spheres, then boxes, then capsules), and (GRAD) bad as
+// compose_primitives sets it.
+template <bool GRAD, class S>
+__device__ __forceinline__ void primitives_min(const ExtrasView<S>& v, S x, S y, S z, int src0, S& d,
+                                               int& win, bool& tie, bool& bad) {
+  const S* p = v.pr;
+  int src = src0;
+  for (int k = 0; k < v.Ks; ++k, ++src, p += SCENE_SPHERE) {
+    S u[3], n;
+    fold_source(sphere_value(p, x, y, z, u, n), src, d, win, tie);
+    if (GRAD) bad |= n == S(0);
+  }
+  for (int k = 0; k < v.Kb; ++k, ++src, p += SCENE_BOX) {
+    S l[3], m[3], outside;
+    fold_source(box_value(p, x, y, z, l, m, outside), src, d, win, tie);
+    if (GRAD) bad |= outside == S(0);
+  }
+  for (int k = 0; k < v.Kc; ++k, ++src, p += SCENE_CAPSULE) {
+    S u[3], n;
+    fold_source(capsule_value(p, x, y, z, u, n), src, d, win, tie);
+    if (GRAD) bad |= n == S(0);
+  }
+}
+
+// The gradient at (x, y, z) of primitive k (spheres, then boxes, then
+// capsules), as compose_primitives computes it.
+template <class S>
+__device__ __forceinline__ void primitive_gradient(const ExtrasView<S>& v, int k, S x, S y, S z,
+                                                   S (&g)[3]) {
+  if (k < v.Ks) {
+    S u[3], n;
+    sphere_value(v.pr + SCENE_SPHERE * k, x, y, z, u, n);
+    g[0] = u[0] / n, g[1] = u[1] / n, g[2] = u[2] / n;
+  } else if (k < v.Ks + v.Kb) {
+    const S* p = v.pr + SCENE_SPHERE * v.Ks + SCENE_BOX * (k - v.Ks);
+    S l[3], m[3], outside;
+    box_value(p, x, y, z, l, m, outside);
+    box_gradient(p, l, m, outside, g);
+  } else {
+    S u[3], n;
+    capsule_value(v.pr + SCENE_SPHERE * v.Ks + SCENE_BOX * v.Kb + SCENE_CAPSULE * (k - v.Ks - v.Kb), x,
+                  y, z, u, n);
+    g[0] = u[0] / n, g[1] = u[1] / n, g[2] = u[2] / n;
   }
 }
 
