@@ -136,7 +136,9 @@ block design at n = 40 (``[n=40]``, ``"design": "blocked"``, with n = 64 and 128
 in the record) and its float32 ``k2_chol`` and ``k2_trsm``; each K1 row
 names its design, ``one-pass`` or ``split``, and its bound counts, in
 nearest mode, the neighbours of the hinge-active pairs only, with the count
-of every pair's neighbours beside it in the record), and as
+of every pair's neighbours beside it in the record; each K3 row names its
+design, ``one-grid`` on the base grid alone or ``culled`` on a scene with
+objects), and as
 the last line
 ``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
@@ -386,7 +388,7 @@ def k1_design(model) -> str:
     """The design of K1 that ``model``'s lookup runs
     (``csrc/k1_collision.cuh:k1_split``): ``split`` (every source's value
     first, the gradient only for hinge-active pairs) for the composed packed
-    lookup and the nearest cell, ``one-pass`` for the rest."""
+    lookup and the nearest cell, ``one-pass`` for the rest, in either dtype."""
     sc = model.scene
     composed = bool(sc.extra_grids) or sum(model.tables.counts) > 0
     return "split" if sc.mode == "nearest" or (sc.mode == "packed" and composed) else "one-pass"
@@ -585,15 +587,73 @@ def k2_phase(torch, sess, flush):
     ], {"relative": worst, "absolute": worst_abs}
 
 
+K3_CULL_MARGIN = 1e-3  # csrc/k3_clearance.cuh:K3_CULL_MARGIN
+
+
+def k3_primitive_work(torch, model, pos):
+    """What the culled K3 (``csrc/k3_clearance.cuh:primitives_min_near``)
+    does with the scene's primitives at the sphere centres ``pos [..., P,
+    3]``: from the minimum over the grids, each primitive in the kernel's
+    order (spheres, boxes, capsules) has its bounding sphere tested against
+    the minimum so far, a box whose sphere passes its thinnest slab too, and
+    is evaluated only where both pass; the minimum takes what is evaluated.
+    Returns (bounding-sphere tests, slab tests, evaluations per kind [Ks, Kb,
+    Kc], the minimum over the grids and the evaluated primitives)."""
+    sc, pr = model.scene, model.scene.primitives
+    srcs = sc.sources(pos, mode_override="trilinear")[:1 + len(sc.extra_grids)]
+    d = srcs[0][1]
+    for _, s in srcs[1:]:
+        d = torch.minimum(d, s)
+    if pr is None:
+        return 0, 0, [0, 0, 0], d
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    tests = slabs = 0
+    evals = [0, 0, 0]
+
+    def fold(kind, c, radius, value, slab=None):
+        nonlocal d, tests, slabs
+        x = pos - c
+        t = torch.fmax(d, zero) + radius + K3_CULL_MARGIN
+        keep = ~((x * x).sum(-1) > t * t)
+        tests += d.numel()
+        if slab is not None:
+            row, h = slab
+            slabs += int(keep.sum())
+            keep &= ~((x @ row).abs() - h > torch.fmax(d, zero) + K3_CULL_MARGIN)
+        evals[kind] += int(keep.sum())
+        d = torch.where(keep, torch.minimum(d, value(x)), d)
+
+    for c, r in zip(pr.sphere_centers, pr.sphere_radii):
+        fold(0, c, r, lambda x, r=r: x.norm(dim=-1) - r)
+    for c, rot, h in zip(pr.box_centers, pr.box_rotations, pr.box_half_extents):
+        def box(x, rot=rot, h=h):
+            qb = (x @ rot.T).abs() - h
+            return qb.clamp(min=0).norm(dim=-1) + qb.amax(-1).clamp(max=0)
+        a = int(h.argmin())
+        fold(1, c, h.norm(), box, (rot[a], h[a]))
+    for a, b, r in zip(pr.capsule_a, pr.capsule_b, pr.capsule_radii):
+        ab = b - a
+        length = ab.norm()
+
+        def capsule(x, ab=ab, r=r):  # x from the midpoint
+            ap = x + 0.5 * ab
+            t = ((ap * ab).sum(-1) / (ab * ab).sum()).clamp(0, 1)
+            return (ap - t[..., None] * ab).norm(dim=-1) - r
+        fold(2, a + 0.5 * ab, 0.5 * length + r if length > 0 else float("inf"), capsule)
+    return tests, slabs, evals, d
+
+
 def k3_bound(torch, model, q, extra_bytes: float, extra_flops: float):
     """K3's bound at the configs ``q [n, L]``: the distinct 32-byte sectors (8
     float32 or 4 float64 cells) of each grid of the scene that the eight
     corners of every config's spheres touch, plus q (read) and the minima
     (written) in q's dtype and ``extra_bytes``; per config 7 DH compositions (~60 flops), per sphere its
     position (18), the relative position and clamps (~20) and seven lerps (3
-    flops each), as much again per extra grid, ~10 flops per analytic sphere,
-    ~40 per box and ~30 per capsule, plus ``extra_flops``, at the float32 or
-    float64 peak. Returns (ms, "bytes" or "operations", sectors)."""
+    flops each), as much again per extra grid, and the primitives as the
+    culled K3 needs them at these configs (:func:`k3_primitive_work`): ~12
+    flops a bounding-sphere or slab test, and ~10 an evaluated analytic
+    sphere, ~40 a box and ~30 a capsule, plus ``extra_flops``, at the float32
+    or float64 peak. Returns (ms, "bytes" or "operations", sectors)."""
     from vgpmp_torch.kinematics.dh import sphere_positions
     from vgpmp_torch.sdf.grid import _flat, trilinear_cell
 
@@ -601,6 +661,7 @@ def k3_bound(torch, model, q, extra_bytes: float, extra_flops: float):
     sectors = 0
     with torch.no_grad():
         pos = sphere_positions(model.fk, q)
+        tests, slabs, ev, _ = k3_primitive_work(torch, model, pos)
         for grid, off in [(sc.base, sc.base_offset),
                           *zip(sc.extra_grids, sc.extra_offsets if sc.extra_grids else [])]:
             _, ny, nz = grid.shape
@@ -611,34 +672,53 @@ def k3_bound(torch, model, q, extra_bytes: float, extra_flops: float):
             sectors += torch.unique(torch.cat([torch.unique((flat + c) // per) for c in corners])).numel()
     n, L = q.shape
     P = model.fk.sphere_radii.shape[0]
-    Ks, Kb, Kc = model.tables.counts
     es = q.element_size()
     nbytes = sectors * 32 + (n * L + n + model.tables.prims.numel()) * es + extra_bytes
-    flops = n * (L * 60 + P * 60 * (1 + len(sc.extra_grids)) + P * (10 * Ks + 40 * Kb + 30 * Kc)) + extra_flops
+    flops = (n * (L * 60 + P * 60 * (1 + len(sc.extra_grids))) + 12 * (tests + slabs)
+             + 10 * ev[0] + 40 * ev[1] + 30 * ev[2] + extra_flops)
     peak = F64_FLOPS if q.dtype == torch.float64 else F32_FLOPS
     return (*bound_ms(nbytes, flops, peak), sectors)
 
 
-def k3_phase(torch, sess, flush, label=""):
-    """K3 against ``min_clearance_eval_plain`` on the real float32 grid: the
-    main path's 36 x 6400 PD-path probes (perturbed straight lines between the
-    queries), plus as many configs uniform over the joint box so that many
-    spheres sit inside obstacles or outside the grid. Then K3's fused entry
-    ``k3_probe_clearance`` against ``probe_clearance_plain`` on the probes of
-    the same paths plus a row without motion, a NaN row and two rows of
-    random waypoints (which surely collide). ``label`` names a scene with
-    objects, or a float64 session, in the log and the records; a float64
-    session is held to 1e-9 m where a float32 one is held to 1e-5 m."""
+def k3_probe_bound(torch, model, qs, T: int):
+    """K3's fused entry's bound on the probes ``qs [B, G, L]`` with ``T``
+    segments a row: K3's (``k3_bound``) and beyond it the segment index (8 B)
+    a probe read, the per-row inputs read, the counts written, and about 20
+    operations a probe for the distances, the ramps and the compare."""
+    B, G, L = qs.shape
+    n = B * G
+    return k3_bound(torch, model, qs.reshape(-1, L), n * 8 + B * (2 * L + 3) * qs.element_size() + B * T * 4,
+                    n * 20)
+
+
+def k3_design(model) -> str:
+    """The design of K3 that ``model``'s scene runs
+    (``csrc/k3_clearance.cuh``): ``culled`` on a scene with extras (a
+    primitive evaluated only where its bounds reach below the minimum so
+    far, ``primitives_min_near``), ``one-grid`` on the base grid alone."""
+    composed = bool(model.scene.extra_grids) or sum(model.tables.counts) > 0
+    return "culled" if composed else "one-grid"
+
+
+def k3_inputs(torch, sess):
+    """K3's inputs at the main path's shapes, in the session's dtype: the 36 x
+    6400 PD-path probes ``q_path [230 400, L]`` (perturbed straight lines
+    between the queries) and as many configs ``q_box`` uniform over the joint
+    box (many spheres inside obstacles or outside the grid); and the fused
+    entry's ``probe = (qs [40, 6400, L], args)``, ``args`` the rest of
+    ``k3_probe_clearance``'s arguments: the same paths plus a row without
+    motion, a row that turns NaN half way and two rows of random waypoints
+    (which surely collide), their depths from the plain clearance; the
+    probes' ``visited [40, 6400]`` and ``seg_idx``, and ``B`` the 36 query
+    rows among the 40."""
     from functools import partial
 
     from vgpmp_torch import sim
     from vgpmp_torch.likelihoods import collision as col
-    from vgpmp_torch.timing import time_ms
 
     model = sess.model.collision
     dev = sess.device
     starts, goals = (torch.as_tensor(x, dtype=sess.dtype, device=dev) for x in sess.queries())
-    tol = 1e-9 if sess.dtype == torch.float64 else 1e-5
     B, T, L = starts.shape[0], sess.train_config.time_spacing_Xnew, starts.shape[1]
     gen = torch.Generator(device=dev).manual_seed(13)
     w = torch.linspace(0, 1, T, device=dev)[None, :, None]
@@ -648,6 +728,74 @@ def k3_phase(torch, sess, flush, label=""):
     traj = torch.minimum(torch.maximum(traj, lo), hi)
     q_path = sim.pd_path_configs(traj)[0].reshape(-1, L).contiguous()    # [36 * 6400, 7]
     q_box = lo + (hi - lo) * torch.rand(q_path.shape, generator=gen, device=dev)
+
+    rows = [traj, traj[:1, :1].expand(1, T, L), traj[1:2].clone(),
+            lo + (hi - lo) * torch.rand((2, T, L), generator=gen, device=dev)]
+    rows[2][0, T // 2:] = float("nan")
+    traj2 = torch.cat(rows)
+    B2 = traj2.shape[0]
+    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj2)
+    q_s = torch.cat([starts, traj2[B:, 0]])
+    q_g = torch.cat([goals, traj2[B:B + 1, -1], goals[1:2], traj2[B + 2:, -1]])
+    plain = partial(col.min_clearance_eval_plain, model)
+    depth_s, depth_g = torch.clamp(-plain(torch.cat([q_s, q_g])), min=0.0).split(B2)
+    radius, slack = 0.5, 5e-3
+    args = (q_s, q_g, depth_s, depth_g, visited[:, 0], seg_idx, T, radius, slack)
+    return {"q_path": q_path, "q_box": q_box, "probe": (qs, args), "visited": visited, "seg_idx": seg_idx,
+            "B": B}
+
+
+def k3_probe_agreement(torch, qs, args, clear_k, count_k, clear_p, count_p, visited, seg_idx, B):
+    """K3's fused entry (``clear_k``, ``count_k``) against the plain version's
+    on the probes ``qs`` (``k3_inputs``), asserted: the clearance to 1e-5 m
+    (1e-9 m in float64), NaN where the plain version's is, and every
+    segment's count between the probes below their floor by more than the
+    tolerance and those within it (a probe within the tolerance of its floor
+    may fall either way). Returns the record."""
+    from vgpmp_torch import sim
+
+    tol = 1e-9 if qs.dtype == torch.float64 else 1e-5
+    q_s, q_g, depth_s, depth_g, _, _, T, radius, slack = args
+    floor = sim._floor_from_depths(qs, q_s, q_g, depth_s, depth_g, radius, slack)
+    nan_k, nan_p = torch.isnan(clear_k), torch.isnan(clear_p)
+    ok = ~nan_p
+    perr = (clear_k[ok] - clear_p[ok]).abs().max().item()
+    near = visited & ((clear_p - floor).abs() <= tol)
+    far = sim._segment_count(seg_idx, visited & (clear_p < floor) & ~near, T)
+    near_n = sim._segment_count(seg_idx, near, T)
+    differ = (count_k > 0) != (count_p > 0)
+    responsible = int(near_n[differ].sum())
+    assert torch.equal(nan_k, nan_p) and nan_p[B + 1].any() and not nan_p[:B].any(), \
+        "K3 probe: NaN in, NaN out"
+    assert perr <= tol, "K3 probe entry: clearance disagrees with the plain version"
+    assert ((far <= count_k) & (count_k <= far + near_n)).all(), "K3 probe entry: counts disagree"
+    assert bool((near_n[differ] > 0).all()), "K3 probe entry: a flag differs with no probe at its floor"
+    assert count_p.sum() > 0 and count_k[B].sum() == 0 and not visited[B].any(), "K3 probe check: cases"
+    return {"max_abs_err": perr, "tol": tol, "nan_probes": int(nan_p.sum()),
+            "nan_equal": bool(torch.equal(nan_k, nan_p)), "violated_plain": int(count_p.sum()),
+            "violated_kernel": int(count_k.sum()), "segments_plain": int((count_p > 0).sum()),
+            "segments_kernel": int((count_k > 0).sum()), "segment_flags_differ": int(differ.sum()),
+            "probes_at_floor_responsible": responsible}
+
+
+def k3_phase(torch, sess, flush, label=""):
+    """K3 against ``min_clearance_eval_plain`` on the real float32 grid at
+    ``k3_inputs``: the main path's PD-path probes plus as many uniform
+    configs. Then K3's fused entry ``k3_probe_clearance`` against
+    ``probe_clearance_plain`` on ``k3_inputs``' probe rows
+    (``k3_probe_agreement``). ``label`` names a scene with objects, or a
+    float64 session, in the log and the records; a float64 session is held
+    to 1e-9 m where a float32 one is held to 1e-5 m."""
+    from functools import partial
+
+    from vgpmp_torch import sim
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.timing import time_ms
+
+    model = sess.model.collision
+    tol = 1e-9 if sess.dtype == torch.float64 else 1e-5
+    inp = k3_inputs(torch, sess)
+    q_path, q_box, L = inp["q_path"], inp["q_box"], inp["q_path"].shape[1]
     q = torch.cat([q_path, q_box])
 
     got = model.min_clearance_eval(q)
@@ -675,68 +823,42 @@ def k3_phase(torch, sess, flush, label=""):
     b_ms, b_by, sectors = k3_bound(torch, model, q_path, 0, 0)
     log(f"K3{label} time at {q_path.shape[0]} configs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}: {sectors} sectors = {sectors * 32 / 1e6:.1f} MB)")
-    k3 = {"name": "k3_min_clearance" + label, "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cuh",
+    k3 = {"name": "k3_min_clearance" + label, "design": k3_design(model), "route": "cuda",
+          "source": "vgpmp_torch/csrc/k3_clearance.cuh",
           "replaces": "vgpmp_tpu/likelihoods/collision.py:59", "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
           "negative_share": negative, "sectors": sectors, "configs_checked": q.shape[0],
           "configs_timed": q_path.shape[0]}
 
-    # the fused entry on the round's shape: the 36 paths, a row without
-    # motion, a row that turns NaN half way, and two rows of random waypoints
-    rows = [traj, traj[:1, :1].expand(1, T, L), traj[1:2].clone(),
-            lo + (hi - lo) * torch.rand((2, T, L), generator=gen, device=dev)]
-    rows[2][0, T // 2:] = float("nan")
-    traj2 = torch.cat(rows)
-    B2 = traj2.shape[0]
-    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj2)
-    q_s = torch.cat([starts, traj2[B:, 0]])
-    q_g = torch.cat([goals, traj2[B:B + 1, -1], goals[1:2], traj2[B + 2:, -1]])
+    # the fused entry on the round's shape
+    qs, args = inp["probe"]
+    B, T = inp["B"], args[6]
     plain = partial(col.min_clearance_eval_plain, model)
-    depth_s, depth_g = torch.clamp(-plain(torch.cat([q_s, q_g])), min=0.0).split(B2)
-    radius, slack = 0.5, 5e-3
-    args = (q_s, q_g, depth_s, depth_g, visited[:, 0], seg_idx, T, radius, slack)
     clear_k, count_k = col.k3_probe_clearance(model, qs, *args)
     clear_p, count_p = sim.probe_clearance_plain(plain, qs, *args)
-    floor = sim._floor_from_depths(qs, q_s, q_g, depth_s, depth_g, radius, slack)
     torch.cuda.synchronize()
-    nan_k, nan_p = torch.isnan(clear_k), torch.isnan(clear_p)
-    ok = ~nan_p
-    perr = (clear_k[ok] - clear_p[ok]).abs().max().item()
-    # a probe within 1e-5 m of its floor may fall either way (K3's clearance
-    # is held to 1e-5 m; 1e-9 m in float64); every other probe must count as
-    # the plain version counts it, so per segment far <= count <= far + near
-    near = visited & ((clear_p - floor).abs() <= tol)
-    far = sim._segment_count(seg_idx, visited & (clear_p < floor) & ~near, T)
-    near_n = sim._segment_count(seg_idx, near, T)
-    differ = (count_k > 0) != (count_p > 0)
-    responsible = int(near_n[differ].sum())
+    pa = k3_probe_agreement(torch, qs, args, clear_k, count_k, clear_p, count_p, inp["visited"],
+                            inp["seg_idx"], B)
+    perr, differ = pa["max_abs_err"], pa["segment_flags_differ"]
+    responsible = pa["probes_at_floor_responsible"]
     log(f"K3{label} probe entry check: {qs.shape[0]} rows x {qs.shape[1]} probes, max |d clearance| {perr:.3e} m "
-        f"(<= {tol:g}), NaN probes {int(nan_p.sum())} on both sides: {bool(torch.equal(nan_k, nan_p))}; "
-        f"violated probes {int(count_p.sum())} (plain) / {int(count_k.sum())} (kernel) in "
-        f"{int((count_p > 0).sum())} / {int((count_k > 0).sum())} segments; segment flags differ in "
-        f"{int(differ.sum())}, explained by {responsible} probes within {tol:g} m of their floor")
-    assert torch.equal(nan_k, nan_p) and nan_p[B + 1].any() and not nan_p[:B].any(), "K3 probe: NaN in, NaN out"
-    assert perr <= tol, "K3 probe entry: clearance disagrees with the plain version"
-    assert ((far <= count_k) & (count_k <= far + near_n)).all(), "K3 probe entry: counts disagree"
-    assert bool((near_n[differ] > 0).all()), "K3 probe entry: a flag differs with no probe at its floor"
-    assert count_p.sum() > 0 and count_k[B].sum() == 0 and not visited[B].any(), "K3 probe check: cases"
+        f"(<= {tol:g}), NaN probes {pa['nan_probes']} on both sides: {pa['nan_equal']}; "
+        f"violated probes {pa['violated_plain']} (plain) / {pa['violated_kernel']} (kernel) in "
+        f"{pa['segments_plain']} / {pa['segments_kernel']} segments; segment flags differ in "
+        f"{differ}, explained by {responsible} probes within {tol:g} m of their floor")
 
     pms = time_ms(lambda: col.k3_probe_clearance(model, qs, *args), flush=flush)
     pplain_ms = time_ms(lambda: sim.probe_clearance_plain(plain, qs, *args), reps=5, flush=flush)
     n = qs.shape[0] * qs.shape[1]
-    # beyond K3's bytes: the segment index (8 B) a probe read, the per-row
-    # inputs read, the counts written; about 20 operations a probe for the
-    # distances, the ramps and the compare
-    pb_ms, pb_by, psectors = k3_bound(torch, model, qs.reshape(-1, L),
-                                      n * 8 + B2 * (2 * L + 3) * qs.element_size() + B2 * T * 4,
-                                      n * 20)
+    pb_ms, pb_by, psectors = k3_probe_bound(torch, model, qs, T)
     log(f"K3{label} probe entry time at {n} probes: kernel {pms:.4f} ms, plain {pplain_ms:.4f} ms, "
         f"bound {pb_ms:.4f} ms ({pb_by}: {psectors} sectors)")
-    k3p = {"name": "k3_probe_clearance" + label, "route": "cuda", "source": "vgpmp_torch/csrc/k3_clearance.cuh",
+    k3p = {"name": "k3_probe_clearance" + label, "design": k3_design(model), "route": "cuda",
+           "source": "vgpmp_torch/csrc/k3_clearance.cuh",
            "replaces": "vgpmp_tpu/engine/validator.py:211", "max_abs_err": perr, "ms": pms,
            "plain_ms": pplain_ms, "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None,
-           "sectors": psectors, "probes": n, "violated_plain": int(count_p.sum()),
-           "violated_kernel": int(count_k.sum()), "segment_flags_differ": int(differ.sum()),
+           "sectors": psectors, "probes": n, "violated_plain": pa["violated_plain"],
+           "violated_kernel": pa["violated_kernel"], "segment_flags_differ": differ,
            "probes_at_floor_responsible": responsible}
     return k3, k3p
 

@@ -1,6 +1,7 @@
-// What K2's block design (vgpmp_torch/csrc/k2_linalg.cuh) and K1
-// (vgpmp_torch/csrc/k1_collision.cuh) take from CUDA, on the CPU, so that
-// their sources can be compiled by g++ and run by the tests.
+// What K2's block design (vgpmp_torch/csrc/k2_linalg.cuh), K1
+// (vgpmp_torch/csrc/k1_collision.cuh) and K3 (vgpmp_torch/csrc/k3_clearance.cuh)
+// take from CUDA, on the CPU, so that their sources can be compiled by g++ and
+// run by the tests.
 // A launch runs its blocks one after another; a block runs as BLK_THREADS
 // std::threads. __syncthreads is a barrier of the block, __syncwarp one of the
 // warp, and __shfl_sync and the m8n8k4 float64 product (mma.sync, as
@@ -11,6 +12,7 @@
 // documented one, a missing cp.async wait.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -91,6 +93,40 @@ inline void k2_cpu_mma(double (&c)[2], double a, double b) {
   k2_cpu_warp[w]->arrive_and_wait();
 }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
+// K3's count of violated probes: a ballot of the whole warp, and a match of
+// the lanes in `mask` (those the ballot set: they post their key and the
+// ballot's epoch, then wait for each other; the next ballot's barrier keeps
+// a key from being overwritten before every lane has read it)
+extern unsigned long long k2_cpu_xk[32][32];
+extern std::atomic<unsigned> k2_cpu_posted[32][32];
+extern unsigned k2_cpu_epoch[32];
+inline unsigned __ballot_sync(unsigned mask, bool p) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  k2_cpu_xa[w][l] = p ? 1.0 : 0.0;
+  k2_cpu_warp[w]->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i)
+    if ((mask >> i & 1) && k2_cpu_xa[w][i] != 0) r |= 1u << i;
+  if (l == 0) ++k2_cpu_epoch[w];
+  k2_cpu_warp[w]->arrive_and_wait();
+  return r;
+}
+inline unsigned __match_any_sync(unsigned mask, unsigned long long key) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  const unsigned epoch = k2_cpu_epoch[w];
+  k2_cpu_xk[w][l] = key;
+  k2_cpu_posted[w][l].store(epoch, std::memory_order_release);
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) {
+    if (!(mask >> i & 1)) continue;
+    while (k2_cpu_posted[w][i].load(std::memory_order_acquire) != epoch) std::this_thread::yield();
+    if (k2_cpu_xk[w][i] == key) r |= 1u << i;
+  }
+  return r;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 
 template <class K, class... A>
 void k2_cpu_launch(K kernel, dim3 grid, dim3 block, size_t smem, A... args) {

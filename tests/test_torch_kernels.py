@@ -1132,3 +1132,130 @@ def test_k2_block_design_on_real_grams_on_card(cuda_device):
     close(gK, gK_p, 1e-9)
     close(gB, gB_p, 1e-9)
     assert torch.isfinite(gK).all() and torch.isfinite(X_f).all()
+
+
+# ------------------------------------------------ K1 packed in float64, the composed K3
+
+# the float64 packed lookup's cases: every pair hinge-active (ε = 5 m), a tail
+# tile of 29 (2013 configs), and a NaN config among them
+F64_PACKED_CASES = {"all_active": (5.0, 8000), "tail_tile": (0.05, 2013), "nan_config": (0.05, 2013)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(F64_PACKED_CASES))
+@pytest.mark.parametrize("robot", ["franka", "ur10"])
+def test_k1_packed_float64_cases_on_card(robot, case, cuda_device):
+    """K1's packed lookup in float64 (phase 1 over the block, the cell by
+    ``div_by``, three words in flight) against the plain version
+    (``_k1_mode_check``'s float64 tolerances) with every pair active, at a
+    tail tile, and with a NaN config: its cell is the clamped one on both
+    sides, so its lik is the plain version's, and the other configs' lik and
+    d/dq are the same bits as without it. The forward without d/dq gives the
+    same lik, and the σ-gradient forward the same lik and d/dq, bit for bit,
+    and h² the plain hinge squared (1e-12 relative)."""
+    eps, T = F64_PACKED_CASES[case]
+    spec, model = _grid_model(robot, torch.float64, cuda_device, "packed")
+    model = dataclasses.replace(model, epsilon=eps)
+    rng = np.random.default_rng(14)
+    q = torch.as_tensor(_configs(spec, rng, (1, T)), dtype=torch.float64, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.003, 0.008, size=(1, spec.num_spheres)), dtype=torch.float64,
+                            device=cuda_device)
+    q2 = q.reshape(T, spec.dof)
+    if case == "nan_config":
+        lik_c, dq_c, _ = col.k1_loglik(model, q2, sigma, True)
+        q2 = q2.clone()
+        q2[1000, 3] = float("nan")  # in the tile of configs 992..1023
+        lik_n, dq_n, _ = col.k1_loglik(model, q2, sigma, True)
+        rest = torch.arange(T, device=cuda_device) != 1000
+        assert torch.equal(lik_n[rest], lik_c[rest]) and torch.equal(dq_n[rest], dq_c[rest])
+        lik_p = col.log_prob_plain(model, q2[None], sigma)[0]
+        assert torch.isfinite(lik_n[1000]) and torch.isclose(lik_n[1000], lik_p[1000], rtol=1e-12, atol=0)
+        q = q2[None][:, rest]
+    if case == "all_active":
+        assert (model.hinge_cost(q2) > 0).all()
+    close = _k1_mode_check(model, q, sigma, torch.float64)
+    q2 = q.reshape(-1, spec.dof)
+    lik_f, dq_f, _ = col.k1_loglik(model, q2, sigma, True)
+    lik_0, _, _ = col.k1_loglik(model, q2, sigma, False)
+    lik_h, dq_h, h2 = col.k1_loglik(model, q2, sigma, True, True)
+    assert torch.equal(lik_0, lik_f) and torch.equal(lik_h, lik_f) and torch.equal(dq_h, dq_f)
+    h = model.hinge_cost(q2)
+    ok = close.reshape(-1)
+    torch.testing.assert_close(h2.T[ok], (h * h)[ok], rtol=1e-12, atol=0)
+
+
+def _composed_k3(robot, dtype, device, zero_capsule=False):
+    """``_composed``'s small-base scene (which sphere centres leave) in
+    ``dtype``, unpacked, for K3; ``zero_capsule`` makes the capsule's segment
+    a point, whose distance is NaN everywhere (0/0, as JAX's)."""
+    data = smooth_grid(np.random.default_rng(5), SHAPE, scale=1.0) - np.float32(0.1)
+    sc = torch_scene_with_objects(data, np.array([-0.2, -0.3, 0.1]), 0.015, [0.1, 0.0, -0.05], dtype, device,
+                                  packed=False)
+    if zero_capsule:
+        p = sc.primitives
+        sc = dataclasses.replace(sc, primitives=dataclasses.replace(p, capsule_b=p.capsule_a.clone()))
+    spec = robots.load_robot(robot)
+    return spec, col.CollisionModel(fk=dh.FkModel.from_spec(spec, np.eye(4), dtype=dtype, device=device),
+                                    scene=sc, epsilon=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("robot", ["franka", "wam", "ur10"])
+def test_k3_composed_both_entries_on_card(robot, dtype, cuda_device):
+    """The composed K3 (``primitives_min_near``: a primitive evaluated only
+    where its bounds reach below the minimum so far) in both entries and
+    both dtypes, on 7 joints in Craig's convention
+    (franka) and the classic one (wam) and on 6 (ur10), against the plain
+    versions: the clearance to 1e-5 m (1e-9 m in float64), NaN configs NaN
+    on both sides, every source attaining the minimum somewhere, the
+    segment counts equal but for probes within the tolerance of their floor.
+    With a zero-length capsule every clearance is NaN on both sides and no
+    probe is counted."""
+    from vgpmp_torch import sim
+
+    tol = 1e-9 if dtype == torch.float64 else 1e-5
+    key = str(dtype).removeprefix("torch.")
+    spec, model = _composed_k3(robot, dtype, cuda_device)
+    q = torch.as_tensor(_configs(spec, np.random.default_rng(6), (8013,)), dtype=dtype, device=cuda_device)
+    q[:5, 2] = float("nan")
+    before = col.k3_min_clearance.launches_by.get(key, 0)
+    got = model.min_clearance_eval(q)
+    assert col.k3_min_clearance.launches_by[key] == before + 1
+    want = col.min_clearance_eval_plain(model, q)
+    with torch.no_grad():
+        wins = source_wins(model.scene, dh.sphere_positions(model.fk, q[5:]), None, "trilinear")
+    assert len(wins) == 6 and min(wins.values()) > 0, wins
+    assert torch.isnan(got[:5]).all() and torch.isnan(want[:5]).all() and not torch.isnan(want[5:]).any()
+    torch.testing.assert_close(got[5:], want[5:], rtol=0, atol=tol)
+
+    rng = np.random.default_rng(12)
+    B, T = 6, 15
+    lo, hi = spec.joint_limits[:, 1], spec.joint_limits[:, 0]
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    a, b = (mid + 0.6 * half * rng.uniform(-1, 1, (B, spec.dof)) for _ in range(2))
+    w = np.linspace(0, 1, T)[None, :, None]
+    traj = torch.as_tensor(a[:, None] * (1 - w) + b[:, None] * w, dtype=dtype, device=cuda_device)
+    traj[5, T // 2:] = float("nan")
+    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj, samples_per_segment=7)
+    q_s, q_g = traj[:, 0], traj[:, -1]
+    plain = lambda x: col.min_clearance_eval_plain(model, x)
+    depth_s, depth_g = torch.clamp(-plain(torch.cat([q_s, q_g])), min=0.0).split(B)
+    args = (q_s, q_g, depth_s, depth_g, visited[:, 0], seg_idx, T, 0.5, 5e-3)
+    before = col.k3_probe_clearance.launches_by.get(key, 0)
+    clear, count = model.probe_clearance(qs, *args)
+    assert col.k3_probe_clearance.launches_by[key] == before + 1
+    want_clear, want_count = sim.probe_clearance_plain(plain, qs, *args)
+    assert torch.equal(torch.isnan(clear), torch.isnan(want_clear)) and torch.isnan(want_clear[5]).any()
+    torch.testing.assert_close(clear, want_clear, rtol=0, atol=tol, equal_nan=True)
+    floor = sim._floor_from_depths(qs, q_s, q_g, depth_s, depth_g, 0.5, 5e-3)
+    near = visited & ((want_clear - floor).abs() <= tol)
+    far = sim._segment_count(seg_idx, visited & (want_clear < floor) & ~near, T)
+    assert ((far <= count) & (count <= far + sim._segment_count(seg_idx, near, T))).all()
+    assert want_count.sum() > 0
+
+    _, zmodel = _composed_k3(robot, dtype, cuda_device, zero_capsule=True)
+    assert torch.isnan(zmodel.min_clearance_eval(q)).all()
+    assert torch.isnan(col.min_clearance_eval_plain(zmodel, q)).all()
+    zclear, zcount = zmodel.probe_clearance(qs, *args)
+    assert torch.isnan(zclear).all() and zcount.sum() == 0

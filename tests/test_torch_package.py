@@ -30,7 +30,8 @@ def _imports(path: Path):
 
 
 PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "gather_bench_torch.py",
-                ROOT / "tools" / "k2_designs.py", ROOT / "tools" / "k1_designs.py", ROOT / "benchmarking_torch.py",
+                ROOT / "tools" / "k2_designs.py", ROOT / "tools" / "k1_designs.py",
+                ROOT / "tools" / "k3_designs.py", ROOT / "benchmarking_torch.py",
                 ROOT / "tools" / "solve_digest_torch.py", ROOT / "tools" / "launch_multihost_torch.py",
                 ROOT / "tools" / "tune_execution_torch.py"]
 PORT_TOOLS = ["tools/diagnose_failures_torch.py", "tools/batch_scaling_torch.py",
@@ -59,6 +60,7 @@ def test_port_imports_no_jax_package():
 
 @pytest.mark.parametrize("target", NEW_MODULES + ["vgpmp_torch.parallel", "chip_smoke", "bench_torch", "tools/gather_bench_torch.py",
                                                    "tools/k2_designs.py", "tools/k1_designs.py",
+                                                   "tools/k3_designs.py",
                                                    "benchmarking_torch",
                                                    "tools/solve_digest_torch.py",
                                                    "tools/launch_multihost_torch.py",
@@ -106,6 +108,16 @@ def test_k1_designs_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(k1_designs, "build", lambda sources: pytest.fail("built without CUDA"))
     assert k1_designs.main([]) == 1
+
+
+def test_k3_designs_refuses_without_cuda(monkeypatch):
+    """The K3 design timer has no CPU mode: it exits 1 and builds nothing."""
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import k3_designs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(k3_designs, "build", lambda sources: pytest.fail("built without CUDA"))
+    assert k3_designs.main([]) == 1
 
 
 def test_solve_digest_raises_without_cuda(monkeypatch):

@@ -23,9 +23,13 @@ squared), then timed in turns (``k2_designs.py:time_turns``: A, B, B, A,
 CUDA events, beside its bound
 (``chip_smoke.py:k1_bound``: the distinct sectors this run's lookups need,
 in nearest mode with d/dq the neighbours of the hinge-active pairs only, at
-3.35 TB/s). Prints one line per case with each version's mean, median and
-standard deviation and its share of the bound, and writes
-``chiprun_out/k1_designs.json``. Needs a CUDA device and ``nvcc``.
+3.35 TB/s). Each checked version's lik and d/dq are also compared with
+the first checked version's, bit for bit (the record keeps whether they
+are equal and the largest relative difference). Prints one line per case
+with each version's mean, median and standard deviation and its share of
+the bound, and writes ``chiprun_out/k1_designs.json``. ``--cases NAME ...``
+times only those cases (e.g. ``"packed float64"``) and builds only the
+libraries they need. Needs a CUDA device and ``nvcc``.
 
 To time an earlier design, pass its source, e.g. from git:
 ``git show <commit>:vgpmp_torch/csrc/k1_collision.cuh > .proof/old/k1_collision.cuh``
@@ -67,6 +71,15 @@ LIBS = {("float", "packed"): "K1_PACKED", ("float", "nearest"): "K1_NEAREST",
         ("float", "trilinear"): "K1_TRILINEAR", ("double", "packed"): "K1_PACKED",
         ("double", "nearest"): "K1_NEAREST", ("double", "trilinear"): "K1_TRILINEAR"}
 
+# each case's (scalar type, lookup mode) library
+CASES = {"packed": ("float", "packed"), "composed packed": ("float", "packed"),
+         "nearest": ("float", "nearest"), "composed nearest": ("float", "nearest"),
+         "trilinear": ("float", "trilinear"), "composed trilinear": ("float", "trilinear"),
+         "packed float64": ("double", "packed"), "composed packed float64": ("double", "packed"),
+         "nearest float64": ("double", "nearest"), "composed nearest float64": ("double", "nearest"),
+         "trilinear float64": ("double", "trilinear"),
+         "composed trilinear float64": ("double", "trilinear")}
+
 SHIM = r"""
 #include "k1_collision.cuh"
 using S = K1D_SCALAR;
@@ -87,30 +100,38 @@ extern "C" int k1d_run(const S* q, const S* sigma, const S* robot, const S* sphe
 """
 
 
-def build_one(name: str, source: Path, scalar: str, mode: str):
-    """``name``'s library for one (scalar type, lookup mode)."""
+def compile_shim(build: Path, source: Path, stem: str, shim: str):
+    """``shim`` (C++ that includes a version of a kernel's header) compiled
+    by ``nvcc`` for ``sm_90a`` into ``build/lib{stem}.so`` and loaded with
+    ``ctypes``; the headers come from ``source``'s directory first, then
+    from ``vgpmp_torch/csrc``."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    d = BUILD / name
-    d.mkdir(parents=True, exist_ok=True)
-    shim = d / f"shim_{scalar}_{mode}.cu"
-    shim.write_text(f"#define K1D_SCALAR {scalar}\n#define K1D_MODE {LIBS[scalar, mode]}\n" + SHIM)
-    lib = d / f"libk1_{scalar}_{mode}.so"
-    res = subprocess.run([nvcc, *FLAGS, f"-I{source.parent}", f"-I{CSRC}", "-o", str(lib), str(shim)],
+    build.mkdir(parents=True, exist_ok=True)
+    cu = build / f"shim_{stem}.cu"
+    cu.write_text(shim)
+    lib = build / f"lib{stem}.so"
+    res = subprocess.run([nvcc, *FLAGS, f"-I{source.parent}", f"-I{CSRC}", "-o", str(lib), str(cu)],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"k1_designs: nvcc failed on {source} ({scalar}, {mode}):\n{res.stderr}")
-    so = ctypes.CDLL(str(lib))
+        raise RuntimeError(f"nvcc failed on {source} ({stem}):\n{res.stderr}")
+    return ctypes.CDLL(str(lib))
+
+
+def build_one(name: str, source: Path, scalar: str, mode: str):
+    """``name``'s library for one (scalar type, lookup mode)."""
+    so = compile_shim(BUILD / name, source, f"k1_{scalar}_{mode}",
+                      f"#define K1D_SCALAR {scalar}\n#define K1D_MODE {LIBS[scalar, mode]}\n" + SHIM)
     vp, i64, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
     so.k1d_run.argtypes = [vp] * 15 + [i64, i64, i32, i32, i32, i32, f64, vp]
     return so
 
 
-def build(sources: dict) -> dict:
-    """``{name: {(scalar, mode): library}}``, one ``nvcc`` a library, all at
-    once."""
-    with ThreadPoolExecutor(len(sources) * len(LIBS)) as pool:
+def build(sources: dict, keys=tuple(LIBS)) -> dict:
+    """``{name: {(scalar, mode): library}}`` for the (scalar, mode)
+    ``keys``, one ``nvcc`` a library, all at once."""
+    with ThreadPoolExecutor(len(sources) * len(keys)) as pool:
         futs = {(nm, key): pool.submit(build_one, nm, Path(p).resolve(), *key)
-                for nm, p in sources.items() for key in LIBS}
+                for nm, p in sources.items() for key in keys}
         libs = {nm: {} for nm in sources}
         for (nm, key), f in futs.items():
             libs[nm][key] = f.result()
@@ -168,18 +189,35 @@ def models():
             "composed trilinear float64": (mode(o64, "trilinear"), "double")}, (s32, s64)
 
 
+def same_bits(got, first) -> dict:
+    """Whether the tensors ``got`` equal ``first``'s bit for bit (a NaN
+    where it is NaN), and their largest difference relative to ``first``'s
+    largest finite magnitude."""
+    eq, rel = True, 0.0
+    for a, b in zip(got, first):
+        if a is None:
+            continue
+        eq &= bool(torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(a.nan_to_num(), b.nan_to_num()))
+        ok = ~(torch.isnan(a) | torch.isnan(b))
+        scale = b[ok].abs().max().item() if ok.any() else 0.0
+        rel = max(rel, (a[ok] - b[ok]).abs().max().item() / scale if scale > 0 else 0.0)
+    return {"bit_equal_to_first": eq, "max_rel_diff_to_first": rel}
+
+
 def check(runs: dict, model, q, sigma, grad: bool, h2: bool) -> dict:
     """Each version's launch against the plain version (value and, with
     ``grad``, d/dq; with ``h2``, h² against the plain hinge squared on the
-    configs whose value agrees); returns each version's record."""
+    configs whose value agrees), and against the first version's bits;
+    returns each version's record."""
     B, P = sigma.shape
     x = q.clone().requires_grad_(grad)
     lik_p = col.log_prob_plain(model, x.reshape(B, -1, q.shape[-1]), sigma).reshape(-1)
     gp = torch.autograd.grad(lik_p.sum(), x)[0] if grad else None
     lik_p = lik_p.detach()
-    out = {}
+    out, first = {}, None
     for nm, fn in runs.items():
-        lik, dlik, sq = fn()
+        lik, dlik, sq = (None if t is None else t.clone() for t in fn())
+        first = first or (lik, dlik, sq)
         if grad:
             close, rec = chip_smoke.k1_agreement(torch, lik, dlik, lik_p, gp, model.scene.mode == "trilinear")
         else:
@@ -195,7 +233,7 @@ def check(runs: dict, model, q, sigma, grad: bool, h2: bool) -> dict:
             err = ((sq - hh).abs() / (1e-4 * hh.abs() + 1e-7))[:, close].max().item()
             assert err <= 1, f"{nm}: h² disagrees with the plain hinge squared"
             rec["h2_err_of_tol"] = err
-        out[nm] = rec
+        out[nm] = {**rec, **same_bits((lik, dlik, sq), first)}
     torch.cuda.synchronize()
     return out
 
@@ -206,18 +244,24 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--unchecked", nargs="*", default=[],
                     help="versions timed without the check: ablations that drop work")
+    ap.add_argument("--cases", nargs="*", default=None, help="the cases to time (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_designs: no CUDA device", file=sys.stderr)
         return 1
     sources = dict(s.split("=", 1) for s in args.sources) or {"current": str(CSRC / "k1_collision.cuh")}
+    unknown = set(args.cases or ()) - set(CASES)
+    if unknown:
+        raise SystemExit(f"k1_designs: no case {sorted(unknown)}; the cases are {list(CASES)}")
+    wanted = [c for c in CASES if args.cases is None or c in args.cases]
     t0 = time.perf_counter()
-    libs = build(sources)
+    libs = build(sources, tuple(dict.fromkeys(CASES[c] for c in wanted)))
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     smi = card(dev)
     print(f"k1_designs: built {list(sources)} in {build_s:.1f} s on {smi}", flush=True)
     cases, (s32, _) = models()
+    cases = {c: cases[c] for c in wanted}
     flush = l2_flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(29)
     q32 = chip_smoke.k1_inputs(torch, s32)
@@ -247,7 +291,9 @@ def main(argv=None) -> int:
                    "min_ms": {nm: min(v) for nm, v in times.items()}}
             row["share_of_bound"] = {nm: b_ms / m for nm, m in row["mean_ms"].items()}
             rows.append(row)
-            print(f"{case} {what} (bound {b_ms:.4f} ms by {b_by}, {sectors} sectors): "
+            same = all(e["bit_equal_to_first"] for e in errs.values())
+            print(f"{case} {what} (bound {b_ms:.4f} ms by {b_by}, {sectors} sectors; checked versions "
+                  f"bit-equal: {same}): "
                   + ", ".join(f"{nm} {row['mean_ms'][nm]:.4f} / {row['median_ms'][nm]:.4f} "
                               f"± {row['stdev_ms'][nm]:.4f} ({100 * row['share_of_bound'][nm]:.1f} %)"
                               for nm in runs)

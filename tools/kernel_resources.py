@@ -7,14 +7,17 @@ reports them.
 Compiles each source (default: every ``vgpmp_torch/csrc/k*.cu``) for
 ``sm_90a`` with ``nvcc -Xptxas -v``, all sources at once, and prints one line
 per kernel: registers per thread, bytes of spill stores and loads, stack frame
-and static shared memory. Needs ``nvcc``; runs no kernel, so it needs no
-card. The record also goes to ``chiprun_out/kernel_resources.json``. To read
+and static shared memory, and the SHA-256 of its machine code (the SASS text
+``cuobjdump -sass`` prints for it, so that two versions of a source show
+which kernels they left unchanged). Needs ``nvcc``; runs no kernel, so it
+needs no card. The record also goes to ``chiprun_out/kernel_resources.json``. To read
 an older version of a kernel, pass the path of that version's source (it must
 sit beside the headers it includes).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import shutil
@@ -31,6 +34,7 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")
+_FUNCTION = re.compile(r"Function : (\S+)")
 
 
 def find_nvcc() -> str:
@@ -65,24 +69,44 @@ def parse(log: str):
     return rows
 
 
+def find_cuobjdump() -> str:
+    return shutil.which("cuobjdump") or str(Path(find_nvcc()).with_name("cuobjdump"))
+
+
+def sass_hashes(obj: Path) -> dict:
+    """``{mangled name: SHA-256 of its SASS}`` of the object file ``obj``."""
+    out = subprocess.run([find_cuobjdump(), "-sass", str(obj)], capture_output=True, text=True,
+                         check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if m := _FUNCTION.search(line):
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {n: hashlib.sha256("\n".join(lines).encode()).hexdigest() for n, lines in funcs.items()}
+
+
 def resources(sources):
     """Compile ``sources`` side by side; ``{source: [kernel records]}``."""
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [(src, subprocess.Popen(
+        procs = [(i, src, subprocess.Popen(
             [nvcc, *FLAGS, f"-I{Path(src).resolve().parent}", f"-I{CSRC}", str(src),
              "-o", str(Path(tmp) / f"{i}.o")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             for i, src in enumerate(sources)]
         out = {}
-        for src, proc in procs:
+        for i, src, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on {src}:\n{log}")
             rows = parse(log)
             names = demangle([r["mangled"] for r in rows])
+            sass = sass_hashes(Path(tmp) / f"{i}.o")
             for r in rows:
                 r["kernel"] = names[r["mangled"]]
+                r["sass_sha256"] = sass.get(r["mangled"])
             out[str(src)] = rows
     return out
 
@@ -94,7 +118,8 @@ def main(argv) -> int:
         print(src)
         for r in rows:
             print(f"  {r['registers']:4d} regs  spill {r['spill_store_bytes']}/{r['spill_load_bytes']} B"
-                  f"  stack {r['stack_bytes']} B  smem {r['static_smem_bytes']} B  {r['kernel'][:150]}")
+                  f"  stack {r['stack_bytes']} B  smem {r['static_smem_bytes']} B  sass "
+                  f"{(r['sass_sha256'] or '-')[:12]}  {r['kernel'][:150]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "kernel_resources.json").write_text(json.dumps(rec, indent=1))

@@ -47,7 +47,10 @@ void check_scalar(const at::Tensor& q, const char* what) {
 }
 
 // The most values a scene's extras may take in a block's shared memory
-// (4 096: the room K1's and K3's float32 tiles leave under 48 KB)
+// (4 096: the room K1's and K3's float32 tiles leave under 48 KB). The
+// composed K3 keeps 8 more a primitive beside them (k3_clearance.cuh:
+// PRIM_BOUND), so a scene near the limit takes it above 48 KB: launch_smem
+// opts in to more, and the SM holds fewer of its blocks
 constexpr int64_t EXTRAS_FLOATS = 4096;
 
 // The checks of a scene's extras (kernels.h:SceneExtras): grid_f [G, 7] and

@@ -116,6 +116,38 @@ __device__ __forceinline__ void fk_chain_to_shared(const S* __restrict__ q,
       stride);
 }
 
+// Phase 1 of a tile of C configurations, spread over the block: the tile's
+// joint angles q[(tile0 + c) * DOF + j] (c < n - tile0), one a thread (q read
+// coalesced), to cos and sin in trig [DOF][2][C]. A __syncthreads() must
+// follow before fk_chain_from_trig reads them. The sin and cos are the same
+// function of the same inputs as fk_chain_to_shared's, so the frames are
+// bit-identical to its frames; the chain's serial part then holds no trig.
+// K3 writes the same two steps out in its kernel: through these helpers its
+// base-only probe entry took 40 registers where it takes 32 (PERF.md).
+template <int DOF, int C, class S>
+__device__ __forceinline__ void joint_trig_to_shared(const S* __restrict__ q, const S* __restrict__ robot,
+                                                     S* __restrict__ trig, long long tile0, long long n,
+                                                     int tid, int nthreads) {
+  const long long nq = (n - tile0 < C ? n - tile0 : C) * DOF;
+  for (int e = tid; e < nq; e += nthreads) {
+    const int c = e / DOF, j = e % DOF;
+    joint_cos_sin(robot + 6 * j, q[tile0 * DOF + e], trig[2 * j * C + c], trig[(2 * j + 1) * C + c]);
+  }
+}
+
+// The chain of the tile's configuration c from trig (joint_trig_to_shared)
+// into frames + c
+template <int DOF, bool CRAIG, int C, class S>
+__device__ __forceinline__ void fk_chain_from_trig(const S* __restrict__ trig, const S* __restrict__ robot,
+                                                   S* __restrict__ frames, int c) {
+  fk_chain_to_shared_cs<DOF, CRAIG, S>(
+      [&](int j, S& co, S& s) {
+        co = trig[2 * j * C + c];
+        s = trig[(2 * j + 1) * C + c];
+      },
+      robot, frames + c, C);
+}
+
 // World centre of a sphere at offset (ox, oy, oz) in frame f, from the frames
 // that fk_chain_to_shared wrote; the sum runs in the plain version's order.
 template <class S>

@@ -25,14 +25,18 @@
 // (neighbours in time along a trajectory, so neighbours in space: their
 // spheres share sectors).
 //   Phase 1: one thread per configuration runs the DH chain once
-//     (fk.cuh:fk_chain_to_shared) and leaves the frames in shared memory.
+//     (fk.cuh:fk_chain_to_shared) and leaves the frames in shared memory. In
+//     double, the block's 256 threads first take the tile's joint angles to
+//     cos and sin, one each, as K3 does (fk.cuh:joint_trig_to_shared), so the
+//     chain on one warp holds no double trig: seven warps otherwise wait on
+//     fourteen double sin and cos in series.
 //   Phase 2: thread (g, c) keeps local configuration c and the spheres g,
 //     g + 8, g + 16, ..., so a warp holds the tile's 32 configurations of one
 //     sphere: its shared-memory reads are conflict-free, the sphere's constants
 //     are a broadcast, and its 32 gathers land near each other. A thread
 //     computes the cells of NI spheres and starts all their gathers before it
-//     uses one (GridLookup::fetch; NI is 5 for the packed word, 2 for the
-//     eight corners of the trilinear lookup).
+//     uses one (GridLookup::fetch; NI is 5 for the packed word, 3 in double,
+//     2 for the eight corners of the trilinear lookup).
 //   Phase 3: the hinge, and for an active pair the joint torques from the
 //     frames in shared memory (dlik/dq_j = sum_p (c_p/sigma_p) z_j . ((x_p -
 //     o_j) x grad_p), from the gathered gradient, so the backward pass is a
@@ -120,9 +124,13 @@ namespace {
 constexpr int C = 32, THREADS = 256;
 
 // the one-pass loop's gathers of NI spheres in flight a thread: five packed
-// words, or two spheres' eight trilinear corners
-template <int MODE>
-__host__ __device__ constexpr int k1_ni() { return MODE == K1_PACKED ? 5 : 2; }
+// words in float, three in double (whose registers for each word's sphere
+// would otherwise cut the blocks an SM holds; k1_blocks), or two spheres'
+// eight trilinear corners
+template <class S, int MODE>
+__host__ __device__ constexpr int k1_ni() {
+  return MODE == K1_PACKED ? (sizeof(S) == 8 ? 3 : 5) : 2;
+}
 
 // Which instantiations take the split design (loglik_split): the value of
 // every source first, the gradient only for hinge-active pairs. The
@@ -427,13 +435,14 @@ __device__ __forceinline__ void loglik_tile(
   using Lookup = GridLookup<S, MODE>;
   using Entry = typename Lookup::Entry;
   constexpr int G = THREADS / C;
-  constexpr int NI = k1_ni<MODE>();
+  constexpr int NI = k1_ni<S, MODE>();
   constexpr int NF = FK_FRAME * (DOF + 1);
   constexpr int SLOTS = 8;  // 1 + DOF <= 8 partial sums per thread
   // a NaN distance (a NaN configuration in trilinear mode, a zero-length
   // capsule) stays NaN, as in the plain version's clamp
   constexpr bool KEEP_NAN = EXTRA || MODE == K1_TRILINEAR;
   static_assert(THREADS % C == 0 && C % 32 == 0 && DOF + 1 <= SLOTS, "tile shape");
+  static_assert(2 * DOF <= (THREADS / C) * SLOTS, "the joints' sin and cos fit in red");
   static_assert(GRAD || !H2, "h^2 is written only beside the gradient");
   extern __shared__ __align__(16) unsigned char k1_smem[];
   S* frames = reinterpret_cast<S*>(k1_smem);  // [NF][C]
@@ -445,8 +454,16 @@ __device__ __forceinline__ void loglik_tile(
   for (int i = tid; i < 5 * P; i += THREADS) sph[i] = spheres[i];
   ExtrasView<S> xv{};
   if constexpr (EXTRA) xv = extras_to_shared(ex, sph + 5 * P, tid, THREADS);
-  if (tid < C && tile0 + tid < T)
+  if constexpr (sizeof(S) == 8) {
+    // double: the block's threads take the tile's sin and cos, one angle
+    // each, into red (free until phase 3), so that the chain's serial part,
+    // on one warp of eight, holds no double trig
+    joint_trig_to_shared<DOF, C>(q, robot, red, tile0, T, tid, THREADS);
+    __syncthreads();
+    if (tid < C && tile0 + tid < T) fk_chain_from_trig<DOF, CRAIG, C>(red, robot, frames, tid);
+  } else if (tid < C && tile0 + tid < T) {
     fk_chain_to_shared<DOF, CRAIG>(q + (tile0 + tid) * DOF, robot, frames + tid, C);
+  }
   __syncthreads();
 
   const int c = tid % C, grp = tid / C;
@@ -599,18 +616,22 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(K1_TILE_PARAMS) {
   loglik_tile<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(K1_TILE_ARGS);
 }
 
-// A float32 scene with extras names the blocks an SM must hold, which caps a
-// thread's registers: three (80 registers) for the split design, which fits
-// them without a spill (one sphere at a time, the tie path out of line); two
-// (128) for the one-pass trilinear lookup, which would take ~150 and leave
-// one block, eight warps, to hide the gathers. Naming no block count for the
-// others keeps their register budget as it was.
+// The blocks an SM must hold, which caps a thread's registers, where an
+// instantiation names them (0: none named, the register budget as it was).
+// A float32 scene with extras: three (80 registers) for the split design,
+// which fits them without a spill (one sphere at a time, the tie path out of
+// line); two (128) for the one-pass trilinear lookup, which would take ~150
+// and leave one block, eight warps, to hide the gathers. The base grid alone
+// in double, packed or nearest cell: three (80), which the packed lookup's
+// three words in flight fit, and which the nearest cell's gradient pass
+// would otherwise exceed (100-104 registers, two blocks; PERF.md).
 template <class S, int MODE, bool EXTRA>
-__host__ __device__ constexpr int k1_extra_blocks() {
-  return k1_split<S, MODE, EXTRA>() ? 3 : 2;
+__host__ __device__ constexpr int k1_blocks() {
+  if (EXTRA && sizeof(S) == 4) return k1_split<S, MODE, EXTRA>() ? 3 : 2;
+  return !EXTRA && sizeof(S) == 8 && MODE != K1_TRILINEAR ? 3 : 0;
 }
 template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
-__global__ void __launch_bounds__(THREADS, (k1_extra_blocks<S, MODE, EXTRA>()))
+__global__ void __launch_bounds__(THREADS, (k1_blocks<S, MODE, EXTRA>()))
     loglik_tile_kernel_blocks(K1_TILE_PARAMS) {
   loglik_tile<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(K1_TILE_ARGS);
 }
@@ -619,7 +640,7 @@ template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA
 cudaError_t launch_kernel(const K1Args<S>& a, const typename GridLookup<S, MODE>::Entry* table,
                           size_t smem, cudaStream_t st) {
   const dim3 grid((unsigned)((a.T + C - 1) / C)), block(THREADS);
-  if constexpr (EXTRA && sizeof(S) == 4)
+  if constexpr (k1_blocks<S, MODE, EXTRA>() > 0)
     return launch_smem(loglik_tile_kernel_blocks<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>, grid, block,
                        smem, st, a.q, a.sigma, a.robot, a.spheres, table, a.ex, a.lik, a.dlik, a.h2,
                        (long long)a.T, (long long)a.K, a.P, a.g, a.eps);

@@ -56,9 +56,21 @@
 // A scene with extra grids or primitives takes the EXTRA instantiation: per
 // sphere, after the base grid's eight corners, each extra grid's eight
 // corners (the same trilinear_cell, on its own offset, origin, delta and
-// shape) and the analytic primitives (scene.cuh:compose_primitives, from the
-// extras' tables in shared memory), the minimum keeping a NaN; the base-only
-// instantiations are unchanged.
+// shape) and the analytic primitives (scene.cuh's sphere_value, box_value and
+// capsule_value, from the extras' tables in shared memory), the minimum
+// keeping a NaN; the base-only instantiations are unchanged. The primitives
+// took as long as an extra grid (PERF.md), so a primitive is evaluated only
+// where it can attain the minimum: each has a bounding sphere (centre c,
+// radius R; primitive_bounds), its value at a point x is at least |x - c| - R
+// (for a box only outside its bounding sphere), and where |x - c| exceeds
+// max(d, 0) + R + K3_CULL_MARGIN, for d the minimum so far, it lies above d
+// by more than any rounding and is skipped (primitives_min_near). A box's
+// value is also at least |l_k| - h_k along each of its axes k (l the local
+// point, h the half extents), so a point farther than that from its
+// thinnest slab is skipped too: a table's bounding sphere holds most of the
+// arm, its slab little of it. The minimum is the same bits as the one over
+// every source: a skipped value never attains it. A capsule of zero length,
+// whose value is NaN, is never skipped.
 // The clamps and the lerp order (z, then y, then x) are the plain version's,
 // and dh_step (fk.cuh) is the one DH composition of K1 and K3, so the two
 // kernels round alike and differ from the plain version by fused
@@ -131,6 +143,80 @@ __device__ __forceinline__ void probe_count(bool viol, long long key, int32_t* s
   }
 }
 
+// K3_CULL_MARGIN (metres): how far above the minimum so far a primitive's
+// bound must lie to be skipped, far more than the rounding of the values
+// and the bound (~1e-6 m in float) and far less than the distances
+constexpr double K3_CULL_MARGIN = 1e-3;
+// a primitive's bounds: its bounding sphere's centre (3) and radius; for a
+// box, the world->box row of its thinnest axis (3) and that half extent
+constexpr int PRIM_BOUND = 8;
+
+// Each primitive's bounds into bound [Ks + Kb + Kc][PRIM_BOUND], from the
+// primitives' table prims (kernels.h:SceneExtras): a sphere itself; a box's
+// centre, the norm of its half extents and its thinnest slab; a capsule's
+// midpoint and half its length plus its radius, R = +inf for a capsule of
+// zero (or NaN) length, never skipped. Every thread of the block calls it.
+template <class S>
+__device__ __forceinline__ void primitive_bounds(const SceneExtras& ex, S* __restrict__ bound, int tid) {
+  const S* pr = static_cast<const S*>(ex.prims);
+  for (int k = tid; k < ex.Ks + ex.Kb + ex.Kc; k += THREADS) {
+    S* b = bound + PRIM_BOUND * k;
+    if (k < ex.Ks) {
+      const S* p = pr + SCENE_SPHERE * k;
+      b[0] = p[0], b[1] = p[1], b[2] = p[2], b[3] = p[3];
+    } else if (k < ex.Ks + ex.Kb) {
+      const S* p = pr + SCENE_SPHERE * ex.Ks + SCENE_BOX * (k - ex.Ks);
+      b[0] = p[0], b[1] = p[1], b[2] = p[2];
+      b[3] = s_sqrt(p[12] * p[12] + p[13] * p[13] + p[14] * p[14]);
+      const int a = p[12] <= p[13] ? (p[12] <= p[14] ? 0 : 2) : (p[13] <= p[14] ? 1 : 2);
+      b[4] = p[3 + 3 * a], b[5] = p[4 + 3 * a], b[6] = p[5 + 3 * a], b[7] = p[12 + a];
+    } else {
+      const S* p = pr + SCENE_SPHERE * ex.Ks + SCENE_BOX * ex.Kb + SCENE_CAPSULE * (k - ex.Ks - ex.Kb);
+      const S ax = p[3] - p[0], ay = p[4] - p[1], az = p[5] - p[2], len2 = ax * ax + ay * ay + az * az;
+      b[0] = p[0] + S(0.5) * ax, b[1] = p[1] + S(0.5) * ay, b[2] = p[2] + S(0.5) * az;
+      b[3] = len2 > S(0) ? S(0.5) * s_sqrt(len2) + p[6] : s_inf<S>();
+    }
+  }
+}
+
+// The primitives folded into the running minimum d at the world point
+// (x, y, z), as compose_primitives<false> folds them, each skipped where its
+// bound lies above d (see the header).
+template <class S>
+__device__ __forceinline__ void primitives_min_near(const ExtrasView<S>& v, const S* __restrict__ bound,
+                                                    S x, S y, S z, S& d) {
+  const S* p = v.pr;
+  const S* b = bound;
+  // the bounding sphere, or a box's thinnest slab, lies above max(d, 0) + margin
+  auto far = [&](const S* b) {
+    const S dx = x - b[0], dy = y - b[1], dz = z - b[2];
+    const S t = s_max(d, S(0)) + b[3] + S(K3_CULL_MARGIN);
+    return dx * dx + dy * dy + dz * dz > t * t;
+  };
+  auto off_slab = [&](const S* b) {
+    const S l = b[4] * (x - b[0]) + b[5] * (y - b[1]) + b[6] * (z - b[2]);
+    return s_abs(l) - b[7] > s_max(d, S(0)) + S(K3_CULL_MARGIN);
+  };
+  for (int k = 0; k < v.Ks; ++k, p += SCENE_SPHERE, b += PRIM_BOUND) {
+    if (far(b)) continue;
+    S u[3], n;
+    const S dk = sphere_value(p, x, y, z, u, n);
+    if (takes(dk, d)) d = dk;
+  }
+  for (int k = 0; k < v.Kb; ++k, p += SCENE_BOX, b += PRIM_BOUND) {
+    if (far(b) || off_slab(b)) continue;
+    S l[3], m[3], outside;
+    const S dk = box_value(p, x, y, z, l, m, outside);
+    if (takes(dk, d)) d = dk;
+  }
+  for (int k = 0; k < v.Kc; ++k, p += SCENE_CAPSULE, b += PRIM_BOUND) {
+    if (far(b)) continue;
+    S u[3], n;
+    const S dk = capsule_value(p, x, y, z, u, n);
+    if (takes(dk, d)) d = dk;
+  }
+}
+
 // robot and spheres: the constant tables described in fk.cuh. EXTRA: compose
 // ex's sources.
 template <class S, int DOF, bool CRAIG, bool PROBE, bool EXTRA>
@@ -153,9 +239,17 @@ __global__ void __launch_bounds__(THREADS) clearance_tile_kernel(
   const long long tile0 = (long long)blockIdx.x * C;
   for (int i = tid; i < 5 * P; i += THREADS) sph[i] = spheres[i];
   ExtrasView<S> xv{};
-  if constexpr (EXTRA) xv = extras_to_shared(ex, sph + 5 * P, tid, THREADS);
+  S* bound = nullptr;  // EXTRA: the primitives' bounding spheres, beside the extras
+  if constexpr (EXTRA) {
+    xv = extras_to_shared(ex, sph + 5 * P, tid, THREADS);
+    bound = sph + 5 * P + extras_floats(ex);
+    primitive_bounds(ex, bound, tid);
+  }
   // Phase 1: the tile's joint angles, one a thread (q read coalesced), to
-  // cos and sin; then one thread a configuration composes the chain
+  // cos and sin; then one thread a configuration composes the chain. The
+  // same two steps as fk.cuh's joint_trig_to_shared and fk_chain_from_trig
+  // (K1 in float64), written out here: through those helpers the base-only
+  // probe entry took 40 registers where it takes 32 (PERF.md)
   const long long nq = (n - tile0 < C ? n - tile0 : C) * DOF;
   for (int e = tid; e < nq; e += THREADS) {
     const int c = e / DOF, j = e % DOF;
@@ -194,9 +288,7 @@ __global__ void __launch_bounds__(THREADS) clearance_tile_kernel(
           load_corners(cells + extra_start(xv, e) + cell, eg.nz, eg.ny * eg.nz, ce);
           d = min_keep_nan(d, lerp_corners(ce, fe));
         }
-        S unused_g[3];
-        bool unused_bad = false;
-        compose_primitives<false, S>(xv, x, y, z, d, unused_g, unused_bad);
+        primitives_min_near(xv, bound, x, y, z, d);
       }
       m = min_keep_nan(m, d - s[4]);
     }
@@ -215,6 +307,7 @@ __global__ void __launch_bounds__(THREADS) clearance_tile_kernel(
   }
 }
 
+
 template <class S, int DOF, bool CRAIG, bool PROBE, bool EXTRA>
 cudaError_t launch_tile(cudaStream_t st, const S* q, const S* robot, const S* spheres, const S* sdf,
                         const SceneExtras& ex, S* out, long long n, int P, GridArgs<S> g,
@@ -222,7 +315,8 @@ cudaError_t launch_tile(cudaStream_t st, const S* q, const S* robot, const S* sp
   constexpr size_t KEY_SLOTS = sizeof(long long) / sizeof(S);
   const size_t smem =
       sizeof(S) * ((size_t)(FK_FRAME * (DOF + 1) + GROUPS + 2 * DOF + 1 + KEY_SLOTS) * C +
-                   5 * (size_t)P + (EXTRA ? (size_t)extras_floats(ex) : 0));
+                   5 * (size_t)P +
+                   (EXTRA ? (size_t)extras_floats(ex) + PRIM_BOUND * (size_t)(ex.Ks + ex.Kb + ex.Kc) : 0));
   const dim3 grid((unsigned)((n + C - 1) / C)), block(THREADS);
   return launch_smem(clearance_tile_kernel<S, DOF, CRAIG, PROBE, EXTRA>, grid, block, smem, st, q,
                      robot, spheres, sdf, ex, out, n, P, g, pa);

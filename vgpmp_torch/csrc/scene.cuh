@@ -58,14 +58,33 @@ template <> __device__ __forceinline__ double s_inf<double>() { return CUDART_IN
 __device__ __forceinline__ float unpack_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 __device__ __forceinline__ float unpack_lo(uint32_t w) { return __uint_as_float(w << 16); }
 
+// a / b rounded to nearest, from inv = 1 / b rounded to nearest: the product
+// and one fused correction (Markstein's theorem), the same bits as the
+// division for quotients far from under- and overflow, in three instructions
+// where the division takes about eight and a branch
+template <class S>
+__device__ __forceinline__ S div_by(S a, S b, S inv) {
+  const S q = s_mul_rn(a, inv);
+  return s_fma_rn(s_fma_rn(-q, b, a), inv, q);
+}
+
+// (p - o) / delta, the position in cells along one axis, as JAX divides it. In
+// double, div_by (a double division is a Newton sequence with a slow-path
+// branch; the reciprocal is one division a grid, hoisted out of a sphere
+// loop); float keeps its division.
+__device__ __forceinline__ float cell_coord(float p, float o, float delta) { return (p - o) / delta; }
+__device__ __forceinline__ double cell_coord(double p, double o, double delta) {
+  return div_by(p - o, delta, 1.0 / delta);
+}
+
 // the nearest cell of a mesh-frame point, clamped to the grid: its three
 // indices in i, and the flat index
 template <class S>
 __device__ __forceinline__ long long nearest_cell(S px, S py, S pz, const GridArgs<S>& g,
                                                   int (&i)[3]) {
-  i[0] = min(max((int)s_floor((px - g.ox) / g.delta), 0), g.nx - 1);
-  i[1] = min(max((int)s_floor((py - g.oy) / g.delta), 0), g.ny - 1);
-  i[2] = min(max((int)s_floor((pz - g.oz) / g.delta), 0), g.nz - 1);
+  i[0] = min(max((int)s_floor(cell_coord(px, g.ox, g.delta)), 0), g.nx - 1);
+  i[1] = min(max((int)s_floor(cell_coord(py, g.oy, g.delta)), 0), g.ny - 1);
+  i[2] = min(max((int)s_floor(cell_coord(pz, g.oz, g.delta)), 0), g.nz - 1);
   return ((long long)i[0] * g.ny + i[1]) * g.nz + i[2];
 }
 
@@ -85,16 +104,6 @@ __device__ __forceinline__ S min_keep_nan(S a, S b) {
 template <class S>
 __device__ __forceinline__ S max_keep_nan(S a, S b) {
   return (a != a) ? a : ((b != b) ? b : s_max(a, b));
-}
-
-// a / b rounded to nearest, from inv = 1 / b rounded to nearest: the product
-// and one fused correction (Markstein's theorem), the same bits as the
-// division for quotients far from under- and overflow, in three instructions
-// where the division takes about eight and a branch
-template <class S>
-__device__ __forceinline__ S div_by(S a, S b, S inv) {
-  const S q = s_mul_rn(a, inv);
-  return s_fma_rn(s_fma_rn(-q, b, a), inv, q);
 }
 
 // The cell a trilinear lookup at the mesh-frame point (px, py, pz)

@@ -51,7 +51,9 @@ def joint_sigmoid_inverse(q: torch.Tensor, low, high) -> torch.Tensor:
     return sigmoid_box_inverse(q, low, high)
 
 
-EXTRAS_FLOATS = 4096  # the room K1's and K3's float32 tiles leave under 48 KB of shared memory
+# the room K1's and K3's float32 tiles leave under 48 KB of shared memory; the composed K3 keeps
+# 8 more a primitive (csrc/k3_clearance.cuh:PRIM_BOUND), and near the limit takes more than 48 KB
+EXTRAS_FLOATS = 4096
 K1_MODES = {"packed": 0, "nearest": 1, "trilinear": 2}  # csrc/kernels.h:K1Mode
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
