@@ -31,9 +31,10 @@ Phases, any failure exits non-zero before the result line:
     K2 launches per Adam step; a second window over one
     ``execute_and_validate`` of the round's best trajectories: device busy
     ms, device launches, K3's device ms; and a third over lone launches of
-    ``k2_chol``, ``k2_trsm`` (k = 1 and 100, lower and transposed) and K4 at
-    one point: each kernel's device-only time beside its event time (run
-    last, after (g));
+    ``k2_chol``, ``k2_trsm`` (k = 1 and 100, lower and transposed), K4 at
+    one point, and (i)'s ``k1_dsigma`` and (t1)'s K1-trilinear (with d/dq
+    and forward only) at their shapes: each kernel's device-only time
+    beside its event time (run last, after (g));
 (e) the scored round: ``make_round_solver`` on the 36 queries at 200 steps
     (solve, best sample, then ``execute_and_validate`` of every row: two K3
     launches, the fused probe entry and the endpoints), with the verdicts
@@ -387,11 +388,17 @@ def k1_phase(torch, sess, flush, label="", model=None):
 def k1_design(model) -> str:
     """The design of K1 that ``model``'s lookup runs
     (``csrc/k1_collision.cuh:k1_split``): ``split`` (every source's value
-    first, the gradient only for hinge-active pairs) for the composed packed
-    lookup and the nearest cell, ``one-pass`` for the rest, in either dtype."""
+    first, the gradient only for hinge-active pairs) for every composed
+    lookup and the nearest cell, ``one-pass`` for the base grid alone in the
+    packed and trilinear lookups, in either dtype."""
     sc = model.scene
     composed = bool(sc.extra_grids) or sum(model.tables.counts) > 0
-    return "split" if sc.mode == "nearest" or (sc.mode == "packed" and composed) else "one-pass"
+    return "split" if sc.mode == "nearest" or composed else "one-pass"
+
+
+# The design of k1_dsigma (csrc/k1_collision.cuh), the label of its row in the
+# kernels line and in tools/k1_designs.py's record
+DSIGMA_DESIGN = "flat-warps-16B"
 
 
 def k2_phase(torch, sess, flush):
@@ -1407,11 +1414,13 @@ TRAINABLE_YAML = """\
 """
 
 
-def trainable_phase(torch, flush, k1):
+def trainable_phase(torch, flush, k1, profiled=None):
     """(i) the YAML entry with σ_obs and alpha trainable: K1's d/dσ (the
     forward that also writes h², then ``k1_dsigma``) held against its plain
     version at the main path's 36 000 x 37, timed beside the frozen forward,
-    then a 200-step B = 36 solve from ``PlanningSession.from_config``."""
+    then a 200-step B = 36 solve from ``PlanningSession.from_config``.
+    ``profiled`` (a list) gets ``k1_dsigma``'s case for the last profiler
+    window (:func:`kernel_profile_phase`), which gives its device-only time."""
     import tempfile
 
     from vgpmp_torch.engine import solver
@@ -1531,7 +1540,8 @@ def trainable_phase(torch, flush, k1):
     assert finite, "non-finite ELBO, σ_obs, alpha or trajectory in the trainable solve"
     assert rows_moved == len(starts) and a_rel.max() > 0, "σ_obs or alpha did not move"
     assert launches["k1_loglik_h2"] == cfg.num_steps and launches["k1_dsigma"] == cfg.num_steps, launches
-    dsig = {"name": "k1_dsigma", "route": "cuda", "source": "vgpmp_torch/csrc/k1_collision.cuh",
+    dsig = {"name": "k1_dsigma", "design": DSIGMA_DESIGN, "route": "cuda",
+            "source": "vgpmp_torch/csrc/k1_collision.cuh",
             "replaces": "vgpmp_tpu/likelihoods/collision.py:85", "launches": launches["k1_dsigma"],
             "max_abs_err": (ds_dev.double() - ref64).abs().max().item(), "max_rel_err": red_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1542,6 +1552,9 @@ def trainable_phase(torch, flush, k1):
            "max_abs_err": err, "ms": ms_h2, "plain_ms": plain_h2_ms, "bound_ms": bh_ms, "bound_by": bh_by,
            "library_ms": None, "frozen_forward_ms": ms_frozen, "equal_to_frozen_forward": same_forward,
            "max_grad_err": gerr}
+    if profiled is not None:
+        profiled.append((f"(i) k1_dsigma [{B}, {P}] from h² [{P}, {T}]", "dsigma_kernel",
+                         lambda: col.k1_dsigma(g2, h2, sigma), ms, dsig, "device_ms"))
     return dsig, fwd, {"session_s": t_sess, "solve_s": t_solve, "launches": launches, "finite": finite,
                        "elbo_first_mean": e[:, 0].mean().item(), "elbo_last_mean": e[:, -1].mean().item(),
                        "sigma_rel_change_max": s_rel.max().item(),
@@ -2611,12 +2624,14 @@ def metric_profile_phase(torch, sess, best):
     return rec
 
 
-def kernel_profile_phase(torch, sess, k2, k4, reps: int = 20):
+def kernel_profile_phase(torch, sess, k2, k4, reps: int = 20, profiled=()):
     """A third ``torch.profiler`` window, the last of the run: the device-only
     duration (CUPTI) of ``k2_chol`` at [251, 12, 12], ``k2_trsm`` at the main
-    path's [251, 12, 1] and [251, 12, 100], lower and transposed, and K4 at one
-    point, each launched ``reps`` times after an L2 flush, beside their
-    event-timed ms from (b), which include the launch."""
+    path's [251, 12, 1] and [251, 12, 100], lower and transposed, K4 at one
+    point, and the ``profiled`` cases of (i) and (t1) (``k1_dsigma``,
+    K1-trilinear: ``(label, kernel, fn, event ms, row, key)``, the device ms
+    written to ``row[key]``), each launched ``reps`` times after an L2 flush,
+    beside their event-timed ms, which include the launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2643,6 +2658,8 @@ def kernel_profile_phase(torch, sess, k2, k4, reps: int = 20):
              ("k2_trsm [251,12,100] upper_t", "trsm_kernel", lambda: la.k2_trsm(L, B100, True),
               trsm[100]["upper_t_ms"]),
              ("k4_gather at one point", "gather_kernel", lambda: k4_gather(table, one), k4["timer_floor_ms"])]
+    cases += [c[:4] for c in profiled]
+    rows = {c[0]: c[4:] for c in profiled}
     flush = l2_flush_buffer(dev)
     rec = {}
     for label, kernel, fn, event_ms in cases:
@@ -2661,6 +2678,9 @@ def kernel_profile_phase(torch, sess, k2, k4, reps: int = 20):
         log(f"(d) device-only {label}: {device_ms:.4f} ms a launch over {count} launches (event-timed "
             f"{event_ms:.4f} ms with the launch)")
         assert count == reps, f"the profile of {label} shows {count} launches of {kernel}, not {reps}"
+        if label in rows:
+            row, key = rows[label]
+            row[key] = device_ms
     return rec
 
 
@@ -2727,11 +2747,15 @@ def dsigma_check(torch, model, q, label):
     return red, e2e
 
 
-def grid_modes_phase(torch, sess, flush):
+def grid_modes_phase(torch, sess, flush, profiled=None):
     """(t1) K1's nearest-cell and trilinear lookups on the real
     franka/industrial float32 grid at 36 000 configs x 37 spheres, against
     the plain version (value, d/dq and d/dσ), timed beside it and the bound
-    by sectors."""
+    by sectors. ``profiled`` (a list) gets K1-trilinear's cases, with d/dq
+    and forward only, for the last profiler window
+    (:func:`kernel_profile_phase`)."""
+    from vgpmp_torch.likelihoods import collision as col
+
     rows = {}
     q = k1_inputs(torch, sess)
     for mode in ("nearest", "trilinear"):
@@ -2739,6 +2763,15 @@ def grid_modes_phase(torch, sess, flush):
         rows[mode] = k1_phase(torch, sess, flush, f"[{mode}]", model=model)
         rows[mode]["dsigma_rel_err"], rows[mode]["dsigma_e2e_rel_err"] = dsigma_check(
             torch, model, q, f"[{mode}]")
+    if profiled is not None:
+        tri, q2 = rows["trilinear"], q.reshape(-1, q.shape[-1])
+        model = mode_model(sess, "trilinear")
+        sigma = torch.full((q.shape[0], model.fk.sphere_radii.shape[0]), 0.005, dtype=q.dtype, device=q.device)
+        for grad, event_ms, key in ((True, tri["ms"], "device_ms"),
+                                    (False, tri["ms_forward_only"], "device_ms_forward_only")):
+            profiled.append((f"(t1) K1-trilinear {'fwd + d/dq' if grad else 'fwd only'} [{q2.shape[0]} x "
+                             f"{sigma.shape[1]}]", "loglik_tile_kernel",
+                             lambda grad=grad: col.k1_loglik(model, q2, sigma, grad), event_ms, tri, key))
     return rows
 
 
@@ -3188,15 +3221,15 @@ def float64_phase(torch, flush):
                          "k1_float64_launches": {"solve": k1_f64, "round": round_k1}, "k3_launches": k3_by}
 
 
-def envelope_phase(torch, sess, flush):
+def envelope_phase(torch, sess, flush, profiled=None):
     """(t): (t1) K1's nearest and trilinear lookups and a trilinear solve,
     (t2) the parity protocol through K1-nearest, (t3) K2 above n = 32 and in
     float32, (t4) a float64 session. Returns the kernel rows it adds and its
-    record."""
+    record; ``profiled`` as :func:`grid_modes_phase` takes it."""
     from vgpmp_torch.ops import linalg as la
 
     t0 = time.perf_counter()
-    grid = grid_modes_phase(torch, sess, flush)
+    grid = grid_modes_phase(torch, sess, flush, profiled)
     trilinear_launches = trilinear_solve_phase(torch, sess)
     parity = parity_phase(torch)
     k2 = k2_envelope_phase(torch, sess, flush)
@@ -3283,7 +3316,8 @@ def main() -> int:
     adaptive = adaptive_phase(torch, sess, cpu)
     combos = combos_phase(torch)
     flush = l2_flush_buffer(sess.device)
-    dsigma, k1_h2, trainable = trainable_phase(torch, flush, k1)
+    profiled = []  # (i)'s and (t1)'s cases for the last profiler window
+    dsigma, k1_h2, trainable = trainable_phase(torch, flush, k1, profiled)
     del flush
     randomized = randomize_phase(torch, sess, cpu)
     flush = l2_flush_buffer(sess.device)
@@ -3299,7 +3333,7 @@ def main() -> int:
     parallel = parallel_phase(torch, sess, cpu, adaptive)
     log("(t) the CUDA envelope")
     flush = l2_flush_buffer(sess.device)
-    envelope_rows, envelope = envelope_phase(torch, sess, flush)
+    envelope_rows, envelope = envelope_phase(torch, sess, flush, profiled)
     del flush
     t0 = time.perf_counter()
     diagnosed = diagnose_phase(torch)
@@ -3310,7 +3344,7 @@ def main() -> int:
     # kernel launches stay slower, which would inflate the rounds' seconds
     prof = profile_phase(torch, sess)
     metric_prof = metric_profile_phase(torch, sess, best)
-    kernel_prof = kernel_profile_phase(torch, sess, k2, k4)
+    kernel_prof = kernel_profile_phase(torch, sess, k2, k4, profiled=profiled)
     # (s) after them: once a child process has profiled on the card, this
     # process's later profiler windows drop kernel records
     # (tools/profiler_drops_torch.py)

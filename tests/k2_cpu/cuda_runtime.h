@@ -1,4 +1,4 @@
-// What K2's block design (vgpmp_torch/csrc/k2_linalg.cuh), K1
+// What K2's block design (vgpmp_torch/csrc/k2_linalg.cuh), K1 and k1_dsigma
 // (vgpmp_torch/csrc/k1_collision.cuh) and K3 (vgpmp_torch/csrc/k3_clearance.cuh)
 // take from CUDA, on the CPU, so that their sources can be compiled by g++ and
 // run by the tests.
@@ -46,9 +46,15 @@ template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline double rsqrt(double x) { return 1 / std::sqrt(x); }
-// K1's gathers, bit casts and rounded products
+// K1's gathers, bit casts and rounded products, and k1_dsigma's 16-byte vectors
 struct uint2 {
   unsigned x, y;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(16) double2 {
+  double x, y;
 };
 template <class T>
 T __ldg(const T* p) { return *p; }
@@ -78,6 +84,15 @@ T __shfl_sync(unsigned, T v, int src, int width = 32) {
   k2_cpu_xa[w][l] = (double)v;
   k2_cpu_warp[w]->arrive_and_wait();
   const T r = (T)k2_cpu_xa[w][l - l % width + src];
+  k2_cpu_warp[w]->arrive_and_wait();
+  return r;
+}
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int mask) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  k2_cpu_xa[w][l] = (double)v;
+  k2_cpu_warp[w]->arrive_and_wait();
+  const T r = (T)k2_cpu_xa[w][l ^ mask];
   k2_cpu_warp[w]->arrive_and_wait();
   return r;
 }

@@ -1,9 +1,14 @@
 """K1's source (``vgpmp_torch/csrc/k1_collision.cuh``) on the CPU: the
 split design of the composed packed lookup and of the nearest-cell lookup
-(base grid alone and composed), and the packed lookup in float64 (base grid
+(base grid alone and composed), the packed lookup in float64 (base grid
 alone, its phase 1 spread over the block and its cell found by
-``scene.cuh:div_by``, and composed), held to the port's plain version and to
-JAX.
+``scene.cuh:div_by``, and composed), and the trilinear lookup (the base
+grid alone in the one-pass loop with its phase 1 over the block, and the
+composed scene in the split design, float32 and float64), held to the
+port's plain version and to JAX; the trilinear lookup's value and gradient
+alone at points outside the grid and exactly on its border; and
+``k1_dsigma``, held to ``dsigma_plain`` and to ``jax.grad`` with respect to
+σ_obs.
 
 The header is compiled here by g++ against ``tests/k2_cpu/`` (a stub of what
 the kernels take from CUDA: a block as 256 threads, ``__ldg`` a plain load)
@@ -20,7 +25,10 @@ capsule (``_torch_support.scene_objects``' kinds), the box centred on a
 sphere centre of one config, so that its d/dq is NaN on every side. The
 configs: a tile of 32 with no hinge-active pair, random tiles, a tail tile
 (T = 32 * 40 + 13), three σ rows; and the same configs with ε = 5 m, where
-every pair is hinge-active.
+every pair is hinge-active. The trilinear cases shift the base grid by
+``OFFSET_TRILINEAR`` so that some sphere centres lie outside it (the
+composed scene's first extra grid is smaller than the arm's reach, so
+centres leave it on every side).
 
 Tolerances (float32): values 1e-5 relative + 1e-3 absolute (sums of 37
 float32 terms in another order); d/dq 1e-3 of the largest; the share of
@@ -32,14 +40,23 @@ Float64: values 1e-12 relative + 1e-12 of the largest |lik| (the packed
 words' values are exact; a primitive's moves with the sphere centre by an
 ulp, and a barely active pair's h² then by more than 1e-12 of itself); d/dq
 1e-10 of the largest; h² 1e-12 relative. The cell of the float64 lookup is
-the one JAX's division picks at points within an ulp of a voxel face.
+the one JAX's division picks at points within an ulp of a voxel face. In
+trilinear mode the value is continuous across a cell face but its gradient
+is not, so a config whose d/dq differs counts in the same share as a config
+whose value differs (``chip_smoke.py:k1_agreement``'s trilinear rule; ``_agree``
+applies it to every mode).
+
+``k1_dsigma`` reduces ½ Σ g h² / σ² over each row's K configs: against the
+float64 sum of the same terms to 1e-5 of Σ|g|h²/(2σ²) in float32 (sums of
+~1 000 terms of either sign in another order) and 1e-12 in float64; against
+``jax.grad`` of JAX's ``log_prob`` on the same configs to 1e-4 of the same
+scale in float32 (h from float32 FK on each side) and 1e-10 in float64,
+configs whose value differs weighted 0.
 """
 
 import ctypes
-import re
 import shutil
 import subprocess
-from dataclasses import replace
 from pathlib import Path
 
 import jax
@@ -65,27 +82,21 @@ STUB = Path(__file__).resolve().parent / "k2_cpu"
 ORIGIN, DELTA, SHAPE, OFFSET = np.array([-1.25, -1.25, -0.625]), 0.0625, (40, 40, 36), [0.125, 0.0, -0.0625]
 T, R = 32 * 40 + 13, 3
 T64 = 32 * 12 + 9  # the float64 cases' configs (a tail tile; config 40 and tile 0 among them)
+OFFSET_TRILINEAR = [0.625, -0.3125, 0.1875]  # the base grid shifted (dyadic) so that centres leave it
 RTOL, ATOL, GTOL, SHARE = 1e-5, 1e-3, 1e-3, 1e-3
 RTOL64, GTOL64 = 1e-12, 1e-10
 F32 = dict(dtype=torch.float32)
-
-
-def _cpu_source(text):
-    """``k1_collision.cuh`` for the stub: ``k1_dsigma``'s ``<<<>>>`` dropped
-    (compiled, never run here)."""
-    return re.sub(r"<<<[^>]*>>>", "", text)
 
 
 @pytest.fixture(scope="module")
 def k1cpu(tmp_path_factory):
     """The kernel's source built for the CPU (g++, C++20, threads)."""
     d = tmp_path_factory.mktemp("k1_cpu")
-    (d / "k1_collision.cuh").write_text(_cpu_source((CSRC / "k1_collision.cuh").read_text()))
     launch = (CSRC / "launch.cuh").read_text()
     call = "kernel<<<grid, block, smem, st>>>(args...);"
     assert call in launch
     (d / "launch.cuh").write_text(launch.replace(call, "k2_cpu_launch(kernel, grid, block, smem, args...);"))
-    for f in ("kernels.h", "fk.cuh", "scene.cuh"):
+    for f in ("k1_collision.cuh", "kernels.h", "fk.cuh", "scene.cuh"):
         shutil.copy(CSRC / f, d)
     so = d / "k1_cpu.so"
     cmd = ["g++", "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC", "-w", f"-I{d}", f"-I{STUB}",
@@ -98,6 +109,10 @@ def k1cpu(tmp_path_factory):
     lib.k1_f64.argtypes = [I] + [P] * 15 + [I64, I64, I, I, I, I, D]
     lib.k1_split_design.argtypes = [I, I, I]
     lib.k1_nearest_cells_f64.argtypes = [P, I64, P, P, P]
+    for tag in ("f32", "f64"):
+        getattr(lib, f"k1_dsigma_{tag}").argtypes = [P] * 4 + [I64, I64, I]
+        getattr(lib, f"k1_trilinear_at_{tag}").argtypes = [P, I64, P, P, P, P, P]
+    lib.k1_dsigma_parts.argtypes = [I64, I]
     return lib
 
 
@@ -144,9 +159,11 @@ def _numpy_scene(extra_grids, box_at):
 
 def _models(mode, extra_grids, box_at, eps, f64=False):
     """The same franka collision model in both packages, float32 (or float64
-    with ``f64``); ``mode`` ``packed`` or ``nearest``; ``extra_grids`` 0 for
-    the base grid alone."""
+    with ``f64``); ``mode`` ``packed``, ``nearest`` or ``trilinear`` (the base
+    grid at ``OFFSET_TRILINEAR``); ``extra_grids`` 0 for the base grid
+    alone."""
     data, grids, offsets, prims = _numpy_scene(extra_grids, box_at)
+    offset = OFFSET_TRILINEAR if mode == "trilinear" else OFFSET
     jt, tt = (jnp.float64, torch.float64) if f64 else (jnp.float32, torch.float32)
     jkw, tkw = {}, {}
     if extra_grids:
@@ -156,10 +173,11 @@ def _models(mode, extra_grids, box_at, eps, f64=False):
         tkw = dict(extra_grids=tuple(tg.SdfGrid.from_arrays(d, o, dl, tt) for d, o, dl in grids),
                    extra_offsets=torch.as_tensor(offsets, dtype=tt),
                    primitives=tscene.Primitives(**{k: torch.as_tensor(v, dtype=tt) for k, v in prims.items()}))
+    lookup = "trilinear" if mode == "trilinear" else "nearest"
     jsc = jscene.Scene(base=jg.SdfGrid.from_arrays(data, ORIGIN, DELTA, jt),
-                       base_offset=jnp.asarray(OFFSET, jt), mode="nearest", **jkw)
+                       base_offset=jnp.asarray(offset, jt), mode=lookup, **jkw)
     tsc = tscene.Scene(base=tg.SdfGrid.from_arrays(data, ORIGIN, DELTA, tt),
-                       base_offset=torch.as_tensor(OFFSET, dtype=tt), mode="nearest", **tkw)
+                       base_offset=torch.as_tensor(offset, dtype=tt), mode=lookup, **tkw)
     if mode == "packed":
         jsc, tsc = jsc.packed(), tsc.packed()
     spec = jrobots.load_robot("franka")
@@ -228,8 +246,10 @@ def _agree(lik_k, g_k, lik_r, g_r, what):
 
 
 CASES = [pytest.param(m, x, False, id=f"{m}-{x}") for m, x in (("packed", 1), ("packed", 2), ("nearest", 0),
-                                                                ("nearest", 1))]
-CASES += [pytest.param("packed", x, True, id=f"packed-{x}-float64") for x in (0, 1)]
+                                                                ("nearest", 1), ("trilinear", 0),
+                                                                ("trilinear", 1))]
+CASES += [pytest.param(m, x, True, id=f"{m}-{x}-float64") for m, x in (("packed", 0), ("packed", 1),
+                                                                       ("trilinear", 1))]
 
 
 def _f64_inputs(inputs, f64):
@@ -239,29 +259,27 @@ def _f64_inputs(inputs, f64):
 
 
 def test_the_split_design_takes_these_instantiations(k1cpu):
-    """The composed packed lookup and the nearest-cell lookup (alone and
-    composed) run the split design; the base-only packed lookup (the main
-    path) keeps the one-pass loop."""
-    got = {(m, x): bool(k1cpu.k1_split_design(tcol.K1_MODES[m], x, 0)) for m in ("packed", "nearest")
-           for x in (0, 1)}
-    assert got == {("packed", 0): False, ("packed", 1): True, ("nearest", 0): True, ("nearest", 1): True}
+    """Every composed lookup and the nearest-cell lookup alone run the split
+    design; the base-only packed lookup (the main path) and the base-only
+    trilinear lookup keep the one-pass loop."""
+    got = {(m, x): bool(k1cpu.k1_split_design(tcol.K1_MODES[m], x, 0))
+           for m in ("packed", "nearest", "trilinear") for x in (0, 1)}
+    assert got == {("packed", 0): False, ("packed", 1): True, ("nearest", 0): True, ("nearest", 1): True,
+                   ("trilinear", 0): False, ("trilinear", 1): True}
 
 
 def test_the_split_design_takes_these_float64_instantiations(k1cpu):
-    """In float64 the same: the split design for the composed packed lookup
-    and the nearest cell, the one-pass loop for the base-only packed lookup
-    and the trilinear lookup."""
+    """In float64 the same: the split design for every composed lookup and
+    the nearest cell, the one-pass loop for the base-only packed and
+    trilinear lookups."""
     got = {(m, x): bool(k1cpu.k1_split_design(tcol.K1_MODES[m], x, 1))
            for m in ("packed", "nearest", "trilinear") for x in (0, 1)}
     assert got == {("packed", 0): False, ("packed", 1): True, ("nearest", 0): True, ("nearest", 1): True,
-                   ("trilinear", 0): False, ("trilinear", 1): False}
+                   ("trilinear", 0): False, ("trilinear", 1): True}
 
 
 def _mode_model(mode, extra_grids, box_at, f64):
-    _, _, tmod = _models("nearest" if mode == "trilinear" else mode, extra_grids, box_at, 0.05, f64)
-    if mode == "trilinear":
-        tmod = tcol.CollisionModel(fk=tmod.fk, scene=replace(tmod.scene, mode="trilinear"), epsilon=0.05)
-    return tmod
+    return _models(mode, extra_grids, box_at, 0.05, f64)[2]
 
 
 @pytest.mark.parametrize("extra_grids", [0, 1], ids=["base", "composed"])
@@ -313,7 +331,7 @@ def test_k1_source_matches_plain_and_jax(k1cpu, inputs, mode, extra_grids, f64, 
         assert bool(active.all()) == (eps > 0) and bool(active.any()) == (eps > 0)
     else:
         assert 0.02 < active.float().mean() < 0.9
-        assert extra_grids or not active[:32].any()
+        assert extra_grids or mode == "trilinear" or not active[:32].any()
     keep = torch.ones(len(q), dtype=torch.bool)
     if extra_grids:
         assert torch.isnan(g_p[40]).any() and not torch.isnan(g_p[41]).any()
@@ -385,3 +403,127 @@ def test_float64_cell_is_jax_cell_at_voxel_faces(k1cpu):
     floor = np.floor((pts - origin) / delta)
     assert (floor != idx).any() and (floor == idx).any(), "the points do not straddle the faces"
     np.testing.assert_array_equal(got, want)
+
+
+def _edge_points(rng, offset):
+    """World points for the trilinear lookup: uniform over a box larger than
+    the grid (outside on every side), on cell faces, and exactly on the
+    grid's lower and upper border (the dyadic origin and edge make them
+    exact; there the clip passes half the gradient, outside none)."""
+    top = ORIGIN + DELTA * (np.array(SHAPE) - 1)
+    box = rng.uniform(ORIGIN - 0.3, top + 0.3, size=(120, 3))
+    cells = rng.integers(1, np.array(SHAPE) - 1, size=(30, 3))
+    faces = ORIGIN + DELTA * (cells + rng.uniform(0.1, 0.9, size=(30, 3)))
+    for a in range(3):
+        faces[10 * a:10 * (a + 1), a] = ORIGIN[a] + DELTA * cells[10 * a:10 * (a + 1), a]
+    border = ORIGIN + DELTA * (rng.integers(1, np.array(SHAPE) - 1, size=(24, 3)) + 0.5)
+    for a in range(3):
+        border[8 * a:8 * a + 4, a] = ORIGIN[a]
+        border[8 * a + 4:8 * a + 8, a] = top[a]
+    return np.concatenate([box, faces, border]) + np.asarray(offset)
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+def test_trilinear_lookup_matches_jax_at_the_edges(k1cpu, f64):
+    """The trilinear lookup that the split design's passes call
+    (``GridLookup<S, K1_TRILINEAR>::value_at`` and ``gradient_at``) against
+    ``vgpmp_tpu.scene.Scene.distance`` in trilinear mode and its ``jax.grad``
+    at points outside the grid, on cell faces and exactly on its lower and
+    upper border, where the gradient along the clamped axis is 0 outside and
+    half inside (``jnp.clip``'s tie). Float32: values 1e-6, gradients 1e-5 of
+    the largest; float64: 1e-12 both."""
+    data, _, _, _ = _numpy_scene(0, None)
+    jt, nt, tol = (jnp.float64, np.float64, 1e-12) if f64 else (jnp.float32, np.float32, 1e-6)
+    p = _edge_points(np.random.default_rng(43), OFFSET_TRILINEAR).astype(nt)
+    jsc = jscene.Scene(base=jg.SdfGrid.from_arrays(data, ORIGIN, DELTA, jt),
+                       base_offset=jnp.asarray(OFFSET_TRILINEAR, jt), mode="trilinear")
+    want = np.asarray(jsc.distance(jnp.asarray(p)))
+    gwant = np.asarray(jax.grad(lambda x: jnp.sum(jsc.distance(x)))(jnp.asarray(p)))
+    grid = np.array([*OFFSET_TRILINEAR, *ORIGIN, DELTA], dtype=nt)
+    vals = np.ascontiguousarray(data.astype(nt))
+    value, grad = np.empty(len(p), dtype=nt), np.empty_like(p)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    run = k1cpu.k1_trilinear_at_f64 if f64 else k1cpu.k1_trilinear_at_f32
+    run(ptr(p), len(p), ptr(grid), ptr(np.array(SHAPE, dtype=np.int32)), ptr(vals), ptr(value), ptr(grad))
+    np.testing.assert_allclose(value, want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(grad, gwant, rtol=0, atol=(tol if f64 else 1e-5) * np.abs(gwant).max())
+    rel = (p - np.asarray(OFFSET_TRILINEAR) - ORIGIN) / DELTA
+    on_border = (rel == 0) | (rel == np.array(SHAPE) - 1)
+    outside = (rel < 0) | (rel > np.array(SHAPE) - 1)
+    assert on_border.sum() == 24 and outside.any()
+    assert (grad[outside] == 0).all() and (grad[on_border] != 0).any()
+
+
+def dsigma_run(lib, g, h2, sigma, misalign=False):
+    """``k1_dsigma``'s source on the stub: ``g [T]``, ``h2 [P, T]``,
+    ``sigma [R, P]`` -> ``[R, P]``; with ``misalign``, g and h² are read from
+    buffers one element past a 16-byte boundary."""
+    if misalign:
+        gb, hb = torch.empty(g.numel() + 1, dtype=g.dtype), torch.empty(h2.numel() + 1, dtype=h2.dtype)
+        gb[1:] = g
+        hb[1:] = h2.reshape(-1)
+        g, h2 = gb[1:], hb[1:].view(h2.shape)
+        assert g.data_ptr() % 16 != 0 and h2.data_ptr() % 16 != 0
+    R, P = sigma.shape
+    out = torch.empty_like(sigma)
+    run = lib.k1_dsigma_f64 if g.dtype == torch.float64 else lib.k1_dsigma_f32
+    rc = run(g.data_ptr(), h2.data_ptr(), sigma.data_ptr(), out.data_ptr(), g.numel(), g.numel() // R, P)
+    assert rc == 0, f"k1_dsigma: cudaError {rc}"
+    return out
+
+
+@pytest.mark.parametrize("f64,K,misalign", [(False, 431, False), (False, 1100, True), (True, 431, True),
+                                             (True, 1100, False)],
+                         ids=["float32-431", "float32-1100-misaligned", "float64-431-misaligned", "float64-1100"])
+def test_k1_dsigma_source_matches_plain(k1cpu, f64, K, misalign):
+    """``k1_dsigma`` on random h² (a third of it 0, as where no sphere
+    touches) against the float64 sum of the same terms, with K = 431 (no
+    multiple of 4: segments start off a 16-byte boundary, h²'s and g's in
+    different places) and K = 1 100 (a segment in several warps' parts),
+    from buffers aligned and off a 16-byte boundary; a NaN in g makes its
+    row NaN in every sphere, as the plain sum does, and no other row."""
+    dt = torch.float64 if f64 else torch.float32
+    rng = np.random.default_rng(K + 2 * misalign + f64)
+    R, P = 3, 37
+    g = torch.as_tensor(rng.normal(size=R * K), dtype=dt)
+    h2 = torch.as_tensor(rng.uniform(0, 4e-4, size=(P, R * K)) * (rng.uniform(size=(P, R * K)) > 0.33), dtype=dt)
+    sigma = torch.as_tensor(rng.uniform(0.003, 0.008, size=(R, P)), dtype=dt)
+    assert K < 1100 or k1cpu.k1_dsigma_parts(K, int(f64)) > 1
+    got = dsigma_run(k1cpu, g, h2, sigma, misalign)
+    ref = tcol.dsigma_plain(g.double(), h2.double(), sigma.double())
+    scale = tcol.dsigma_plain(g.abs().double(), h2.double(), sigma.double())
+    assert ((got.double() - ref).abs() <= (1e-12 if f64 else 1e-5) * scale).all()
+    gn = g.clone()
+    gn[K + 7] = float("nan")
+    out = dsigma_run(k1cpu, gn, h2, sigma, misalign)
+    assert torch.isnan(out[1]).all() and torch.isfinite(out[[0, 2]]).all()
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+def test_k1_dsigma_source_matches_jax_grad(k1cpu, inputs, f64):
+    """K1's d/dσ from the kernels' sources, the σ-gradient forward's h² then
+    ``k1_dsigma`` (rows of K = 431 configs in float32, 131 in float64, both
+    odd), against ``jax.grad`` of JAX's ``CollisionModel.log_prob`` with
+    respect to σ_obs, and against ``dsigma_plain`` of the plain hinge
+    squared; configs whose value differs (a centre in the neighbouring
+    cell) weighted 0. On the composed packed scene, a box around a sphere
+    centre included."""
+    q, sigma, box_at = _f64_inputs(inputs, f64)
+    _, jmod, tmod = _models("packed", 1, box_at, 0.05, f64)
+    qt, st = torch.as_tensor(q), torch.as_tensor(sigma)
+    g = torch.as_tensor(np.random.default_rng(47).normal(size=len(q)), dtype=qt.dtype)
+    lik_k, _, h2 = k1_run(k1cpu, tmod, qt, st, True, True)
+    lik_j, _ = _jax(jmod, q, sigma)
+    w = g * torch.isclose(lik_k, lik_j, rtol=RTOL64 if f64 else RTOL, atol=RTOL64 if f64 else ATOL)
+    assert (w != 0).float().mean() > 0.99
+    got = dsigma_run(k1cpu, w, h2, st)
+    f = jax.vmap(lambda qb, sb: jmod.log_prob(qb, sb))
+    qr, wr = jnp.asarray(q.reshape(R, -1, q.shape[-1])), jnp.asarray(w.numpy().reshape(R, -1))
+    want = torch.from_numpy(np.asarray(jax.grad(lambda s: jnp.sum(wr * f(qr, s)))(jnp.asarray(sigma))).copy())
+    scale = tcol.dsigma_plain(w.abs().double(), h2.double(), st.double())
+    assert (scale > 0).any()
+    assert ((got.double() - want.double()).abs() <= (1e-10 if f64 else 1e-4) * scale + 1e-300).all()
+    with torch.no_grad():
+        hh = tmod.hinge_cost(qt)
+    plain = tcol.dsigma_plain(w.double(), (hh * hh).T.double(), st.double())
+    assert ((got.double() - plain).abs() <= (1e-10 if f64 else 1e-4) * scale + 1e-300).all()

@@ -234,33 +234,38 @@ def test_k1_sigma_grad_forward_equals_frozen_forward_on_card(robot, cuda_device)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("robot", ["franka", "wam", "kuka", "ur10"])
-def test_k1_dsigma_matches_plain_on_card(robot, cuda_device):
+def test_k1_dsigma_matches_plain_on_card(robot, dtype, cuda_device):
     """``k1_dsigma`` on K1's own h² against the float64 sum of the same terms,
     and K1's d/dσ through autograd against autograd through the plain
-    version (float32 both). Rows of 1 000 configs straddle the 32-config
+    version (both in ``dtype``). Rows of 1 000 configs straddle the 32-config
     tiles; row 2 holds configs with no sphere in contact (dσ exactly 0); a
-    NaN upstream gradient in row 4 stays in ``dσ[4, :]``. Tolerances: 1e-5
-    of ``Σ|g| h²/(2σ²)`` for the reduction (float32 sums of 1 000 terms of
-    either sign), 1e-4 end to end (h from float32 FK on both sides)."""
-    spec, model = _collision(robot, torch.float32, cuda_device)
+    NaN upstream gradient in row 4 stays in ``dσ[4, :]``. Then rows of K = 490
+    (wam/lab's S N) and 1 001 configs, whose segments start off a 16-byte
+    boundary, from h² and g read one element past one, with a NaN in g.
+    Tolerances: 1e-5 of ``Σ|g| h²/(2σ²)`` for the reduction (float32 sums of
+    1 000 terms of either sign), 1e-4 end to end (h from float32 FK on both
+    sides); in float64 1e-12 and 1e-9."""
+    red_tol, e2e_tol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-9)
+    spec, model = _collision(robot, dtype, cuda_device)
     rng = np.random.default_rng(31)
     R, K, P = 6, 1000, spec.num_spheres
     q = _configs(spec, rng, (R, K))
-    pool = torch.as_tensor(_configs(spec, rng, (40000,)), dtype=torch.float32, device=cuda_device)
+    pool = torch.as_tensor(_configs(spec, rng, (40000,)), dtype=dtype, device=cuda_device)
     clear = pool[(model.hinge_cost(pool) == 0).all(dim=-1)]
     assert clear.shape[0] >= K, "too few configs clear of the scene to fill a row"
-    q = torch.as_tensor(q, dtype=torch.float32, device=cuda_device)
+    q = torch.as_tensor(q, dtype=dtype, device=cuda_device)
     q[2] = clear[:K]
-    sigma = torch.as_tensor(rng.uniform(0.002, 0.02, size=(R, P)), dtype=torch.float32, device=cuda_device)
-    g = torch.as_tensor(rng.normal(size=(R, K)), dtype=torch.float32, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.002, 0.02, size=(R, P)), dtype=dtype, device=cuda_device)
+    g = torch.as_tensor(rng.normal(size=(R, K)), dtype=dtype, device=cuda_device)
 
     _, _, h2 = col.k1_loglik(model, q.reshape(-1, spec.dof), sigma, True, True)
     got = col.k1_dsigma(g.reshape(-1), h2, sigma)
     ref = col.dsigma_plain(g.reshape(-1).double(), h2.double(), sigma.double())
     scale = col.dsigma_plain(g.reshape(-1).abs().double(), h2.double(), sigma.double())
     assert (got[2] == 0).all() and (scale[2] == 0).all() and (scale[[0, 1, 3]] > 0).any()
-    assert ((got.double() - ref).abs() <= 1e-5 * scale).all()
+    assert ((got.double() - ref).abs() <= red_tol * scale).all()
 
     # end to end through autograd, configs in a neighbouring voxel weighted 0
     lik_p = col.log_prob_plain(model, q, sigma)
@@ -270,7 +275,7 @@ def test_k1_dsigma_matches_plain_on_card(robot, cuda_device):
     (ds_k,) = torch.autograd.grad((w * lik_k).sum(), sk)
     sp = sigma.clone().requires_grad_()
     (ds_p,) = torch.autograd.grad((w * col.log_prob_plain(model, q, sp)).sum(), sp)
-    assert ((ds_k - ds_p).abs().double() <= 1e-4 * scale + 1e-30).all()
+    assert ((ds_k - ds_p).abs().double() <= e2e_tol * scale + 1e-30).all()
 
     # a NaN upstream gradient stays in its row
     gn = g.clone()
@@ -279,6 +284,22 @@ def test_k1_dsigma_matches_plain_on_card(robot, cuda_device):
     assert torch.isnan(out[4]).all() and torch.isfinite(out[torch.arange(R, device=cuda_device) != 4]).all()
     with pytest.raises(ValueError):
         col.k1_dsigma(g.reshape(-1), h2[:, :-1], sigma)
+
+    # ragged rows, read off a 16-byte boundary
+    for Kr in (490, 1001):
+        T = R * Kr
+        gb = torch.as_tensor(rng.normal(size=T + 1), dtype=dtype, device=cuda_device)
+        hb = torch.as_tensor(rng.uniform(0, 4e-4, size=P * T + 1) * (rng.uniform(size=P * T + 1) > 0.3),
+                             dtype=dtype, device=cuda_device)
+        gr, hr = gb[1:], hb[1:].view(P, T)
+        assert gr.data_ptr() % 16 and hr.data_ptr() % 16
+        gr[3 * Kr + 11] = float("nan")
+        got = col.k1_dsigma(gr, hr, sigma)
+        ref = col.dsigma_plain(gr.double(), hr.double(), sigma.double())
+        scale = col.dsigma_plain(gr.abs().double(), hr.double(), sigma.double())
+        rows = torch.arange(R, device=cuda_device) != 3
+        assert torch.isnan(got[3]).all() and torch.isfinite(got[rows]).all()
+        assert ((got[rows].double() - ref[rows]).abs() <= red_tol * scale[rows]).all()
 
 
 @pytest.mark.cuda
@@ -929,6 +950,58 @@ def test_k1_split_design_cases_on_card(lookup, case, cuda_device):
         h = model.hinge_cost(q2)
     ok = close.reshape(T)
     torch.testing.assert_close(h2.T[ok], (h * h)[ok], rtol=1e-4, atol=1e-7)
+
+
+# K1-trilinear's cases: every pair hinge-active (ε = 5 m, the gradient pass
+# for every pair) and 2013 configs (a tail tile of 29) at ε = 5 cm
+TRILINEAR_CASES = {"all_active": (5.0, 4000), "tail_tile": (0.05, 2013)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TRILINEAR_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("composed", [False, True], ids=["base", "composed"])
+def test_k1_trilinear_cases_on_card(composed, dtype, case, cuda_device):
+    """K1-trilinear (the base grid in the one-pass loop, the composed scene in
+    the split design) against the plain version on the same card, with every
+    pair active and with a tail tile, float32 and float64, at
+    ``_k1_mode_check``'s tolerances (a config whose value or d/dq differs,
+    a centre across a cell face, counts in the share); the σ-gradient
+    forward gives the same lik and d/dq bit for bit, and h² the plain hinge
+    squared (float32: 1e-3 relative + 1e-7, since a sphere centre that the
+    FK's rounding moves by ~1e-7 m moves a trilinear value by that times the
+    grid's slope, up to ~45 at the test grids' planted cells, and h² by
+    2.4e-4 of itself in one pair of 74 481 on the card; float64 1e-9 + 1e-12).
+    The forward without d/dq gives the same lik bit for bit on the
+    base grid; on the composed scene it is another instantiation of the
+    value pass, which the compiler fuses differently, and its lik may differ
+    from the one with d/dq in the last bits: within 1e-6 relative in float32
+    and 1e-14 in float64 (a few ulps of a sum of 37 terms)."""
+    eps, T = TRILINEAR_CASES[case]
+    spec, model = _grid_model("franka", dtype, cuda_device, "trilinear", composed=composed)
+    model = dataclasses.replace(model, epsilon=eps)
+    rng = np.random.default_rng(19)
+    q = torch.as_tensor(_configs(spec, rng, (1, T)), dtype=dtype, device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.003, 0.008, size=(1, spec.num_spheres)), dtype=dtype,
+                            device=cuda_device)
+    with torch.no_grad():
+        active = (model.hinge_cost(q) > 0).float().mean().item()
+    assert active == 1.0 if case == "all_active" else 0.02 < active < 0.9
+    close = _k1_mode_check(model, q, sigma, dtype).reshape(T)
+    q2 = q.reshape(T, spec.dof)
+    lik_f, dq_f, _ = col.k1_loglik(model, q2, sigma, True)
+    lik_0, _, _ = col.k1_loglik(model, q2, sigma, False)
+    lik_h, dq_h, h2 = col.k1_loglik(model, q2, sigma, True, True)
+    assert torch.equal(lik_h, lik_f)
+    if composed:
+        torch.testing.assert_close(lik_0, lik_f, rtol=1e-6 if dtype == torch.float32 else 1e-14, atol=0)
+    else:
+        assert torch.equal(lik_0, lik_f)
+    torch.testing.assert_close(dq_h, dq_f, rtol=0, atol=0, equal_nan=True)
+    with torch.no_grad():
+        h = model.hinge_cost(q2)
+    tol = dict(rtol=1e-3, atol=1e-7) if dtype == torch.float32 else dict(rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(h2.T[close], (h * h)[close], **tol)
 
 
 def _k3_model64(robot, device):

@@ -29,7 +29,27 @@ are equal and the largest relative difference). Prints one line per case
 with each version's mean, median and standard deviation and its share of
 the bound, and writes ``chiprun_out/k1_designs.json``. ``--cases NAME ...``
 times only those cases (e.g. ``"packed float64"``) and builds only the
-libraries they need. Needs a CUDA device and ``nvcc``.
+libraries they need. ``--configs N ...`` times each case at the first N of
+those configs (whole σ rows: the rows are the divisor of N nearest below
+N / 1 000, so that a row's K configs stay whole), once for each N, e.g.
+``--configs 33792 36000`` (33 792 = 1 056 tiles of 32, two waves of a
+kernel that holds four blocks on each of the 132 SMs).
+
+The ``dsigma`` cases (float32 and float64) time ``k1_dsigma`` of each
+version at smoke (i)'s shape: g [36 000] and h² [37, 36 000] (the plain
+hinge squared of the packed model at those configs) with σ [36, 37]. Each
+version is checked against ``dsigma_plain`` in float64 (1e-5 of
+Σ|g|h²/(2σ²), ``chip_smoke.py:trainable_phase``'s tolerance) and for a NaN
+in g, which must make its (row, sphere) entries NaN and no other; beside
+them, unchecked, a launch of an empty kernel (the timer's floor) and
+``torch.einsum("prk,rk->rp", h2, g)`` (the reduction without the
+1/(2σ²) scale: a reference, not the function). For these cases the
+record also gives each version's device-only time: the kernels' own
+duration in a ``torch.profiler`` window (CUPTI) of ``--reps`` launches,
+the L2 flushed before each, taken after every event-timed case, since a
+traced process launches more slowly afterwards. The K1 cases' record also
+says whether each version's lik with d/dq is its forward-only lik bit for
+bit (``lik_equal_to_forward_only``). Needs a CUDA device and ``nvcc``.
 
 To time an earlier design, pass its source, e.g. from git:
 ``git show <commit>:vgpmp_torch/csrc/k1_collision.cuh > .proof/old/k1_collision.cuh``
@@ -78,7 +98,8 @@ CASES = {"packed": ("float", "packed"), "composed packed": ("float", "packed"),
          "packed float64": ("double", "packed"), "composed packed float64": ("double", "packed"),
          "nearest float64": ("double", "nearest"), "composed nearest float64": ("double", "nearest"),
          "trilinear float64": ("double", "trilinear"),
-         "composed trilinear float64": ("double", "trilinear")}
+         "composed trilinear float64": ("double", "trilinear"),
+         "dsigma": ("float", "dsigma"), "dsigma float64": ("double", "dsigma")}
 
 SHIM = r"""
 #include "k1_collision.cuh"
@@ -96,6 +117,24 @@ extern "C" int k1d_run(const S* q, const S* sigma, const S* robot, const S* sphe
   const K1Args<S> a{q, sigma, robot, spheres, table, ex, lik, dlik, h2, T, K, P, dof, craig != 0,
                     grad != 0, g, (S)eps};
   return (int)k1_loglik_launch<S, K1D_MODE>(a, (cudaStream_t)st);
+}
+"""
+
+
+DSIGMA_SHIM = r"""
+#include "k1_collision.cuh"
+using S = K1D_SCALAR;
+template cudaError_t k1_dsigma_launch<S>(const S*, const S*, const S*, S*, int64_t, int64_t, int,
+                                         cudaStream_t);
+__global__ void k1d_empty_kernel() {}
+extern "C" int k1d_dsigma(const S* g, const S* h2, const S* sigma, S* out, long long T, long long K, int P,
+                          void* st) {
+  return (int)k1_dsigma_launch<S>(g, h2, sigma, out, T, K, P, (cudaStream_t)st);
+}
+// the timer's floor: one launch of a kernel that does nothing
+extern "C" int k1d_empty(void* st) {
+  k1d_empty_kernel<<<1, 32, 0, (cudaStream_t)st>>>();
+  return (int)cudaGetLastError();
 }
 """
 
@@ -118,10 +157,17 @@ def compile_shim(build: Path, source: Path, stem: str, shim: str):
 
 
 def build_one(name: str, source: Path, scalar: str, mode: str):
-    """``name``'s library for one (scalar type, lookup mode)."""
+    """``name``'s library for one (scalar type, lookup mode), or with mode
+    ``dsigma`` its ``k1_dsigma`` and an empty kernel."""
+    vp, i64, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
+    if mode == "dsigma":
+        so = compile_shim(BUILD / name, source, f"k1_{scalar}_dsigma",
+                          f"#define K1D_SCALAR {scalar}\n" + DSIGMA_SHIM)
+        so.k1d_dsigma.argtypes = [vp] * 4 + [i64, i64, i32, vp]
+        so.k1d_empty.argtypes = [vp]
+        return so
     so = compile_shim(BUILD / name, source, f"k1_{scalar}_{mode}",
                       f"#define K1D_SCALAR {scalar}\n#define K1D_MODE {LIBS[scalar, mode]}\n" + SHIM)
-    vp, i64, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
     so.k1d_run.argtypes = [vp] * 15 + [i64, i64, i32, i32, i32, i32, f64, vp]
     return so
 
@@ -238,6 +284,95 @@ def check(runs: dict, model, q, sigma, grad: bool, h2: bool) -> dict:
     return out
 
 
+def rows_of(n: int, per_row: int = 1000) -> int:
+    """The σ rows of ``n`` configs: the largest divisor of ``n`` that is at
+    most ``ceil(n / per_row)``, so that each row holds ``n // rows`` whole
+    configs (36 000 -> 36 of 1 000, 33 792 -> 33 of 1 024)."""
+    top = -(-n // per_row)
+    return max(r for r in range(1, top + 1) if n % r == 0)
+
+
+def device_only(runs: dict, reps: int, flush) -> dict:
+    """Per name, the device-only time (ms) a call of ``runs[name]`` takes:
+    its kernels' own duration in a ``torch.profiler`` window (CUPTI) of
+    ``reps`` calls, the L2 flushed before each (the flush's fill kernels
+    left out), and the kernels launched a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for nm, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+              and "fill" not in e.key.lower()]
+        out[nm] = {"device_ms": sum(e.self_device_time_total for e in ev) / 1e3 / reps,
+                   "kernels_a_call": sum(e.count for e in ev) / reps}
+    return out
+
+
+def dsigma_runs(libs: dict, scalar: str, g, h2, sigma) -> tuple[dict, dict]:
+    """Each version's ``k1_dsigma`` on (g, h², σ) into an output made once,
+    and, unchecked, an empty kernel's launch and ``torch.einsum``'s
+    reduction of the same h² and g."""
+    R, P = sigma.shape
+    K = g.shape[0] // R
+    st = torch.cuda.current_stream().cuda_stream
+
+    def launch(so, gg, out):
+        rc = so.k1d_dsigma(gg.data_ptr(), h2.data_ptr(), sigma.data_ptr(), out.data_ptr(), g.shape[0], K, P, st)
+        if rc != 0:
+            raise RuntimeError(f"k1_designs: k1_dsigma failed with cudaError {rc}")
+        return out
+
+    checked = {}
+    for nm, lib in libs.items():
+        out = torch.empty_like(sigma)
+        checked[nm] = (lambda so=lib[scalar, "dsigma"], out=out: launch(so, g, out),
+                       lambda gg, so=lib[scalar, "dsigma"]: launch(so, gg, torch.empty_like(sigma)))
+    first = next(iter(libs.values()))[scalar, "dsigma"]
+
+    def empty():
+        rc = first.k1d_empty(st)
+        if rc != 0:
+            raise RuntimeError(f"k1_designs: the empty kernel failed with cudaError {rc}")
+
+    hv, gv = h2.view(P, R, K), g.view(R, K)
+    return checked, {"empty kernel": empty, "einsum": lambda: torch.einsum("prk,rk->rp", hv, gv)}
+
+
+def dsigma_check(checked: dict, g, h2, sigma) -> dict:
+    """Each version's ``k1_dsigma`` against the float64 sum of the same terms
+    (1e-5 of Σ|g|h²/(2σ²)), bit for bit against the first version, and with
+    a NaN in g at row 4: that row NaN in every sphere (the plain sum's NaN
+    times 0 is NaN too) and no other row."""
+    R, P = sigma.shape
+    K = g.shape[0] // R
+    ref = col.dsigma_plain(g.double(), h2.double(), sigma.double())
+    scale = col.dsigma_plain(g.abs().double(), h2.double(), sigma.double()).clamp(min=1e-30)
+    gn = g.clone()
+    gn[4 * K + 17] = float("nan")
+    want_nan = torch.zeros_like(ref, dtype=torch.bool)
+    want_nan[4] = True
+    out, first = {}, None
+    for nm, (run, run_g) in checked.items():
+        got = run().clone()
+        first = first if first is not None else got
+        err = ((got.double() - ref).abs() / scale).max().item()
+        assert err <= 1e-5, f"{nm}: k1_dsigma disagrees with the float64 sum: {err:.2e} of Σ|g|h²/(2σ²)"
+        nan = torch.isnan(run_g(gn))
+        assert torch.equal(nan, want_nan), f"{nm}: a NaN in g did not stay in its row"
+        out[nm] = {"max_rel_err": err, "max_abs_err": (got.double() - ref).abs().max().item(),
+                   "nan_in_g_stays_in_its_row": True, **same_bits((got,), (first,))}
+    torch.cuda.synchronize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", help="NAME=PATH of a k1_collision.cuh version")
@@ -245,6 +380,8 @@ def main(argv=None) -> int:
     ap.add_argument("--unchecked", nargs="*", default=[],
                     help="versions timed without the check: ablations that drop work")
     ap.add_argument("--cases", nargs="*", default=None, help="the cases to time (default: all)")
+    ap.add_argument("--configs", nargs="*", type=int, default=[36000],
+                    help="time each case at the first N of the 36 000 configs, for each N given")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_designs: no CUDA device", file=sys.stderr)
@@ -253,6 +390,8 @@ def main(argv=None) -> int:
     unknown = set(args.cases or ()) - set(CASES)
     if unknown:
         raise SystemExit(f"k1_designs: no case {sorted(unknown)}; the cases are {list(CASES)}")
+    if any(n < 1 or n > 36000 for n in args.configs):
+        raise SystemExit("k1_designs: --configs takes 1 to 36 000")
     wanted = [c for c in CASES if args.cases is None or c in args.cases]
     t0 = time.perf_counter()
     libs = build(sources, tuple(dict.fromkeys(CASES[c] for c in wanted)))
@@ -261,46 +400,98 @@ def main(argv=None) -> int:
     smi = card(dev)
     print(f"k1_designs: built {list(sources)} in {build_s:.1f} s on {smi}", flush=True)
     cases, (s32, _) = models()
-    cases = {c: cases[c] for c in wanted}
+    cases = {c: cases[c] for c in wanted if c in cases}
     flush = l2_flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(29)
-    q32 = chip_smoke.k1_inputs(torch, s32)
-    B, L = q32.shape[0], q32.shape[-1]
+    q_all = chip_smoke.k1_inputs(torch, s32)
+    B, L = q_all.shape[0], q_all.shape[-1]
     P = s32.model.collision.fk.sphere_radii.shape[0]
-    sig32 = 0.003 + 0.005 * torch.rand((B, P), generator=gen, device=dev)
-    rows = []
-    for case, (model, scalar) in cases.items():
-        dt = torch.float64 if scalar == "double" else torch.float32
-        q, sigma = q32.to(dt).reshape(-1, L).contiguous(), sig32.to(dt)
-        mode = model.scene.mode
-        for grad, h2 in ((False, False), (True, False), (True, True)):
-            if h2 and mode == "trilinear":
+    sig_all = 0.003 + 0.005 * torch.rand((B, P), generator=gen, device=dev)
+    g_all = torch.randn(q_all.numel() // L, generator=gen, device=dev)
+    rows, profiled = [], []
+
+    def report(row, names, extra=""):
+        row["share_of_bound"] = {nm: row["bound_ms"] / m for nm, m in row["mean_ms"].items()}
+        rows.append(row)
+        print(f"{row['case']} {row['what']} at {row['shape'][0]} configs (bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}{extra}): "
+              + ", ".join(f"{nm} {row['mean_ms'][nm]:.4f} / {row['median_ms'][nm]:.4f} "
+                          f"± {row['stdev_ms'][nm]:.4f} ({100 * row['share_of_bound'][nm]:.1f} %)"
+                          for nm in names)
+              + " ms (mean / median ± stdev, share of bound)", flush=True)
+
+    def timed(times):
+        return {"mean_ms": {nm: statistics.fmean(v) for nm, v in times.items()},
+                "median_ms": {nm: statistics.median(v) for nm, v in times.items()},
+                "stdev_ms": {nm: statistics.stdev(v) for nm, v in times.items()},
+                "min_ms": {nm: min(v) for nm, v in times.items()}}
+
+    for n in args.configs:
+        R = rows_of(n)
+        q32 = q_all.reshape(-1, L)[:n]
+        sig32 = sig_all[:R]
+        for case in wanted:
+            scalar, mode = CASES[case]
+            dt = torch.float64 if scalar == "double" else torch.float32
+            q, sigma = q32.to(dt).contiguous(), sig32.to(dt)
+            if mode == "dsigma":
+                with torch.no_grad():
+                    h = s32.model.collision.hinge_cost(q32)
+                h2 = (h * h).T.to(dt).contiguous()
+                g = g_all[:n].to(dt)
+                checked, extra = dsigma_runs(libs, scalar, g, h2, sigma)
+                errs = dsigma_check({nm: fn for nm, fn in checked.items() if nm not in args.unchecked},
+                                    g, h2, sigma)
+                runs = {**{nm: fn[0] for nm, fn in checked.items()}, **extra}
+                times = time_turns(runs, args.reps, flush)
+                es = q.element_size()
+                # h² and g read once, σ read and the result written once; 2 operations a term
+                b_ms, b_by = chip_smoke.bound_ms((n * P + n + 2 * R * P) * es, 2 * n * P,
+                                                 chip_smoke.F64_FLOPS if es == 8 else chip_smoke.F32_FLOPS)
+                row = {"case": case, "dtype": str(dt).removeprefix("torch."), "mode": mode, "what": "reduction",
+                       "design": chip_smoke.DSIGMA_DESIGN, "shape": [n, P, R], "errors": errs,
+                       "bound_ms": b_ms, "bound_by": b_by, "nbytes": (n * P + n + 2 * R * P) * es,
+                       **timed(times)}
+                profiled.append((row, runs))
+                report(row, runs, f"; checked versions bit-equal: "
+                                  f"{all(e['bit_equal_to_first'] for e in errs.values())}")
                 continue
-            runs = {nm: launcher(lib[scalar, mode], model, q, sigma, grad, h2) for nm, lib in libs.items()}
-            errs = check({nm: fn for nm, fn in runs.items() if nm not in args.unchecked}, model, q, sigma,
-                         grad, h2)
-            times = time_turns(runs, args.reps, flush)
-            b_ms, b_by, sectors, nbytes, _ = chip_smoke.k1_bound(torch, model, q, sigma, grad, h2)
-            what = "h2" if h2 else "grad" if grad else "forward"
-            row = {"case": case, "dtype": str(dt).removeprefix("torch."), "mode": mode, "what": what,
-                   "design": chip_smoke.k1_design(model), "shape": [q.shape[0], P], "errors": errs,
-                   "bound_ms": b_ms, "bound_by": b_by, "sectors": sectors, "nbytes": nbytes,
-                   "mean_ms": {nm: statistics.fmean(v) for nm, v in times.items()},
-                   "median_ms": {nm: statistics.median(v) for nm, v in times.items()},
-                   "stdev_ms": {nm: statistics.stdev(v) for nm, v in times.items()},
-                   "min_ms": {nm: min(v) for nm, v in times.items()}}
-            row["share_of_bound"] = {nm: b_ms / m for nm, m in row["mean_ms"].items()}
-            rows.append(row)
-            same = all(e["bit_equal_to_first"] for e in errs.values())
-            print(f"{case} {what} (bound {b_ms:.4f} ms by {b_by}, {sectors} sectors; checked versions "
-                  f"bit-equal: {same}): "
-                  + ", ".join(f"{nm} {row['mean_ms'][nm]:.4f} / {row['median_ms'][nm]:.4f} "
-                              f"± {row['stdev_ms'][nm]:.4f} ({100 * row['share_of_bound'][nm]:.1f} %)"
-                              for nm in runs)
-                  + " ms (mean / median ± stdev, share of bound)", flush=True)
+            model, _ = cases[case]
+            forward_lik = {}
+            for grad, h2 in ((False, False), (True, False), (True, True)):
+                if h2 and mode == "trilinear":
+                    continue
+                runs = {nm: launcher(lib[scalar, mode], model, q, sigma, grad, h2) for nm, lib in libs.items()}
+                errs = check({nm: fn for nm, fn in runs.items() if nm not in args.unchecked}, model, q, sigma,
+                             grad, h2)
+                # whether each version's lik is the forward-only instantiation's, bit for bit
+                for nm, rec in errs.items():
+                    lik = runs[nm]()[0]
+                    if grad:
+                        same = same_bits((lik,), (forward_lik[nm],))
+                        rec["lik_equal_to_forward_only"] = same["bit_equal_to_first"]
+                        rec["lik_rel_diff_to_forward_only"] = same["max_rel_diff_to_first"]
+                    else:
+                        forward_lik[nm] = lik.clone()
+                times = time_turns(runs, args.reps, flush)
+                b_ms, b_by, sectors, nbytes, _ = chip_smoke.k1_bound(torch, model, q, sigma, grad, h2)
+                what = "h2" if h2 else "grad" if grad else "forward"
+                row = {"case": case, "dtype": str(dt).removeprefix("torch."), "mode": mode, "what": what,
+                       "design": chip_smoke.k1_design(model), "shape": [q.shape[0], P, R], "errors": errs,
+                       "bound_ms": b_ms, "bound_by": b_by, "sectors": sectors, "nbytes": nbytes,
+                       **timed(times)}
+                report(row, runs, f", {sectors} sectors; checked versions bit-equal: "
+                                  f"{all(e['bit_equal_to_first'] for e in errs.values())}")
+    # the profiler windows last: a traced process launches more slowly afterwards
+    for row, runs in profiled:
+        row["device_only"] = device_only(runs, args.reps, flush)
+        print(f"{row['case']} {row['what']} at {row['shape'][0]} configs, device-only: "
+              + ", ".join(f"{nm} {d['device_ms']:.4f} ms ({d['kernels_a_call']:g} kernels a call; event "
+                          f"{row['mean_ms'][nm]:.4f})" for nm, d in row["device_only"].items()), flush=True)
     OUT.mkdir(exist_ok=True)
     (OUT / "k1_designs.json").write_text(json.dumps(
-        {"card": smi, "reps": args.reps, "sources": sources, "build_s": build_s, "cases": rows}, indent=1))
+        {"card": smi, "reps": args.reps, "sources": sources, "build_s": build_s, "configs": args.configs,
+         "cases": rows}, indent=1))
     return 0
 
 

@@ -2,7 +2,7 @@
 """Registers, spills and shared memory of the port's CUDA kernels, as ``ptxas``
 reports them.
 
-    python tools/kernel_resources.py [source.cu ...]
+    python tools/kernel_resources.py [source.cu ...] [--against DIR]
 
 Compiles each source (default: every ``vgpmp_torch/csrc/k*.cu``) for
 ``sm_90a`` with ``nvcc -Xptxas -v``, all sources at once, and prints one line
@@ -12,7 +12,10 @@ and static shared memory, and the SHA-256 of its machine code (the SASS text
 which kernels they left unchanged). Needs ``nvcc``; runs no kernel, so it
 needs no card. The record also goes to ``chiprun_out/kernel_resources.json``. To read
 an older version of a kernel, pass the path of that version's source (it must
-sit beside the headers it includes).
+sit beside the headers it includes). ``--against DIR`` also compiles the
+file of the same name in DIR (an older version's sources beside its headers)
+for each source, and prints for every kernel its registers and spills in
+both and whether its machine code is the same (``same SASS``) or changed.
 """
 
 from __future__ import annotations
@@ -74,7 +77,10 @@ def find_cuobjdump() -> str:
 
 
 def sass_hashes(obj: Path) -> dict:
-    """``{mangled name: SHA-256 of its SASS}`` of the object file ``obj``."""
+    """``{mangled name: SHA-256 of its SASS}`` of the object file ``obj``,
+    each line's runs of blanks taken as one (``cuobjdump`` pads its columns
+    to the longest name in the file, so a kernel added to or changed in a
+    file would otherwise move the hash of every other kernel there)."""
     out = subprocess.run([find_cuobjdump(), "-sass", str(obj)], capture_output=True, text=True,
                          check=True).stdout
     funcs, name = {}, None
@@ -83,7 +89,7 @@ def sass_hashes(obj: Path) -> dict:
             name = m.group(1)
             funcs[name] = []
         elif name is not None:
-            funcs[name].append(line)
+            funcs[name].append(" ".join(line.split()))
     return {n: hashlib.sha256("\n".join(lines).encode()).hexdigest() for n, lines in funcs.items()}
 
 
@@ -111,10 +117,42 @@ def resources(sources):
     return out
 
 
+def compare(rec: dict, sources, old_dir: Path) -> list:
+    """Per kernel of ``sources``: its registers, spills and SASS hash beside
+    those of the same kernel compiled from ``old_dir``'s file of the same
+    name (matched by the demangled name: a kernel in an anonymous namespace
+    is mangled with a hash of its file's path); printed, and returned as
+    records."""
+    out = []
+    for src in sources:
+        old = {r["kernel"]: r for r in rec[str(old_dir / src.name)]}
+        print(f"{src} against {old_dir / src.name}")
+        for r in rec[str(src)]:
+            o = old.get(r["kernel"])
+            same = o is not None and o["sass_sha256"] == r["sass_sha256"]
+            was = "new kernel" if o is None else (f"{o['registers']:4d} regs spill {o['spill_store_bytes']} B")
+            print(f"  {'same SASS' if same else 'changed  '}  {was} -> {r['registers']:4d} regs spill "
+                  f"{r['spill_store_bytes']} B  {r['kernel'][:130]}")
+            out.append({"source": str(src), "kernel": r["kernel"], "same_sass": same,
+                        "registers": r["registers"], "spill_store_bytes": r["spill_store_bytes"],
+                        "old_registers": None if o is None else o["registers"],
+                        "old_spill_store_bytes": None if o is None else o["spill_store_bytes"]})
+    return out
+
+
 def main(argv) -> int:
+    old_dir = None
+    if "--against" in argv:
+        i = argv.index("--against")
+        old_dir = Path(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     sources = [Path(a) for a in argv] or sorted(CSRC.glob("k*.cu"))
-    rec = resources(sources)
+    rec = resources(sources + ([old_dir / s.name for s in sources] if old_dir else []))
+    if old_dir is not None:
+        rec["against"] = compare(rec, sources, old_dir)
     for src, rows in rec.items():
+        if src == "against":
+            continue
         print(src)
         for r in rows:
             print(f"  {r['registers']:4d} regs  spill {r['spill_store_bytes']}/{r['spill_load_bytes']} B"

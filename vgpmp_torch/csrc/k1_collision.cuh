@@ -26,17 +26,19 @@
 // spheres share sectors).
 //   Phase 1: one thread per configuration runs the DH chain once
 //     (fk.cuh:fk_chain_to_shared) and leaves the frames in shared memory. In
-//     double, the block's 256 threads first take the tile's joint angles to
-//     cos and sin, one each, as K3 does (fk.cuh:joint_trig_to_shared), so the
-//     chain on one warp holds no double trig: seven warps otherwise wait on
-//     fourteen double sin and cos in series.
+//     double, and for the trilinear lookup, the block's 256 threads first
+//     take the tile's joint angles to cos and sin, one each, as K3 does
+//     (fk.cuh:joint_trig_to_shared), so the chain on one warp holds no trig:
+//     seven warps otherwise wait on fourteen sin and cos in series (the
+//     float32 packed and nearest lookups keep their machine code; ROADMAP.md).
 //   Phase 2: thread (g, c) keeps local configuration c and the spheres g,
 //     g + 8, g + 16, ..., so a warp holds the tile's 32 configurations of one
 //     sphere: its shared-memory reads are conflict-free, the sphere's constants
 //     are a broadcast, and its 32 gathers land near each other. A thread
 //     computes the cells of NI spheres and starts all their gathers before it
-//     uses one (GridLookup::fetch; NI is 5 for the packed word, 3 in double,
-//     2 for the eight corners of the trilinear lookup).
+//     uses one (GridLookup::fetch; NI is 5 for the packed word, 3 in double;
+//     for the eight corners of the trilinear lookup one in float, two in
+//     double).
 //   Phase 3: the hinge, and for an active pair the joint torques from the
 //     frames in shared memory (dlik/dq_j = sum_p (c_p/sigma_p) z_j . ((x_p -
 //     o_j) x grad_p), from the gathered gradient, so the backward pass is a
@@ -49,11 +51,13 @@
 // spills nothing, so eight warps of a block and several blocks share an SM
 // (PERF.md).
 //
-// That one-pass loop serves the base grid's packed word (the main path: the
-// word carries the gradient) and the trilinear lookup (its value needs all
-// eight corners), base-only and composed. The nearest cell and a composed scene take the split
-// design instead (loglik_split, k1_split): phases 2 and 3 in two passes over
-// NV spheres at a time. The value pass gathers one cell entry of each grid
+// That one-pass loop serves the base grid alone in the packed lookup (the
+// main path: the word carries the gradient) and in the trilinear lookup (its
+// value needs all eight corners, which its gradient reads too). The nearest
+// cell and every composed scene take the split design instead
+// (loglik_split, k1_split; the trilinear lookup's value pass is its own,
+// loglik_split_corners): phases 2 and 3 in two passes over NV spheres at a
+// time. The value pass gathers one cell entry of each grid
 // per sphere, all in flight together, and computes the primitives' values
 // while they fly; it keeps the minimum's value and the source that attains
 // it. The gradient pass runs only for hinge-active pairs (12-26 % of them at
@@ -111,6 +115,8 @@
 // voxel of the one the plain version picks; the checks bound that share.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "fk.cuh"
@@ -125,11 +131,13 @@ constexpr int C = 32, THREADS = 256;
 
 // the one-pass loop's gathers of NI spheres in flight a thread: five packed
 // words in float, three in double (whose registers for each word's sphere
-// would otherwise cut the blocks an SM holds; k1_blocks), or two spheres'
-// eight trilinear corners
+// would otherwise cut the blocks an SM holds; k1_blocks), or the eight
+// trilinear corners of one sphere in float (two held 80 registers with the
+// gradient, three blocks an SM, and were slower; PERF.md) and of two in
+// double
 template <class S, int MODE>
 __host__ __device__ constexpr int k1_ni() {
-  return MODE == K1_PACKED ? (sizeof(S) == 8 ? 3 : 5) : 2;
+  return MODE == K1_PACKED ? (sizeof(S) == 8 ? 3 : 5) : (sizeof(S) == 8 ? 2 : 1);
 }
 
 // Which instantiations take the split design (loglik_split): the value of
@@ -139,7 +147,7 @@ __host__ __device__ constexpr int k1_ni() {
 // keep the one-pass loop.
 template <class S, int MODE, bool EXTRA>
 __host__ __device__ constexpr bool k1_split() {
-  return MODE == K1_NEAREST || (MODE == K1_PACKED && EXTRA);
+  return MODE == K1_NEAREST || (MODE == K1_PACKED && EXTRA) || (MODE == K1_TRILINEAR && EXTRA);
 }
 
 // The split design's spheres a thread takes at a time, one cell entry of
@@ -154,11 +162,23 @@ __host__ __device__ constexpr int k1_nv() {
 }
 constexpr int XG = 1;
 
+// Whether the trilinear split design's value pass takes a grid's gradient
+// from the corners it gathered, where that grid takes the minimum, and keeps
+// the winner's, so that the gradient pass gathers nothing for a grid (float:
+// faster than gathering again), or the gradient pass gathers the winner's
+// corners again (double: the kept gradient's registers, under the 128 of two
+// blocks an SM, made it slower; PERF.md).
+template <class S>
+__host__ __device__ constexpr bool k1_keep_gradient() {
+  return sizeof(S) == 4;
+}
+
 // One sphere's lookup of a grid in a mode. The one-pass loop's (packed,
 // trilinear): fetch issues its gathers, value and gradient read them (the
 // gradient only after a fetch with GRAD). The split design's (packed,
 // nearest): value_of reads the cell's entry, gradient_at gathers what the
-// gradient needs.
+// gradient needs; the trilinear value pass fetches and reads value, and
+// value_at and gradient_at gather again where a tie needs every source.
 template <class S, int MODE>
 struct GridLookup;
 
@@ -238,6 +258,20 @@ struct GridLookup<S, K1_TRILINEAR> {
   __device__ __forceinline__ void gradient(const GridArgs<S>& g, S (&gr)[3]) const {
     lerp_gradient(c, f, w, g.delta, gr);
   }
+  // the split design: the value and the gradient at a point, the corners
+  // gathered again for each
+  __device__ __forceinline__ static S value_at(const S* __restrict__ t, const GridArgs<S>& g, S px, S py,
+                                               S pz) {
+    GridLookup lk;
+    lk.template fetch<false>(t, g, px, py, pz);
+    return lk.value();
+  }
+  __device__ __forceinline__ static void gradient_at(const S* __restrict__ t, const GridArgs<S>& g, S px,
+                                                     S py, S pz, S (&gr)[3]) {
+    GridLookup lk;
+    lk.template fetch<true>(t, g, px, py, pz);
+    lk.gradient(g, gr);
+  }
 };
 
 // The split design's gradient at (x, y, z) where two sources tie for the
@@ -258,7 +292,11 @@ __device__ __noinline__ void tie_gradient(const GridArgs<S> g,
     int ix[3];
     S gk[3];
     Lookup::gradient_at(t, gg, x - gg.bx, y - gg.by, z - gg.bz, gk);
-    const S dk = Lookup::value_of(__ldg(t + nearest_cell(x - gg.bx, y - gg.by, z - gg.bz, gg, ix)));
+    S dk;
+    if constexpr (MODE == K1_TRILINEAR)
+      dk = Lookup::value_at(t, gg, x - gg.bx, y - gg.by, z - gg.bz);
+    else
+      dk = Lookup::value_of(__ldg(t + nearest_cell(x - gg.bx, y - gg.by, z - gg.bz, gg, ix)));
     fold_min<true, S>(dk, gk, dd, gr);
   }
   bool unused = false;
@@ -422,6 +460,105 @@ __device__ __forceinline__ void loglik_split(
   }
 }
 
+// The split design for the trilinear lookup (k1_split: the composed
+// scene), loglik_split's two passes with a value pass of its own, since a
+// grid's value needs eight corners and not one entry, one sphere of a
+// thread at a time (two spilled; PERF.md): the sphere issues the eight
+// corners of the base grid and of the first XG extra grids before one is
+// read, the primitives' values computed while they fly; the grids beyond XG
+// one grid at a time. Only the minimum's value and source outlive the pass,
+// and in float (k1_keep_gradient) the winning grid's gradient, taken from
+// its corners when it takes the minimum. The gradient pass, for a
+// hinge-active sphere (or a NaN one), reads that kept gradient, or in double
+// finds the source's cell and fractions again and gathers its eight corners
+// again (scene.cuh:lerp_gradient, the clip weights and the division by delta
+// as before either way); a primitive's gradient, or at a tie every source's
+// (tie_gradient), as loglik_split does. Its own function, so that the packed
+// and nearest instantiations keep their machine code.
+template <class S, int DOF, bool CRAIG, bool GRAD, bool H2>
+__device__ __forceinline__ void loglik_split_corners(
+    const S* __restrict__ fr, const S* __restrict__ sph, const S* __restrict__ sig, bool live,
+    long long cfg, int grp, const S* __restrict__ table, const SceneExtras& ex, const ExtrasView<S>& xv,
+    S* __restrict__ h2, long long T, int P, const GridArgs<S>& g, S eps, S& acc, S (&dq)[DOF]) {
+  using Lookup = GridLookup<S, K1_TRILINEAR>;
+  constexpr int G = THREADS / C;
+  constexpr bool KEEP = GRAD && k1_keep_gradient<S>();
+  const S* cells = static_cast<const S*>(ex.cells);
+  const int prim0 = 1 + xv.G;  // sources: 0 the base grid, 1 + e extra grid e, prim0 + k primitive k
+  if (!live) return;
+  for (int sp = grp; sp < P; sp += G) {
+    const S* s = sph + 5 * sp;
+    const S sg = __ldg(sig + sp);
+    S d = s_inf<S>(), wg[3];  // the minimum, and with KEEP the winning grid's gradient
+    int win = -2;             // none yet
+    bool tie = false, bad = false;
+    // fold grid source src's lookup lk (of grid gg) into the minimum
+    auto fold_grid = [&](int src, const Lookup& lk, const GridArgs<S>& gg) {
+      fold_source(lk.value(), src, d, win, tie);
+      if constexpr (KEEP)
+        if (win == src) lk.gradient(gg, wg);  // each source is folded once
+    };
+    {
+      S x, y, z;
+      sphere_centre_shared(fr, C, (int)s[0], s[1], s[2], s[3], x, y, z);
+      Lookup lb, le[XG];
+      lb.template fetch<KEEP>(table, g, x - g.bx, y - g.by, z - g.bz);
+#pragma unroll
+      for (int e = 0; e < XG; ++e) {
+        if (e < xv.G) {
+          const GridArgs<S> eg = extra_grid(xv, e);
+          le[e].template fetch<KEEP>(cells + extra_start(xv, e), eg, x - eg.bx, y - eg.by, z - eg.bz);
+        }
+      }
+      primitives_min<GRAD, S>(xv, x, y, z, prim0, d, win, tie, bad);
+      for (int e = XG; e < xv.G; ++e) {
+        const GridArgs<S> eg = extra_grid(xv, e);
+        Lookup ln;
+        ln.template fetch<KEEP>(cells + extra_start(xv, e), eg, x - eg.bx, y - eg.by, z - eg.bz);
+        fold_grid(1 + e, ln, eg);
+      }
+      fold_grid(0, lb, g);
+#pragma unroll
+      for (int e = 0; e < XG; ++e)
+        if (e < xv.G) fold_grid(1 + e, le[e], extra_grid(xv, e));
+    }
+    if (tie) win = -1;
+    const S h = max_keep_nan(eps - (d - s[4]), S(0));
+    acc += h * h / sg;
+    if (H2) h2[(long long)sp * T + cfg] = h * h;
+    if (!GRAD || !(h > S(0) || h != h)) continue;
+    const int f = (int)s[0];
+    S x, y, z;
+    sphere_centre_shared(fr, C, f, s[1], s[2], s[3], x, y, z);
+    S gr[3] = {S(0), S(0), S(0)};
+    if (win >= prim0) {
+      primitive_gradient(xv, win - prim0, x, y, z, gr);
+    } else if (KEEP && win >= 0) {
+      gr[0] = wg[0];
+      gr[1] = wg[1];
+      gr[2] = wg[2];
+    } else if (win >= 0) {
+      const GridArgs<S> gg = win == 0 ? g : extra_grid(xv, win - 1);
+      Lookup::gradient_at(win == 0 ? table : cells + extra_start(xv, win - 1), gg, x - gg.bx, y - gg.by,
+                          z - gg.bz, gr);
+    } else {
+      tie_gradient<S, K1_TRILINEAR>(g, table, cells, xv, prim0, x, y, z, gr);
+    }
+    if (bad) gr[0] = gr[1] = gr[2] = s_nan<S>();
+    const S k = h / sg;
+    const S gx = k * gr[0], gy = k * gr[1], gz = k * gr[2];
+#pragma unroll
+    for (int j = 0; j < DOF; ++j) {
+      if (j < f) {  // joint j moves frames j+1.. (both DH conventions)
+        const S* A = fr + FK_FRAME * (CRAIG ? j + 1 : j) * C;
+        const S rx = x - A[9 * C], ry = y - A[10 * C], rz = z - A[11 * C];
+        const S mx = ry * gz - rz * gy, my = rz * gx - rx * gz, mz = rx * gy - ry * gx;
+        dq[j] += A[2 * C] * mx + A[5 * C] * my + A[8 * C] * mz;
+      }
+    }
+  }
+}
+
 // The tile's work, the body of both kernel entries below. robot and
 // spheres: the constant tables described in fk.cuh; table: the base grid's
 // entries in MODE.
@@ -454,10 +591,10 @@ __device__ __forceinline__ void loglik_tile(
   for (int i = tid; i < 5 * P; i += THREADS) sph[i] = spheres[i];
   ExtrasView<S> xv{};
   if constexpr (EXTRA) xv = extras_to_shared(ex, sph + 5 * P, tid, THREADS);
-  if constexpr (sizeof(S) == 8) {
-    // double: the block's threads take the tile's sin and cos, one angle
-    // each, into red (free until phase 3), so that the chain's serial part,
-    // on one warp of eight, holds no double trig
+  if constexpr (sizeof(S) == 8 || MODE == K1_TRILINEAR) {
+    // double, and the trilinear lookup: the block's threads take the tile's
+    // sin and cos, one angle each, into red (free until phase 3), so that
+    // the chain's serial part, on one warp of eight, holds no trig
     joint_trig_to_shared<DOF, C>(q, robot, red, tile0, T, tid, THREADS);
     __syncthreads();
     if (tid < C && tile0 + tid < T) fk_chain_from_trig<DOF, CRAIG, C>(red, robot, frames, tid);
@@ -477,13 +614,16 @@ __device__ __forceinline__ void loglik_tile(
 #pragma unroll
   for (int j = 0; j < DOF; ++j) dq[j] = S(0);
 
-  if constexpr (k1_split<S, MODE, EXTRA>())
+  if constexpr (MODE == K1_TRILINEAR && k1_split<S, MODE, EXTRA>())
+    loglik_split_corners<S, DOF, CRAIG, GRAD, H2>(fr, sph, sig, live, cfg, grp, table, ex, xv, h2, T, P, g,
+                                                  eps, acc, dq);
+  else if constexpr (k1_split<S, MODE, EXTRA>())
     loglik_split<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(fr, sph, sig, live, cfg, grp, table, ex, xv,
                                                        h2, T, P, g, eps, acc, dq);
   else for (int base = grp; base < P; base += G * NI) {
+    static_assert(!EXTRA, "a composed scene takes the split design");
     Lookup lk[NI];
     S sg[NI];
-    S px[NI], py[NI], pz[NI];  // EXTRA: the sphere centres
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int sp = base + G * i;
@@ -493,50 +633,6 @@ __device__ __forceinline__ void loglik_tile(
         sphere_centre_shared(fr, C, (int)s[0], s[1], s[2], s[3], x, y, z);
         lk[i].template fetch<GRAD>(table, g, x - g.bx, y - g.by, z - g.bz);
         sg[i] = __ldg(sig + sp);
-        if constexpr (EXTRA) {
-          px[i] = x;
-          py[i] = y;
-          pz[i] = z;
-        }
-      }
-    }
-    // EXTRA (here only the composed trilinear lookup; the composed packed and
-    // nearest ones take the split design): the composed value and gradient,
-    // from the base grid's on
-    S dv[NI], gv[NI][3];
-    if constexpr (EXTRA) {
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        if (live && base + G * i < P) {
-          dv[i] = lk[i].value();
-          if (GRAD) lk[i].gradient(g, gv[i]);
-        }
-      }
-      const Entry* cells = static_cast<const Entry*>(ex.cells);
-      for (int e = 0; e < xv.G; ++e) {
-        const GridArgs<S> eg = extra_grid(xv, e);
-        const Entry* et = cells + extra_start(xv, e);
-        Lookup le[NI];
-#pragma unroll
-        for (int i = 0; i < NI; ++i)
-          if (live && base + G * i < P)
-            le[i].template fetch<GRAD>(et, eg, px[i] - eg.bx, py[i] - eg.by, pz[i] - eg.bz);
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          if (live && base + G * i < P) {
-            S gk[3] = {S(0), S(0), S(0)};
-            if (GRAD) le[i].gradient(eg, gk);
-            fold_min<GRAD, S>(le[i].value(), gk, dv[i], gv[i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        if (live && base + G * i < P) {
-          bool bad = false;
-          compose_primitives<GRAD, S>(xv, px[i], py[i], pz[i], dv[i], gv[i], bad);
-          if (bad) gv[i][0] = gv[i][1] = gv[i][2] = s_nan<S>();
-        }
       }
     }
 #pragma unroll
@@ -544,7 +640,7 @@ __device__ __forceinline__ void loglik_tile(
       const int sp = base + G * i;
       if (live && sp < P) {
         const S* s = sph + 5 * sp;
-        const S dist = EXTRA ? dv[i] : lk[i].value();
+        const S dist = lk[i].value();
         const S h = KEEP_NAN ? max_keep_nan(eps - (dist - s[4]), S(0))
                              : s_max(eps - (dist - s[4]), S(0));
         acc += h * h / sg[i];
@@ -554,13 +650,7 @@ __device__ __forceinline__ void loglik_tile(
           S x, y, z;
           sphere_centre_shared(fr, C, f, s[1], s[2], s[3], x, y, z);
           S gr[3];
-          if constexpr (EXTRA) {
-            gr[0] = gv[i][0];
-            gr[1] = gv[i][1];
-            gr[2] = gv[i][2];
-          } else {
-            lk[i].gradient(g, gr);
-          }
+          lk[i].gradient(g, gr);
           const S k = h / sg[i];
           const S gx = k * gr[0], gy = k * gr[1], gz = k * gr[2];
 #pragma unroll
@@ -618,20 +708,25 @@ __global__ void __launch_bounds__(THREADS) loglik_tile_kernel(K1_TILE_PARAMS) {
 
 // The blocks an SM must hold, which caps a thread's registers, where an
 // instantiation names them (0: none named, the register budget as it was).
-// A float32 scene with extras: three (80 registers) for the split design,
-// which fits them without a spill (one sphere at a time, the tie path out of
-// line); two (128) for the one-pass trilinear lookup, which would take ~150
-// and leave one block, eight warps, to hide the gathers. The base grid alone
-// in double, packed or nearest cell: three (80), which the packed lookup's
+// A float32 scene with extras: three (80 registers) for the split design of
+// the packed and nearest lookups, which fits them without a spill (one
+// sphere at a time, the tie path out of line). The base grid alone in
+// double, packed or nearest cell: three (80), which the packed lookup's
 // three words in flight fit, and which the nearest cell's gradient pass
-// would otherwise exceed (100-104 registers, two blocks; PERF.md).
-template <class S, int MODE, bool EXTRA>
+// would otherwise exceed (100-104 registers, two blocks). The float32
+// trilinear lookup on the base grid, one sphere's corners in flight: five
+// blocks (48) for the forward, four (64) with the gradient, where it took 60
+// and 80 (four and three blocks). The composed trilinear lookup: two (128),
+// in float32 with the winner's gradient kept (119; at three it was 19 %
+// slower), in double where it would take 174 (PERF.md).
+template <class S, int MODE, bool EXTRA, bool GRAD>
 __host__ __device__ constexpr int k1_blocks() {
+  if (MODE == K1_TRILINEAR) return EXTRA ? 2 : (sizeof(S) == 4 ? (GRAD ? 4 : 5) : 0);
   if (EXTRA && sizeof(S) == 4) return k1_split<S, MODE, EXTRA>() ? 3 : 2;
   return !EXTRA && sizeof(S) == 8 && MODE != K1_TRILINEAR ? 3 : 0;
 }
 template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA>
-__global__ void __launch_bounds__(THREADS, (k1_blocks<S, MODE, EXTRA>()))
+__global__ void __launch_bounds__(THREADS, (k1_blocks<S, MODE, EXTRA, GRAD>()))
     loglik_tile_kernel_blocks(K1_TILE_PARAMS) {
   loglik_tile<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>(K1_TILE_ARGS);
 }
@@ -640,7 +735,7 @@ template <class S, int MODE, int DOF, bool CRAIG, bool GRAD, bool H2, bool EXTRA
 cudaError_t launch_kernel(const K1Args<S>& a, const typename GridLookup<S, MODE>::Entry* table,
                           size_t smem, cudaStream_t st) {
   const dim3 grid((unsigned)((a.T + C - 1) / C)), block(THREADS);
-  if constexpr (k1_blocks<S, MODE, EXTRA>() > 0)
+  if constexpr (k1_blocks<S, MODE, EXTRA, GRAD>() > 0)
     return launch_smem(loglik_tile_kernel_blocks<S, MODE, DOF, CRAIG, GRAD, H2, EXTRA>, grid, block,
                        smem, st, a.q, a.sigma, a.robot, a.spheres, table, a.ex, a.lik, a.dlik, a.h2,
                        (long long)a.T, (long long)a.K, a.P, a.g, a.eps);
@@ -666,45 +761,110 @@ cudaError_t launch_scene(const K1Args<S>& a, cudaStream_t st) {
   return launch_tile<S, MODE, DOF, CRAIG, false>(a, st);
 }
 
-// k1_dsigma: block (r, y) holds DS_WARPS warps, warp w sphere p = y * DS_WARPS
-// + w of row r. Its lanes stride over the row's K configs (coalesced reads of
-// g and of the sphere's h^2 segment), DS_UNROLL loads of each in flight before
-// the first use (a row is ~1 000 configs, so a lane makes a few such rounds
-// and the time is a few memory latencies, not ~30), a shuffle tree joins the
-// 32 lanes, and lane 0 scales by 1/2 / sigma^2.
-constexpr int DS_WARPS = 8, DS_UNROLL = 8;
+// k1_dsigma: a warp a part of a (row, sphere) segment, the parts of a
+// segment in one block, the warps numbered flat (seg = r * P + p, then the
+// part), so that no warp of the grid is idle but in its last block. The
+// segment's K configs are h2[p, r K ..] and g[r K ..]: the part's lanes take
+// 16-byte vectors of both (float4, double2; DS_VEC of each a lane, all
+// issued before the first product is summed), the scalars before h^2's
+// first 16-byte boundary and after its last in the part that holds them
+// (K = S N is not a multiple of 4 in every problemset, and a segment starts
+// wherever p T + r K falls), and g as scalars where its own vector would not
+// be aligned with h^2's. A segment takes the fewest parts (1, 2, 4 or 8)
+// whose lanes hold it in one round. Each lane sums its products, a shuffle
+// tree joins the 32 lanes, the parts meet in shared memory in order, and
+// lane 0 of part 0 scales by 1/2 / sigma^2. Only sums and products: a NaN in
+// g or h^2 reaches its (row, sphere) as the plain sum carries it.
+constexpr int DS_WARPS = 8, DS_VEC = 4;
+
+template <class S>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  __device__ __forceinline__ static float dot(float acc, float4 a, float4 b) {
+    return acc + a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  }
+  __device__ __forceinline__ static float4 scalars(const float* p) {
+    return float4{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  __device__ __forceinline__ static double dot(double acc, double2 a, double2 b) {
+    return acc + a.x * b.x + a.y * b.y;
+  }
+  __device__ __forceinline__ static double2 scalars(const double* p) {
+    return double2{__ldg(p), __ldg(p + 1)};
+  }
+};
+
+// the parts a segment of K values of S takes (dsigma_kernel)
+template <class S>
+__host__ __device__ constexpr int dsigma_parts(long long K) {
+  const long long per_part = 32LL * DS_VEC * (16 / sizeof(S));  // values a part's lanes hold in one round
+  int parts = 1;
+  while (parts < DS_WARPS && parts * per_part < K) parts *= 2;
+  return parts;
+}
 
 template <class S>
 __global__ void __launch_bounds__(DS_WARPS * 32) dsigma_kernel(
     const S* __restrict__ g, const S* __restrict__ h2, const S* __restrict__ sigma,
-    S* __restrict__ out, long long T, long long K, int P) {
-  const int lane = threadIdx.x % 32;
-  const int p = blockIdx.y * DS_WARPS + threadIdx.x / 32;
-  if (p >= P) return;  // the whole warp
-  const long long r = blockIdx.x;
-  const S* gr = g + r * K;
-  const S* hp = h2 + (long long)p * T + r * K;
-  S a0 = S(0), a1 = S(0);
-  for (long long k = lane; k < K; k += 32 * DS_UNROLL) {
-    S gv[DS_UNROLL], hv[DS_UNROLL];
+    S* __restrict__ out, long long T, int K, int P, int segs, int parts) {
+  using V = Vec16<S>;
+  using S16 = typename V::type;
+  constexpr int W = 16 / sizeof(S);  // values a vector
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  S* part_sum = reinterpret_cast<S*>(k1_smem);  // [DS_WARPS], with more than one part
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int flat = blockIdx.x * DS_WARPS + warp;  // the launch holds fewer than 2^31 warps
+  const int seg = flat / parts, part = flat % parts;
+  S acc = S(0);
+  if (seg < segs) {
+    const int r = seg / P, p = seg % P;
+    const S* gr = g + (long long)r * K;
+    const S* hp = h2 + (long long)p * T + (long long)r * K;
+    // h^2's scalars before its first 16-byte boundary, its vectors, then the tail
+    const int head = min((int)((W - (reinterpret_cast<uintptr_t>(hp) / sizeof(S)) % W) % W), K);
+    const int nvec = (K - head) / W, tail0 = head + nvec * W;
+    const bool g_vec = reinterpret_cast<uintptr_t>(gr + head) % 16 == 0;
+    const int per = (nvec + parts - 1) / parts;  // vectors a part
+    const int lo = part * per, hi = min(nvec, lo + per);
+    const S16* hv = reinterpret_cast<const S16*>(hp + head);
+    const S16* gv = reinterpret_cast<const S16*>(gr + head);
+    for (int v0 = lo; v0 < hi; v0 += 32 * DS_VEC) {
+      S16 a[DS_VEC], b[DS_VEC];
 #pragma unroll
-    for (int j = 0; j < DS_UNROLL; ++j) {
-      const bool in = k + 32 * j < K;
-      gv[j] = in ? __ldg(gr + k + 32 * j) : S(0);
-      hv[j] = in ? __ldg(hp + k + 32 * j) : S(0);
+      for (int i = 0; i < DS_VEC; ++i) {
+        const int v = v0 + lane + 32 * i;
+        if (v < hi) {
+          a[i] = __ldg(hv + v);
+          b[i] = g_vec ? __ldg(gv + v) : V::scalars(gr + head + v * W);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < DS_VEC; ++i)
+        if (v0 + lane + 32 * i < hi) acc = V::dot(acc, a[i], b[i]);
     }
-#pragma unroll
-    for (int j = 0; j < DS_UNROLL; j += 2) {
-      a0 += gv[j] * hv[j];
-      a1 += gv[j + 1] * hv[j + 1];
+    if (part == 0) {
+      // the head and the tail (fewer than W values each)
+      const int e = lane < head ? lane : tail0 + (lane - head);
+      if (e < K && (lane < head || e >= tail0)) acc += __ldg(hp + e) * __ldg(gr + e);
     }
   }
-  S acc = a0 + a1;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const S s = sigma[r * P + p];
-    out[r * P + p] = S(0.5) * acc / (s * s);
+  if (parts > 1) {  // the same for every thread of the launch
+    if (lane == 0) part_sum[warp] = acc;
+    __syncthreads();
+    if (part == 0 && lane == 0)
+      for (int k = 1; k < parts; ++k) acc += part_sum[warp + k];
+  }
+  if (seg < segs && part == 0 && lane == 0) {
+    const S s = sigma[seg];
+    out[seg] = S(0.5) * acc / (s * s);
   }
 }
 
@@ -725,7 +885,10 @@ template <class S>
 cudaError_t k1_dsigma_launch(const S* g, const S* h2, const S* sigma, S* out, int64_t T,
                              int64_t K, int P, cudaStream_t st) {
   if (T == 0) return cudaSuccess;
-  const dim3 grid((unsigned)(T / K), (unsigned)((P + DS_WARPS - 1) / DS_WARPS));
-  dsigma_kernel<S><<<grid, DS_WARPS * 32, 0, st>>>(g, h2, sigma, out, T, K, P);
-  return cudaGetLastError();
+  const long long segs = (T / K) * P;
+  const int parts = dsigma_parts<S>(K);
+  if (K >= (1LL << 31) || segs * parts >= (1LL << 31)) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((segs * parts + DS_WARPS - 1) / DS_WARPS));
+  return launch_smem(dsigma_kernel<S>, grid, dim3(DS_WARPS * 32), parts > 1 ? DS_WARPS * sizeof(S) : 0, st,
+                     g, h2, sigma, out, (long long)T, (int)K, P, (int)segs, parts);
 }
