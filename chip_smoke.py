@@ -110,7 +110,15 @@ Phases, any failure exits non-zero before the result line:
     solves at Mc = 40 (fused, and with ``jitter_escalations=1``), and a
     20-step float32-island solve (``solve_dtype`` float32, jitter 1e-6, 3
     escalations: ``k2_chol`` and ``k2_trsm`` in float32), its first ELBO
-    against the CPU plain path on the same draws; (t4) a float64 session: K1 and both K3 entries against
+    against the CPU plain path on the same draws; above n = 128 (the
+    streamed design, its lower tiles in device memory) the four entries at n
+    = 129, 160 and 256 in float64 and 160 and 256 in float32 and on the real
+    Mc = 160 Grams, timed beside ``torch.linalg``, then 20-step solves at
+    the bench's full width at Mc = 160 (``num_inducing=158``: fused on draws
+    made on the CPU, and with ``jitter_escalations=1``) and Mc = 256, 36
+    finite rows each and their K2 launches at n > 128 counted, and the Mc =
+    160 solve's first ELBO against one ELBO of the CPU plain path on the
+    same draws; (t4) a float64 session: K1 and both K3 entries against
     their plain versions, a 20-step solve against the CPU float64 plain path
     on the same draws, and a scored round whose verdicts are held against
     the CPU plain path, K1 and K3 launched in float64.
@@ -134,7 +142,9 @@ card's name and power limit, a ``kernels`` JSON line (K1 and its d/dσ pair,
 K2 with the fused pair's velocity shapes, K3, K4, K1 and K3 on (o)'s
 scene, and (t)'s rows: K1-nearest, K1-trilinear, K1 and K3 in float64, K2's
 block design at n = 40 (``[n=40]``, ``"design": "blocked"``, with n = 64 and 128
-in the record) and its float32 ``k2_chol`` and ``k2_trsm``; each K1 row
+in the record), its streamed design at n = 160 (``[n=160]``, ``"design":
+"streamed"``, with n = 129 and 256, and float32 at 160 and 256, in the record)
+and its float32 ``k2_chol`` and ``k2_trsm``; each K1 row
 names its design, ``one-pass`` or ``split``, and its bound counts, in
 nearest mode, the neighbours of the hinge-active pairs only, with the count
 of every pair's neighbours beside it in the record; each K3 row names its
@@ -2663,18 +2673,26 @@ def kernel_profile_phase(torch, sess, k2, k4, reps: int = 20, profiled=()):
     flush = l2_flush_buffer(dev)
     rec = {}
     for label, kernel, fn, event_ms in cases:
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.zero_()
-                fn()
+        # a window that drops kernel records (PERF.md §7: a profiler window on
+        # the card has lost some or all of them, with acc_events=True too) is
+        # taken again, at most twice; the device time comes from a window
+        # that holds every launch
+        for attempt in range(3):
+            fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation and kernel in e.key]
-        count = sum(e.count for e in ev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation and kernel in e.key]
+            count = sum(e.count for e in ev)
+            if count == reps:
+                break
+            log(f"(d) the profile of {label} dropped records: {count} launches of {kernel} of {reps}")
         device_ms = sum(e.self_device_time_total for e in ev) / 1e3 / max(count, 1)
-        rec[label] = {"device_ms": device_ms, "event_ms": event_ms, "launches": count}
+        rec[label] = {"device_ms": device_ms, "event_ms": event_ms, "launches": count, "windows": attempt + 1}
         log(f"(d) device-only {label}: {device_ms:.4f} ms a launch over {count} launches (event-timed "
             f"{event_ms:.4f} ms with the launch)")
         assert count == reps, f"the profile of {label} shows {count} launches of {kernel}, not {reps}"
@@ -2957,6 +2975,9 @@ def k2_times(torch, n, dtype, dev, gen, flush, T=252, k_trsm=100, k_fused=71):
 
     es = torch.finfo(dtype).bits // 8
     peak = F64_TC_FLOPS if dtype == torch.float64 else F32_FLOPS
+    # above the block design: what the streamed design itself moves (GB)
+    own = ((lambda entry, k: T * la.k2_work(entry, n, k, "streamed")[0] * es / 1e9)
+           if n > la.KERNEL_BLOCK_MAX_N else (lambda entry, k: None))
     K = _spd(torch, T, n, dtype, dev, gen)
     L = la.k2_chol(K)
     Bt = torch.randn((T, n, k_trsm), generator=gen, device=dev, dtype=torch.float64).to(dtype)
@@ -2968,14 +2989,14 @@ def k2_times(torch, n, dtype, dev, gen, flush, T=252, k_trsm=100, k_fused=71):
     out["chol"] = {"ms": time_ms(lambda: la.k2_chol(K), flush=flush),
                    "plain_ms": time_ms(lambda: la.cholesky_unrolled(K), reps=5, flush=flush),
                    "library_ms": time_ms(lambda: torch.linalg.cholesky(K), flush=flush),
-                   "bound_ms": b[0], "bound_by": b[1]}
+                   "bound_ms": b[0], "bound_by": b[1], "streamed_gb": own("chol", 0)}
     b = k2_bound("trsm", T, n, k_trsm, es, peak)
     out["trsm"] = {"ms": time_ms(lambda: la.k2_trsm(L, Bt, False), flush=flush),
                    "plain_ms": time_ms(lambda: la.solve_lower_unrolled(L, Bt), reps=5, flush=flush),
                    "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bt, upper=False),
                                          flush=flush),
                    "upper_t_ms": time_ms(lambda: la.k2_trsm(L, Bt, True), flush=flush),
-                   "bound_ms": b[0], "bound_by": b[1], "k": k_trsm}
+                   "bound_ms": b[0], "bound_by": b[1], "k": k_trsm, "streamed_gb": own("trsm", k_trsm)}
 
     def library_pair():
         Ll = torch.linalg.cholesky(K)
@@ -2985,12 +3006,14 @@ def k2_times(torch, n, dtype, dev, gen, flush, T=252, k_trsm=100, k_fused=71):
     out["factor_solve"] = {"ms": time_ms(lambda: la.k2_factor_solve(K, Bf), flush=flush),
                            "plain_ms": time_ms(lambda: la.factor_solve_plain(K, Bf), reps=5, flush=flush),
                            "library_ms": time_ms(library_pair, flush=flush),
-                           "bound_ms": b[0], "bound_by": b[1], "k": k_fused}
+                           "bound_ms": b[0], "bound_by": b[1], "k": k_fused,
+                           "streamed_gb": own("pair", k_fused)}
     b = k2_bound("bwd", T, n, k_fused, es, peak)
     out["factor_solve_bwd"] = {
         "ms": time_ms(lambda: la.k2_factor_solve_bwd(Lf, Xf, gL, Bf), flush=flush),
         "plain_ms": time_ms(lambda: la.factor_solve_bwd_plain(Lf, Xf, gL, Bf), reps=5, flush=flush),
-        "library_ms": None, "bound_ms": b[0], "bound_by": b[1], "k": k_fused}
+        "library_ms": None, "bound_ms": b[0], "bound_by": b[1], "k": k_fused,
+        "streamed_gb": own("bwd", k_fused)}
     return out
 
 
@@ -3058,9 +3081,161 @@ def elbo_agreement(torch, card_res, cpu_res, rtol):
     return int((first <= rtol).sum()), first.max().item(), last
 
 
-def k2_envelope_phase(torch, sess, flush):
+def k2_real_check(torch, K, gen, flush):
+    """K2's four entries on real conditioned Grams ``K [T, n, n]`` (float64)
+    against the plain versions, at the block design's real-Gram tolerances
+    (``tests/test_torch_kernels.py``): relative to the largest reference
+    entry, the factor, the solves and the backward (given the same factor)
+    to 1e-9, the pair's X (its own factor's rounding times the factor's
+    condition) to 1e-6; ``k2_chol`` and the pair timed beside
+    ``torch.linalg``. Returns the errors and times."""
+    from vgpmp_torch.ops import linalg as la
+    from vgpmp_torch.timing import time_ms
+
+    T, n = K.shape[0], K.shape[-1]
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=K.device, dtype=K.dtype)
+    Bm, gL, gX = mk(T, n, 71), mk(T, n, n), mk(T, n, 71)
+    Lp = la.cholesky_unrolled(K)
+    errs = {"chol": rel(la.k2_chol(K), Lp),
+            "trsm_lower": rel(la.k2_trsm(Lp, Bm, False), la.solve_lower_unrolled(Lp, Bm)),
+            "trsm_upperT": rel(la.k2_trsm(Lp, Bm, True), la.solve_upper_T_unrolled(Lp, Bm))}
+    Lf, Xf = la.k2_factor_solve(K, Bm)
+    Lq, Xq = la.factor_solve_plain(K, Bm)
+    errs["pair_L"], errs["pair_X"] = rel(Lf, Lq), rel(Xf, Xq)
+    gK, gB = la.k2_factor_solve_bwd(Lq, Xq, gL, gX)
+    hK, hB = la.factor_solve_bwd_plain(Lq, Xq, gL, gX)
+    errs["bwd_K"], errs["bwd_B"] = rel(gK, hK), rel(gB, hB)
+    bad = {k: v for k, v in errs.items() if not v <= (1e-6 if k == "pair_X" else 1e-9)}
+    assert not bad, f"K2 on the real Mc = {n} Grams: {bad}"
+
+    def library_pair():
+        Ll = torch.linalg.cholesky(K)
+        return Ll, torch.linalg.solve_triangular(Ll, Bm, upper=False)
+
+    times = {"chol_ms": time_ms(lambda: la.k2_chol(K), flush=flush),
+             "chol_library_ms": time_ms(lambda: torch.linalg.cholesky(K), flush=flush),
+             "pair_ms": time_ms(lambda: la.k2_factor_solve(K, Bm), flush=flush),
+             "pair_library_ms": time_ms(library_pair, flush=flush)}
+    return {"max_rel_err": errs, **times}
+
+
+def k2_streamed_phase(torch, sess, cpu, flush, checks, times):
+    """(t3) above n = 128, the streamed design: the four entries at n = 129,
+    160 and 256 in float64 and at 160 and 256 in float32 (``checks``,
+    ``times``), and on the real Mc = 160 Grams; then three 20-step solves at
+    the bench's full width with more than 126 inducing points, each with 36
+    finite rows and its K2 launches at n > 128 counted: Mc = 160
+    (``num_inducing=158``) fused, on draws made on the CPU; the same with
+    ``jitter_escalations=1`` (the lone ``k2_chol`` and ``k2_trsm``); Mc = 256
+    fused. The first ELBO of the Mc = 160 solve against one ELBO of the CPU
+    plain path ``cpu`` on the same parameters and draws: within 1e-3
+    relative on >= 34 of the 36 rows (float32 bulk tensors on both, summed
+    in other orders, and a sphere that a float32 rounding moves into the
+    neighbouring voxel, as the escalation check allows)."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import linalg as la
+
+    t0 = time.perf_counter()
+    dev = sess.device
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for n in (129, 160, 256):
+        checks[f"f64_n{n}"] = k2_shapes_check(torch, n, torch.float64, dev, gen)
+        times[f"f64_n{n}"] = k2_times(torch, n, torch.float64, dev, gen, flush)
+    for n in (160, 256):
+        checks[f"f32_n{n}"] = k2_shapes_check(torch, n, torch.float32, dev, gen)
+        times[f"f32_n{n}"] = k2_times(torch, n, torch.float32, dev, gen, flush)
+    t_kernels = time.perf_counter() - t0
+    above = ("f64_n129", "f64_n160", "f64_n256", "f32_n160", "f32_n256")
+    log("(t3) K2's streamed design, largest absolute / relative error: "
+        + ", ".join(f"{k} {checks[k][0]:.2e} / {checks[k][1]:.2e}" for k in above))
+    for k in above:
+        log(f"(t3) K2 {k} [252, n, n]: " + json.dumps(times[k]))
+
+    starts, goals = sess.queries()
+    pp = sess.planner_params
+    B = len(starts)
+    cfg = dataclasses.replace(sess.train_config, num_steps=20)
+    assert not cfg.randomize_timesteps
+
+    def init(m):
+        return planner.init_params_batch(m, starts, goals, [0] * B, 0.5 * (starts + goals), pp["lengthscales"],
+                                         pp["variance"], pp["sigma_obs"], pp["alpha"])
+
+    m160 = dataclasses.replace(sess.model, num_inducing=158)
+    with torch.no_grad():
+        K160, _ = planner._gram(m160, planner.constrain(init(m160), m160.variance_lower))
+    real = k2_real_check(torch, K160.reshape(-1, 160, 160).contiguous(), gen, flush)
+    log(f"(t3) K2 on the real Mc = 160 Grams [{K160.numel() // 160 ** 2}, 160, 160] (condition to ~3e10): "
+        + json.dumps(real))
+
+    noise = _row_noise(torch, m160, cfg, B, cfg.num_steps, seed=37)
+    counters = (la.k2_chol, la.k2_trsm, la.k2_factor_solve, la.k2_factor_solve_bwd)
+    solves = {}
+    for name, m, draws in (("mc160_fused", m160, noise),
+                           ("mc160_escalating", dataclasses.replace(m160, jitter_escalations=1), None),
+                           ("mc256_fused", dataclasses.replace(sess.model, num_inducing=254), None)):
+        for c in counters:
+            c.launches_by_n = {}
+        t1 = time.perf_counter()
+        solve = solver.make_batch_solver(m, cfg)
+        if draws is None:
+            _, res = solve(init(m), starts, goals, torch.Generator(device=dev).manual_seed(6))
+        else:
+            _, res = solve(init(m), starts, goals, noise=_noise_to(torch, draws, dev))
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t1
+        by_n = {c.__name__: dict(c.launches_by_n) for c in counters}
+        above = {nm: sum(v for n, v in d.items() if n > la.KERNEL_BLOCK_MAX_N) for nm, d in by_n.items()}
+        above = {nm: v for nm, v in above.items() if v}
+        total = sum(sum(d.values()) for d in by_n.values())
+        finite = torch.isfinite(res.elbo_history).all(dim=1) & torch.isfinite(res.best).flatten(1).all(dim=1)
+        solves[name] = {"Mc": m.num_inducing + 2, "solve_s": t_solve, "finite_rows": int(finite.sum()),
+                        "k2_launches_above_128": above, "k2_launches": total,
+                        "elbo_first_mean": res.elbo_history[:, 0].mean().item(),
+                        "elbo_last_mean": res.elbo_history[:, -1].mean().item()}
+        log(f"(t3) 20-step solve at Mc = {m.num_inducing + 2} ({name}), B = {B}: " + json.dumps(solves[name]))
+        assert solves[name]["finite_rows"] == B, f"{name}: non-finite rows"
+        assert above and sum(above.values()) == total, f"{name}: K2 launches by n {by_n}"
+        if name == "mc160_fused":
+            first_card = res.elbo_history[:, 0].cpu()
+    assert all(solves["mc160_fused"]["k2_launches_above_128"].get(k, 0) > 0
+               for k in ("k2_trsm", "k2_factor_solve", "k2_factor_solve_bwd"))
+    assert solves["mc160_escalating"]["k2_launches_above_128"].get("k2_chol", 0) > 0
+    assert solves["mc256_fused"]["k2_launches_above_128"].get("k2_factor_solve", 0) > 0
+
+    # (c) the first ELBO against one ELBO of the CPU plain path on the same
+    # parameters and draws, at the solver's first σ_obs scale; and the same
+    # ELBO evaluated on the card, which the solver's first entry must be
+    t1 = time.perf_counter()
+    scale0 = float(cfg.sigma_anneal) if cfg.sigma_anneal > 1.0 else 1.0
+    elbos = {}
+    for role, s in (("card", sess), ("cpu", cpu)):
+        m = dataclasses.replace(s.model, num_inducing=158)
+        X = torch.linspace(0.0, 1.0, cfg.time_spacing_X, dtype=m.dtype, device=s.device)
+        as_t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=s.device)
+        with torch.no_grad():
+            elbos[role] = planner.elbo(
+                init(m), m, as_t(starts), as_t(goals), X, None,
+                type(noise.steps[0])(*(x.to(s.device) for x in noise.steps[0])), scale0).cpu()
+    e_cpu = elbos["cpu"]
+    first = ((first_card - e_cpu).abs() / e_cpu.abs())
+    direct = ((elbos["card"] - first_card).abs() / first_card.abs()).max().item()
+    agree = int((first <= 1e-3).sum())
+    elbo_check = {"rows_within_1e-3": agree, "max_rel_err": first.max().item(),
+                  "median_rel_err": first.median().item(), "card_direct_vs_solver": direct,
+                  "cpu_elbo_s": time.perf_counter() - t1}
+    log(f"(t3) Mc = 160 first ELBO against the CPU plain path on the same draws: " + json.dumps(elbo_check))
+    assert direct <= 1e-6, f"the solver's first ELBO is not the ELBO at its first step: {direct}"
+    assert agree >= B - 2, f"Mc = 160: the first ELBO disagrees with the CPU plain path: {elbo_check}"
+    log(f"(t3) above n = 128 took {time.perf_counter() - t0:.1f} s (kernel checks and times {t_kernels:.1f} s)")
+    return {"real_mc160": real, "solves": solves, "first_elbo": elbo_check}
+
+
+def k2_envelope_phase(torch, sess, flush, cpu=None):
     """(t3) K2 above n = 32 and in float32: the four entries at n = 40, 64
-    and 128 (KERNEL_MAX_N) in float64 and at n = 12, 26, 40, 64 and 128 in
+    and 128 (KERNEL_BLOCK_MAX_N) in float64 and at n = 12, 26, 40, 64 and 128 in
     float32 against their plain versions, timed beside the library calls;
     then (a) a 20-step solve whose
     ``num_inducing`` is 38 (Mc = 40: the block design in the fused pair, its
@@ -3069,7 +3244,8 @@ def k2_envelope_phase(torch, sess, flush):
     (b) the float32 island: a 20-step solve with ``solve_dtype`` float32
     (jitter 1e-6, escalation on, 3 retries) launching ``k2_chol`` and
     ``k2_trsm`` in float32, its first ELBO against the CPU plain path on the
-    same draws."""
+    same draws; (c) above n = 128 (:func:`k2_streamed_phase`, with the CPU
+    session ``cpu``: one is made where it is None)."""
     from vgpmp_torch.engine import solver
     from vgpmp_torch.models import vgpmp as planner
     from vgpmp_torch.ops import linalg as la
@@ -3078,10 +3254,10 @@ def k2_envelope_phase(torch, sess, flush):
     dev = sess.device
     gen = torch.Generator(device=dev).manual_seed(23)
     checks, times = {}, {}
-    for n in (40, 64, la.KERNEL_MAX_N):
+    for n in (40, 64, la.KERNEL_BLOCK_MAX_N):
         checks[f"f64_n{n}"] = k2_shapes_check(torch, n, torch.float64, dev, gen)
         times[f"f64_n{n}"] = k2_times(torch, n, torch.float64, dev, gen, flush)
-    for n in (12, 26, 40, 64, la.KERNEL_MAX_N):
+    for n in (12, 26, 40, 64, la.KERNEL_BLOCK_MAX_N):
         checks[f"f32_n{n}"] = k2_shapes_check(torch, n, torch.float32, dev, gen)
         times[f"f32_n{n}"] = k2_times(torch, n, torch.float32, dev, gen, flush)
     log("(t3) K2 envelope check, largest absolute / relative error: "
@@ -3148,7 +3324,10 @@ def k2_envelope_phase(torch, sess, flush):
     assert by["k2_chol"].get("float32", 0) > 0 and by["k2_trsm"].get("float32", 0) > 0, by
     assert torch.isfinite(res_k.elbo_history).all(), "float32 island: non-finite ELBO"
     assert agree >= 10, "float32 island's first step disagrees with the CPU plain path"
-    return {"checks": checks, "times": times, "wide": wide,
+    if cpu is None:
+        cpu = PlanningSession("franka", "industrial", overrides=sess.overrides, device="cpu")
+    streamed = k2_streamed_phase(torch, sess, cpu, flush, checks, times)
+    return {"checks": checks, "times": times, "wide": wide, "streamed": streamed,
             "island": {"launches_by_dtype": by, "first_step_agree_rows": agree,
                        "first_step_max_rel_err": first_err, "cpu_float32_vs_float64": own,
                        "card_float32_vs_cpu_float64": card_vs_64,
@@ -3221,18 +3400,19 @@ def float64_phase(torch, flush):
                          "k1_float64_launches": {"solve": k1_f64, "round": round_k1}, "k3_launches": k3_by}
 
 
-def envelope_phase(torch, sess, flush, profiled=None):
+def envelope_phase(torch, sess, flush, profiled=None, cpu=None):
     """(t): (t1) K1's nearest and trilinear lookups and a trilinear solve,
     (t2) the parity protocol through K1-nearest, (t3) K2 above n = 32 and in
-    float32, (t4) a float64 session. Returns the kernel rows it adds and its
-    record; ``profiled`` as :func:`grid_modes_phase` takes it."""
+    float32, and above n = 128, (t4) a float64 session. Returns the kernel
+    rows it adds and its record; ``profiled`` as :func:`grid_modes_phase`
+    takes it, ``cpu`` as :func:`k2_envelope_phase`."""
     from vgpmp_torch.ops import linalg as la
 
     t0 = time.perf_counter()
     grid = grid_modes_phase(torch, sess, flush, profiled)
     trilinear_launches = trilinear_solve_phase(torch, sess)
     parity = parity_phase(torch)
-    k2 = k2_envelope_phase(torch, sess, flush)
+    k2 = k2_envelope_phase(torch, sess, flush, cpu)
     k1_64, k3_64, k3p_64, f64 = float64_phase(torch, flush)
     grid["nearest"]["launches"] = parity["k1_nearest_launches"]
     grid["trilinear"]["launches"] = trilinear_launches
@@ -3252,7 +3432,26 @@ def envelope_phase(torch, sess, flush, profiled=None):
                      "replaces": replaces, "launches": launches, "max_abs_err": errs["f64_n40"][0],
                      "max_rel_err": errs["f64_n40"][1], **t,
                      "by_n": {n: {**k2["times"][f"f64_n{n}"][key], "max_abs_err": errs[f"f64_n{n}"][0]}
-                              for n in (64, la.KERNEL_MAX_N)}})
+                              for n in (64, la.KERNEL_BLOCK_MAX_N)}})
+    # the streamed design (its tiles in device memory) at the solves' n = 160,
+    # with the launches of (t3)'s Mc = 160 solves (n = 129 and 256 in the record)
+    # (above n = 40 JAX calls jnp.linalg.cholesky and solve_triangular: `chol`
+    # and `solve_lower` of vgpmp_tpu/ops/linalg.py)
+    above = {nm: v["k2_launches_above_128"] for nm, v in k2["streamed"]["solves"].items()}
+    jchol = "vgpmp_tpu/ops/linalg.py:91"
+    for name, key, solve, replaces in (
+            ("k2_chol", "chol", "mc160_escalating", jchol),
+            ("k2_trsm", "trsm", "mc160_fused", "vgpmp_tpu/ops/linalg.py:107"),
+            ("k2_factor_solve", "factor_solve", "mc160_fused", jchol),
+            ("k2_factor_solve_bwd", "factor_solve_bwd", "mc160_fused", jchol)):
+        t = k2["times"]["f64_n160"][key]
+        rows.append({"name": f"{name}[n=160]", "design": "streamed", "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": above[solve].get(name, 0),
+                     "max_abs_err": errs["f64_n160"][0], "max_rel_err": errs["f64_n160"][1], **t,
+                     "by_n": {n: {**k2["times"][f"f64_n{n}"][key], "max_abs_err": errs[f"f64_n{n}"][0]}
+                              for n in (129, 256)},
+                     "float32_by_n": {n: {**k2["times"][f"f32_n{n}"][key], "max_abs_err": errs[f"f32_n{n}"][0]}
+                                      for n in (160, 256)}})
     island = k2["island"]["launches_by_dtype"]
     for name, key, replaces in (("k2_chol", "chol", rep), ("k2_trsm", "trsm", "vgpmp_tpu/ops/linalg.py:52")):
         t = k2["times"]["f32_n12"][key]
@@ -3260,7 +3459,7 @@ def envelope_phase(torch, sess, flush, profiled=None):
                      "launches": island[name]["float32"], "max_abs_err": errs["f32_n12"][0],
                      "max_rel_err": errs["f32_n12"][1], **t,
                      "by_n": {n: {**k2["times"][f"f32_n{n}"][key], "max_abs_err": errs[f"f32_n{n}"][0]}
-                              for n in (26, 40, 64, la.KERNEL_MAX_N)}})
+                              for n in (26, 40, 64, la.KERNEL_BLOCK_MAX_N)}})
     log(f"(t) took {time.perf_counter() - t0:.1f} s")
     return rows, {"grid_modes": {m: {k: v for k, v in r.items() if k != "name"} for m, r in grid.items()},
                   "parity": parity, "k2": k2, "float64": f64, "trilinear_solve_launches": trilinear_launches}
@@ -3333,7 +3532,7 @@ def main() -> int:
     parallel = parallel_phase(torch, sess, cpu, adaptive)
     log("(t) the CUDA envelope")
     flush = l2_flush_buffer(sess.device)
-    envelope_rows, envelope = envelope_phase(torch, sess, flush, profiled)
+    envelope_rows, envelope = envelope_phase(torch, sess, flush, profiled, cpu)
     del flush
     t0 = time.perf_counter()
     diagnosed = diagnose_phase(torch)

@@ -206,11 +206,19 @@ def mc40_grams():
     ``num_inducing = 38`` (Mc = 40, K2's block design), as a float64 CPU
     tensor ``[252, 40, 40]``: the session's 36 queries x 7 joints at the
     tuned init, jitter 1e-9; their condition number is ~8e9."""
+    return real_grams(38)
+
+
+def real_grams(num_inducing):
+    """The real conditioned Grams of a franka/industrial session with
+    ``num_inducing`` inducing points (Mc = num_inducing + 2), as a float64
+    CPU tensor ``[252, Mc, Mc]``: the session's 36 queries x 7 joints at the
+    tuned init, jitter 1e-9 (condition ~8e9 at Mc = 40, ~3e10 at 160)."""
     from vgpmp_torch.engine import solver
     from vgpmp_torch.models import vgpmp as tm
     from vgpmp_torch.session import PlanningSession
 
-    s = PlanningSession("franka", "industrial", device="cpu", overrides={"num_inducing": 38})
+    s = PlanningSession("franka", "industrial", device="cpu", overrides={"num_inducing": num_inducing})
     starts, goals = s.queries()
     params = solver.init_batch(s.model, starts, goals, s.planner_params)
     with torch.no_grad():

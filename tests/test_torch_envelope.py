@@ -9,10 +9,12 @@ and K2's plain path above n = 32.
   reference's 0.1 replaces it), float64, 1e-12;
 - ``CollisionModel.log_prob`` and ``∂/∂q`` in both modes, on the base grid
   and on a scene with objects, against JAX's on the same configs, float64;
-- the plain factorisation and solves at n = 40, 64 and 128 against
-  ``vgpmp_tpu.ops.linalg``;
+- the plain factorisation and solves at n = 40, 64, 128, 129, 160 and 256
+  against ``vgpmp_tpu.ops.linalg``;
 - a 20-step solve of a float32 model whose Gram island is float32 (jitter
   escalation on) against JAX's on the same draws;
+- the first ELBO and every gradient of a float64 planner with 130 inducing
+  points (Mc = 132) against JAX's on the same draws;
 - the dispatch: every mode and dtype takes the plain version on a CPU tensor,
   and ``log_prob`` hands a CUDA tensor to K1 only.
 """
@@ -164,12 +166,13 @@ def test_log_prob_nearest_scene_with_objects_matches_jax():
     _log_prob_check(jspec, jmod, tmod, seed=2, nan_ok=True)
 
 
-@pytest.mark.parametrize("n", [40, 64, 128])
+@pytest.mark.parametrize("n", [40, 64, 128, 129, 160, 256])
 def test_k2_plain_path_above_32_matches_jax(n):
     """The plain factorisation and both solves (the CPU's ``chol``,
     ``solve_lower``, ``solve_upper_T``, ``cho_solve`` and ``factor_solve``)
-    at the sizes K2's block design takes, against ``vgpmp_tpu.ops.linalg``
-    on the same float64 SPD matrices; 1e-10 relative to the largest entry."""
+    at the sizes K2's block design (n <= 128) and its streamed design (above)
+    take, against ``vgpmp_tpu.ops.linalg`` on the same float64 SPD matrices;
+    1e-10 relative to the largest entry."""
     rng = np.random.default_rng(n)
     G = rng.normal(size=(3, n, n))
     K = G @ np.swapaxes(G, -1, -2) + n * np.eye(n)
@@ -323,3 +326,41 @@ def test_log_prob_dispatch(mode, dtype, monkeypatch):
     with pytest.raises(ValueError, match="no K1 lookup"):
         tcol.k1_loglik(dataclasses.replace(model, scene=dataclasses.replace(tsc, mode="cubic")), fake,
                        sig, True)
+
+
+def test_elbo_above_128_inducing_matches_jax():
+    """The first ELBO and its gradient with respect to every leaf of a small
+    float64 planner with 130 inducing points (Mc = 132, above the block
+    design's 128: the streamed design's sizes on the card), in the port's
+    CPU path and in JAX on the same draws (2 rows, S = 2, N = 8, 32 bases).
+    Both factor the Gram with LAPACK (``torch.linalg``, ``jnp.linalg``); at
+    jitter 1e-6 its condition is ~3e7, and the two agree to 6e-11 on the
+    ELBO and to 4e-9 of each gradient's largest entry: held to 1e-8
+    relative, and to 1e-6 relative plus 5e-8 of the largest entry."""
+    B_, S_, N_, M_, NB_ = 2, 2, 8, 130, 32
+    jspec, jmodel, tmodel = planner_models(num_samples=S_, num_bases=NB_, num_inducing=M_)
+    rng = np.random.default_rng(132)
+    lo, hi = jspec.limits_low, jspec.limits_high
+    starts = 0.5 * (lo + hi) + 0.3 * (hi - lo) * rng.uniform(-1, 1, (B_, 7))
+    goals = 0.5 * (lo + hi) + 0.3 * (hi - lo) * rng.uniform(-1, 1, (B_, 7))
+    rows = [jm.init_params(jmodel, starts[b], goals[b], [1.5] * 7, 0.2, 0.005, 100.0) for b in range(B_)]
+    p = {k: np.stack([np.asarray(getattr(r, k)) for r in rows]) for k in tm.PlannerParams.names()}
+    p["q_mu"] = p["q_mu"] + 0.3 * rng.normal(size=p["q_mu"].shape)
+    p["q_sqrt"] = p["q_sqrt"] + 0.1 * np.tril(rng.normal(size=p["q_sqrt"].shape))
+    X = np.linspace(0, 1, N_)
+    keys = jax.random.split(jax.random.PRNGKey(11), B_)
+    fn = jax.jit(jax.vmap(jax.value_and_grad(lambda pp, s, g, k: jm.elbo(pp, jmodel, s, g, jnp.asarray(X), k))))
+    val, grads = fn(jm.PlannerParams(**{k: jnp.asarray(v) for k, v in p.items()}), jnp.asarray(starts),
+                    jnp.asarray(goals), keys)
+    tp = params_from_numpy(p)
+    for v in tp.leaves().values():
+        v.requires_grad_(True)
+    got = tm.elbo(tp, tmodel, torch.as_tensor(starts), torch.as_tensor(goals), torch.as_tensor(X),
+                  noise=jax_path_noise(keys, 7, M_ + 2, S_, NB_))
+    got.sum().backward()
+    assert np.isfinite(np.asarray(val)).all()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(val), rtol=1e-8)
+    for k, v in tp.leaves().items():
+        want = np.asarray(getattr(grads, k))
+        assert np.abs(want).max() > 0, k
+        np.testing.assert_allclose(v.grad.numpy(), want, rtol=1e-6, atol=5e-8 * np.abs(want).max(), err_msg=k)

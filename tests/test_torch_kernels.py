@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_support import cuda_device, mc40_grams, smooth_grid, source_wins, torch_scene_with_objects  # noqa: F401
+from _torch_support import (cuda_device, mc40_grams, real_grams, smooth_grid, source_wins,  # noqa: F401
+                            torch_scene_with_objects)
 from vgpmp_torch import robots, scene
 from vgpmp_torch.kinematics import dh
 from vgpmp_torch.likelihoods import collision as col
@@ -304,19 +305,14 @@ def test_k1_dsigma_matches_plain_on_card(robot, dtype, cuda_device):
 
 @pytest.mark.cuda
 def test_k2_refuses_what_it_does_not_take(cuda_device):
-    """K2 takes float32 and float64 up to n = 128 (KERNEL_MAX_N); it refuses,
-    before a launch, another dtype, mixed dtypes, n = 129 and mismatched
-    shapes."""
+    """K2 takes float32 and float64 at any n (the streamed design above n =
+    128, KERNEL_BLOCK_MAX_N); it refuses, before a launch, another dtype,
+    mixed dtypes and mismatched shapes."""
     with pytest.raises(TypeError):
         la.chol(torch.eye(4, dtype=torch.float16, device=cuda_device)[None])  # float16
-    with pytest.raises(ValueError, match="n <= 128"):
-        la.chol(torch.eye(129, dtype=torch.float64, device=cuda_device)[None])  # n > KERNEL_MAX_N
     eye = torch.eye(4, dtype=torch.float64, device=cuda_device)[None]
     with pytest.raises(TypeError):
         la.factor_solve(eye, eye.float())  # one float64, one float32
-    with pytest.raises(ValueError, match="n <= 128"):
-        la.factor_solve(torch.eye(129, dtype=torch.float64, device=cuda_device)[None],
-                        torch.ones(1, 129, 2, dtype=torch.float64, device=cuda_device))
     with pytest.raises(ValueError):
         la.factor_solve(eye, torch.ones(1, 5, 2, dtype=torch.float64, device=cuda_device))
     with pytest.raises(TypeError):
@@ -1080,7 +1076,7 @@ def test_k3_float64_composed_scene_on_card(robot, cuda_device):
 
 
 # (n, T, k): the block design at n = 33 (its first size), 40, 64 and 128
-# (KERNEL_MAX_N); T = 1 and 5 (a non-SPD matrix among others); k either side
+# (KERNEL_BLOCK_MAX_N); T = 1 and 5 (a non-SPD matrix among others); k either side
 # of the solves' 128-column tile (129, 130: two blocks a matrix) and of the
 # backward's 16- to 64-column tiles; the last panel's ragged edges (n = 63,
 # 65, 96, 97, 127: 31, 1, 32, 1 and 31 rows); T = 252, more blocks than SMs;
@@ -1135,6 +1131,95 @@ def test_k2_block_design_matches_plain_on_card(cuda_device, n, T, k):
     gK_p, gB_p = la.factor_solve_bwd_plain(L_fp[ok], X_fp[ok], WL[ok], Bm[ok])
     for a, b in ((gK, gK_p), (gB, gB_p)):
         torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10 * b.abs().max().item())
+
+
+# (n, T, k): the streamed design above n = 128: one row in the last panel
+# (129), a whole one (160, 256), a ragged one (200), and 512 (sixteen panels);
+# T = 252, more blocks than SMs; k = 251 (the extraction's: two 128-column
+# tiles), 33 (ragged against the backward's 32-column chunks), 71 and 100
+K2_STREAMED_CASES = [(129, 3, 71), (160, 252, 71), (160, 5, 251), (200, 3, 33), (256, 252, 71),
+                     (256, 3, 100), (512, 2, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n,T,k", K2_STREAMED_CASES)
+def test_k2_streamed_design_matches_plain_on_card(cuda_device, n, T, k, dtype):
+    """K2 above n = 128 (one block a matrix, its lower tiles in device
+    memory): the lone factorisation and both solves, forward and backward
+    (through ``chol`` and the solves' autograd, on at most 8 matrices: the
+    plain version's autograd keeps n steps of [T, n, n]), and the fused pair,
+    forward and backward, against the plain versions, relative to the
+    largest reference entry: float64 to 1e-9 (gradients 1e-8), float32 to
+    1e-4 (the plain float32 version rounds in another order; condition
+    ~10). A non-SPD matrix gives NaN in itself and in no other matrix."""
+    rng = np.random.default_rng(1000 * n + T + k)
+    tol, gtol = (1e-9, 1e-8) if dtype == torch.float64 else (1e-4, 1e-4)
+    close = lambda got, want, t: torch.testing.assert_close(got, want, rtol=0, atol=t * want.abs().max().item())
+    K = torch.as_tensor(_spd(rng, T, n), dtype=dtype, device=cuda_device)
+    Bm = torch.as_tensor(rng.normal(size=(T, n, k)), dtype=dtype, device=cuda_device)
+    WL = torch.as_tensor(rng.normal(size=(T, n, n)), dtype=dtype, device=cuda_device)
+    bad = T // 2
+    K[bad] = -K[bad]
+    ok = torch.ones(T, dtype=torch.bool, device=cuda_device)
+    ok[bad] = False
+    L_k = la.k2_chol(K)
+    L_p = la.cholesky_unrolled(K)
+    assert torch.isnan(L_k[bad]).any() and torch.isfinite(L_k[ok]).all()
+    close(L_k[ok], L_p[ok], tol)
+    for upper_t, plain in [(False, la.solve_lower_unrolled), (True, la.solve_upper_T_unrolled)]:
+        X = la.k2_trsm(L_k, Bm, upper_t)
+        assert torch.isnan(X[bad]).any() and torch.isfinite(X[ok]).all()
+        close(X[ok], plain(L_p[ok], Bm[ok]), tol)
+    few = torch.nonzero(ok).flatten()[:8]
+    for fn, plain in [(la.solve_lower, la.solve_lower_unrolled),
+                      (la.solve_upper_T, la.solve_upper_T_unrolled)]:
+        Kt, Bt = K[few].clone().requires_grad_(), Bm[few].clone().requires_grad_()
+        g_k = torch.autograd.grad(fn(la.chol(Kt), Bt).square().sum(), [Kt, Bt])
+        Kp, Bp = K[few].clone().requires_grad_(), Bm[few].clone().requires_grad_()
+        g_p = torch.autograd.grad(plain(la.cholesky_unrolled(Kp), Bp).square().sum(), [Kp, Bp])
+        for a, b in zip(g_k, g_p):
+            close(a, b, gtol)
+    L_f, X_f = la.k2_factor_solve(K, Bm)
+    L_fp, X_fp = la.factor_solve_plain(K, Bm)
+    assert torch.isnan(L_f[bad]).any() and torch.isnan(X_f[bad]).any()
+    close(L_f[ok], L_fp[ok], tol)
+    close(X_f[ok], X_fp[ok], tol)
+    gK, gB = la.k2_factor_solve_bwd(L_fp[ok].contiguous(), X_fp[ok].contiguous(), WL[ok].contiguous(),
+                                    Bm[ok].contiguous())
+    gK_p, gB_p = la.factor_solve_bwd_plain(L_fp[ok], X_fp[ok], WL[ok], Bm[ok])
+    close(gK, gK_p, gtol)
+    close(gB, gB_p, gtol)
+
+
+@pytest.mark.cuda
+def test_k2_streamed_design_on_real_grams_on_card(cuda_device):
+    """K2's streamed design on the real conditioned Grams of a
+    franka/industrial session at Mc = 160 (condition ~3e10), against the
+    plain versions, all four entries, at the block design's real-Gram
+    tolerances (``test_k2_block_design_on_real_grams_on_card``): the factor,
+    the solves and the backward to 1e-9 of the largest reference entry, the
+    pair's X to 1e-6."""
+    K = real_grams(158).to(cuda_device)
+    T, n = K.shape[0], K.shape[-1]
+    rng = np.random.default_rng(160)
+    Bm = torch.as_tensor(rng.normal(size=(T, n, 71)), device=cuda_device)
+    WL = torch.as_tensor(rng.normal(size=(T, n, n)), device=cuda_device)
+    close = lambda got, want, tol: torch.testing.assert_close(got, want, rtol=0,
+                                                              atol=tol * want.abs().max().item())
+    L_p = la.cholesky_unrolled(K)
+    close(la.k2_chol(K), L_p, 1e-9)
+    for upper_t, plain in [(False, la.solve_lower_unrolled), (True, la.solve_upper_T_unrolled)]:
+        close(la.k2_trsm(L_p, Bm, upper_t), plain(L_p, Bm), 1e-9)
+    L_f, X_f = la.k2_factor_solve(K, Bm)
+    L_q, X_q = la.factor_solve_plain(K, Bm)
+    close(L_f, L_q, 1e-9)
+    close(X_f, X_q, 1e-6)
+    gK, gB = la.k2_factor_solve_bwd(L_q, X_q, WL, Bm)
+    gK_p, gB_p = la.factor_solve_bwd_plain(L_q, X_q, WL, Bm)
+    close(gK, gK_p, 1e-9)
+    close(gB, gB_p, 1e-9)
+    assert torch.isfinite(gK).all() and torch.isfinite(X_f).all()
 
 
 @pytest.mark.cuda

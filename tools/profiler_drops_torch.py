@@ -10,7 +10,10 @@ flushed before each, as ``chip_smoke.py``'s device-only phase does) and
 ``torch.exp`` as a library kernel beside it, and counts the records three
 ways: ``key_averages()``, ``events()`` and the raw kineto events. Then a
 child process opens a profiler window of its own on the card, and the
-``k2_chol`` windows run again. Prints the counts and writes them to
+``k2_chol`` windows run again, in turns with windows opened with
+``acc_events=True`` (which ``torch.profiler`` reads only when one profiler
+object is started again; each window here is a new object). Records the
+warnings the first window raises. Prints the counts and writes them to
 ``chiprun_out/profiler_drops.json``. Runs on the CUDA device only.
 """
 
@@ -20,6 +23,7 @@ import argparse
 import json
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import torch
@@ -33,7 +37,7 @@ CHILD = ("import torch\nfrom torch.profiler import ProfilerActivity, profile\n"
          "    [torch.exp(a) for _ in range(100)]\n    torch.cuda.synchronize()\n")
 
 
-def window(fn, name: str, reps: int, flush: torch.Tensor):
+def window(fn, name: str, reps: int, flush: torch.Tensor, acc_events: bool = False):
     """``(key_averages, events, kineto)`` counts of ``name``'s device records
     in one window of ``reps`` calls of ``fn``."""
     from torch.autograd import DeviceType
@@ -41,7 +45,7 @@ def window(fn, name: str, reps: int, flush: torch.Tensor):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=acc_events) as prof:
         for _ in range(reps):
             flush.zero_()
             fn()
@@ -71,12 +75,21 @@ def main(argv=None) -> dict:
     K = G @ G.mT + 12 * torch.eye(12, device=dev, dtype=torch.float64)
     a = torch.randn(1000, generator=gen, device=dev)
     flush = l2_flush_buffer(dev)
-    chol = lambda: [window(lambda: la.k2_chol(K), "chol_kernel", args.reps, flush)
-                    for _ in range(args.windows)]
-    out = {"card": card(dev), "reps": args.reps, "k2_chol": chol(),
+    chol = lambda acc=False: window(lambda: la.k2_chol(K), "chol_kernel", args.reps, flush, acc)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        first = chol()
+    out = {"card": card(dev), "torch": torch.__version__, "reps": args.reps,
+           "first_window_warnings": [str(w.message) for w in caught],
+           "k2_chol": [first] + [chol() for _ in range(args.windows - 1)],
            "exp": [window(lambda: torch.exp(a), "exp", args.reps, flush) for _ in range(args.windows)]}
     subprocess.run([sys.executable, "-c", CHILD], check=True)
-    out["k2_chol_after_a_profiling_child"] = chol()
+    plain, acc = [], []
+    for _ in range(args.windows):  # in turns, so that both meet the same state
+        plain.append(chol())
+        acc.append(chol(True))
+    out["k2_chol_after_a_profiling_child"] = plain
+    out["k2_chol_after_a_profiling_child_acc_events"] = acc
     for k, v in out.items():
         print(k, v, flush=True)
     path = ROOT / "chiprun_out" / "profiler_drops.json"

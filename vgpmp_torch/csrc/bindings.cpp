@@ -211,28 +211,56 @@ at::Tensor k1_dsigma(const at::Tensor& g, const at::Tensor& h2, const at::Tensor
   return out;
 }
 
-// K2's matrices: float32 or float64, square, 1 <= n <= K2_MAX_N
+// K2's matrices: float32 or float64, square, 1 <= n < 2^31 (any n the
+// device memory holds: above K2_BLOCK_MAX_N the streamed design), fewer than
+// 2^31 of them (a grid's first dimension)
 int64_t square_n(const at::Tensor& L, const char* what) {
   TORCH_CHECK_TYPE(L.scalar_type() == at::kFloat || L.scalar_type() == at::kDouble, what,
                    ": takes float32 or float64, got ", L.scalar_type());
   check(L, L.scalar_type(), 3, what, "the matrices");
   const int64_t n = L.size(1);
-  TORCH_CHECK_VALUE(L.size(2) == n && n >= 1 && n <= K2_MAX_N, what, ": needs square n <= ",
-                    K2_MAX_N, ", got ", shape_str(L));
+  TORCH_CHECK_VALUE(L.size(2) == n && n >= 1 && n <= INT32_MAX && L.size(0) <= INT32_MAX, what,
+                    ": needs square matrices, fewer than 2^31 of them, got ", shape_str(L));
   return n;
 }
 
+// the right-hand sides' columns k: at least one, and few enough that a lone
+// solve's grid of 128-column tiles fits a grid's second dimension
+void check_k(const at::Tensor& B, const char* what) {
+  TORCH_CHECK_VALUE(B.size(2) >= 1 && B.size(2) <= 65535LL * 128, what,
+                    ": needs 1 to 65535 x 128 columns, got ", shape_str(B));
+}
+
+// the streamed design's scratch for T matrices of an entry (an undefined
+// tensor where it takes none)
+template <class S>
+at::Tensor k2_scratch(const at::Tensor& like, K2Entry entry) {
+  const int64_t per = k2_scratch_values<S>(entry, (int)like.size(1));
+  if (per == 0) return at::Tensor();
+  TORCH_CHECK_VALUE(like.size(0) <= INT64_MAX / per, "K2: the scratch of ", shape_str(like),
+                    " overflows 64 bits");
+  return at::empty({like.size(0) * per}, like.options());
+}
+template <class S>
+S* ptr_or_null(const at::Tensor& t) {
+  return t.defined() ? t.data_ptr<S>() : nullptr;
+}
+
+template <class S>
+void chol_run(const at::Tensor& K, at::Tensor& L) {
+  const auto w = k2_scratch<S>(K, K2_CHOL);
+  C10_CUDA_CHECK(k2_chol_launch<S>(K.data_ptr<S>(), L.data_ptr<S>(), K.size(0), (int)K.size(1),
+                                   ptr_or_null<S>(w), at::cuda::getCurrentCUDAStream()));
+}
+
 at::Tensor k2_chol(const at::Tensor& K) {
-  const int64_t n = square_n(K, "k2_chol");
+  square_n(K, "k2_chol");
   const c10::cuda::CUDAGuard guard(K.device());
   auto L = at::empty_like(K);
-  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
   if (K.scalar_type() == at::kDouble)
-    C10_CUDA_CHECK(k2_chol_launch<double>(K.data_ptr<double>(), L.data_ptr<double>(), K.size(0),
-                                          (int)n, st));
+    chol_run<double>(K, L);
   else
-    C10_CUDA_CHECK(k2_chol_launch<float>(K.data_ptr<float>(), L.data_ptr<float>(), K.size(0),
-                                         (int)n, st));
+    chol_run<float>(K, L);
   return L;
 }
 
@@ -249,6 +277,7 @@ at::Tensor k2_trsm(const at::Tensor& L, const at::Tensor& B, bool upper_t) {
   same_device(L, B, "k2_trsm");
   TORCH_CHECK_VALUE(B.size(0) == L.size(0) && B.size(1) == n && B.size(2) >= 1,
                     "k2_trsm: B ", shape_str(B), " does not match L ", shape_str(L));
+  check_k(B, "k2_trsm");
   const c10::cuda::CUDAGuard guard(L.device());
   auto X = at::empty_like(B);
   if (L.scalar_type() == at::kDouble)
@@ -260,9 +289,11 @@ at::Tensor k2_trsm(const at::Tensor& L, const at::Tensor& B, bool upper_t) {
 
 template <class S>
 void factor_solve_run(const at::Tensor& K, const at::Tensor& B, at::Tensor& L, at::Tensor& X) {
+  const auto w = k2_scratch<S>(K, K2_PAIR);
   C10_CUDA_CHECK(k2_factor_solve_launch<S>(K.data_ptr<S>(), B.data_ptr<S>(), L.data_ptr<S>(),
                                            X.data_ptr<S>(), K.size(0), (int)K.size(1),
-                                           (int)B.size(2), at::cuda::getCurrentCUDAStream()));
+                                           (int)B.size(2), ptr_or_null<S>(w),
+                                           at::cuda::getCurrentCUDAStream()));
 }
 
 // K [T, n, n], B [T, n, k] -> (L = chol(K), X = L^-1 B), one launch
@@ -273,6 +304,7 @@ std::vector<at::Tensor> k2_factor_solve(const at::Tensor& K, const at::Tensor& B
   same_device(K, B, what);
   TORCH_CHECK_VALUE(B.size(0) == K.size(0) && B.size(1) == n && B.size(2) >= 1, what, ": B ",
                     shape_str(B), " does not match K ", shape_str(K));
+  check_k(B, what);
   const c10::cuda::CUDAGuard guard(K.device());
   auto L = at::empty_like(K);
   auto X = at::empty_like(B);
@@ -286,9 +318,10 @@ std::vector<at::Tensor> k2_factor_solve(const at::Tensor& K, const at::Tensor& B
 template <class S>
 void factor_solve_bwd_run(const at::Tensor& L, const at::Tensor& X, const at::Tensor& gL,
                           const at::Tensor& gX, at::Tensor& gK, at::Tensor& gB) {
+  const auto w = k2_scratch<S>(L, K2_BWD);
   C10_CUDA_CHECK(k2_factor_solve_bwd_launch<S>(
       L.data_ptr<S>(), X.data_ptr<S>(), gL.data_ptr<S>(), gX.data_ptr<S>(), gK.data_ptr<S>(),
-      gB.data_ptr<S>(), L.size(0), (int)L.size(1), (int)X.size(2),
+      gB.data_ptr<S>(), L.size(0), (int)L.size(1), (int)X.size(2), ptr_or_null<S>(w),
       at::cuda::getCurrentCUDAStream()));
 }
 
@@ -308,6 +341,7 @@ std::vector<at::Tensor> k2_factor_solve_bwd(const at::Tensor& L, const at::Tenso
   TORCH_CHECK_VALUE(gL.sizes() == L.sizes() && gX.sizes() == X.sizes(), what, ": gradients ",
                     shape_str(gL), " and ", shape_str(gX), " do not match L ", shape_str(L),
                     " and X ", shape_str(X));
+  check_k(X, what);
   const c10::cuda::CUDAGuard guard(L.device());
   auto gK = at::empty_like(L);
   auto gB = at::empty_like(X);
@@ -477,8 +511,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K1: fused FK, SDF lookup (packed, nearest or trilinear) and hinge; (lik, dlik/dq, "
         "squared hinges [P, T])");
   m.def("k1_dsigma", &k1_dsigma, "K1's d/dsigma: row sums of g * h^2 scaled by 1/2 / sigma^2");
-  m.def("k2_chol", &k2_chol, "K2: batched float32 or float64 lower Cholesky, n <= 128");
-  m.def("k2_trsm", &k2_trsm, "K2: batched triangular solve, L X = B or L^T X = B, n <= 128");
+  m.def("k2_chol", &k2_chol, "K2: batched float32 or float64 lower Cholesky");
+  m.def("k2_trsm", &k2_trsm, "K2: batched triangular solve, L X = B or L^T X = B");
   m.def("k2_factor_solve", &k2_factor_solve,
         "K2: Cholesky and the forward substitution of B in one launch; (L, L^-1 B)");
   m.def("k2_factor_solve_bwd", &k2_factor_solve_bwd,

@@ -58,8 +58,10 @@
 // (gp/posterior.py) and the jitter-escalation path.
 //
 // Above n = 32 (K2_WARP_MAX_N) no warp holds a row a lane, and the block
-// design takes over, up to n = 128 (K2_MAX_N): panels of 32 rows, their
-// products on the float64 matrix unit (the note above its section).
+// design takes over, up to n = 128 (K2_BLOCK_MAX_N): panels of 32 rows, their
+// products on the float64 matrix unit (the note above its section). Above
+// that the streamed design keeps the block design's tiles, steps and
+// products, its tiles in device memory (the note above its section).
 #pragma once
 
 #include <algorithm>
@@ -404,7 +406,7 @@ __global__ void __launch_bounds__(CH) factor_solve_bwd_kernel(
 //
 // Replaces vgpmp_tpu/ops/linalg.py:cholesky_unrolled, solve_lower_unrolled and
 // solve_upper_T_unrolled above n = 32 (XLA-fused on the TPU, where they are
-// n vector passes over the batch), for Grams of Mc = 33 to 128 (K2_MAX_N).
+// n vector passes over the batch), for Grams of Mc = 33 to 128 (K2_BLOCK_MAX_N).
 //
 // What bounds it on an H100: at T = 252 matrices a call moves 2-180 MB (each
 // input read once, each output written once: 0.0007-0.053 ms at 3.35 TB/s)
@@ -467,7 +469,7 @@ constexpr int SUB = 8;                // rows of a diagonal tile's sub-block in 
 // columns a block (0.095) and 32 (0.152), tools/k2_designs.py: every block of
 // a matrix loads all of L
 constexpr int BLK_CT = 128;
-static_assert(2 * BLK_WARPS >= 4 * (K2_MAX_N / PANEL), "a block row of units: two a warp at most");
+static_assert(2 * BLK_WARPS >= 4 * (K2_BLOCK_MAX_N / PANEL), "a block row of units: two a warp at most");
 static_assert(16 * BLK_WARPS >= BLK_CT, "a solve: 16 columns a warp");
 
 __host__ __device__ constexpr int panels(int n) { return (n + PANEL - 1) / PANEL; }
@@ -1079,6 +1081,506 @@ int blk_bwd_ct(int nb, int k) {
   return std::min(ct, round16(k));
 }
 
+// ------------------------------------------------ the streamed design, n > 128
+//
+// Replaces vgpmp_tpu/ops/linalg.py:91-122 above n = 128 (K2_BLOCK_MAX_N),
+// where JAX calls jnp.linalg.cholesky and solve_triangular: a session with
+// more than 126 inducing points (Mc = M + 2 > 128; 2C + M in velocity mode).
+//
+// What bounds it on an H100: at T = 252, n = 256, k = 71 in float64 the
+// fused pair must move 0.27 GB (0.08 ms at 3.35 TB/s) and do 2.6 GFLOP (0.04
+// ms on the float64 matrix unit). Above n = 128 a float64 factor's lower
+// tiles no longer fit a block's 227 KB, so here they live in device memory,
+// and the operand tiles read again at each step bind it: 0.74 GB of its own
+// traffic for that pair, which took 0.39 ms (1.5-2.2 TB/s across the sizes,
+// tools/k2_designs.py; ops/linalg.py:k2_work counts it).
+//
+// The design: the block design's tiles, steps and products, with the lower
+// tiles in device memory (scratch the caller allocates, in the same tile
+// layout: tile_at, PANEL rows, LDT) and each operand tile brought into
+// shared memory by cp.async as a step needs it, the next step's operands on
+// their way while a step computes (two sets of buffers: stream_steps). One
+// block of 256 threads a matrix (a lone solve: a matrix and a tile of its
+// columns), so a NaN from a non-positive pivot stays in its own matrix. The
+// units of a product are spread over the 8 warps, two at most a warp, their
+// sums kept in registers across the steps.
+// - Cholesky, left-looking by block columns: block column J's tiles, in
+//   groups of the diagonal tile and up to SG tiles below it, take the
+//   products with the block columns before J (an operand set a block column
+//   K < J: L[J, K] and the group's L[I, K]); the diagonal tile is then factored by
+//   warp_chol_tile and the tiles below solved against it by panel_solve,
+//   the block design's steps, and each tile is written once, to the scratch
+//   and to L.
+// - Solves, left-looking by block rows, X in device memory: block row I of B
+//   takes the products with the block rows of X solved before it (operand
+//   sets of an L tile and a block row of X, read back from device memory),
+//   then tile_solve against L[I, I]. A tile of up to BLK_CT columns a pass.
+// - The backward of the fused pair: the block design's phases (its note
+//   above), with L's lower tiles and the second set (G, Phi, Y^T, Z) both in
+//   scratch, and Y's block column in a third, nb tiles long.
+// - float32: the same, with the products on the FMA units (unit_sub).
+
+constexpr int SG = 3;  // tiles below the diagonal one in a group of the Cholesky
+static_assert(2 * BLK_WARPS >= 4 * (SG + 1), "a group's units: two a warp at most");
+static_assert(2 * BLK_WARPS >= 2 * (BLK_CT / 16), "a solve's units: two a warp at most");
+
+// how load_block reads its source block
+enum BlockRead : int { ROWS = 0, TRANS = 1, SYM = 2 };
+
+// A block of PANEL rows and w columns into dst (rows at stride ldd) by
+// cp.async: entry (i, j) from src[i * lds + j] (ROWS), src[j * lds + i]
+// (TRANS), or the symmetric block whose lower triangle src holds (SYM);
+// outside rows x cols, and above the diagonal with tril, the identity's (eye)
+// or zero.
+template <class S>
+__device__ void load_block(S* dst, int ldd, const S* src, int64_t lds, int rows, int cols, int w,
+                           int read = ROWS, bool eye = false, bool tril = false) {
+  for (int e = threadIdx.x; e < PANEL * w; e += BLK_THREADS) {
+    const int i = e / w, j = e % w;
+    S* d = dst + i * ldd + j;
+    if (i < rows && j < cols && (!tril || j <= i)) {
+      const bool t = read == TRANS || (read == SYM && j > i);
+      copy_async(d, src + (t ? (int64_t)j * lds + i : (int64_t)i * lds + j));
+    } else {
+      *d = (eye && i == j) ? S(1) : S(0);
+    }
+  }
+}
+
+// The rows x cols corner of src (rows at stride lds) out to dst.
+template <class S>
+__device__ void store_block(const S* src, int lds, S* __restrict__ dst, int64_t ldd, int rows, int cols) {
+  for (int e = threadIdx.x; e < rows * cols; e += BLK_THREADS) {
+    const int i = e / cols, j = e % cols;
+    dst[(int64_t)i * ldd + j] = src[i * lds + j];
+  }
+}
+
+// A matrix in device memory by blocks of PANEL rows: block row I at p + I *
+// bs, rows at stride ld, its rows from `rows` on outside it.
+template <class T>
+struct Rows {
+  T* p;
+  int64_t ld, bs;
+  int rows;
+};
+template <class S, class T>
+__device__ void load_rows(const Rows<T>& r, int I, S* dst, int ldd, int ct, int w) {
+  load_block(dst, ldd, r.p + I * r.bs, r.ld, min(PANEL, r.rows - I * PANEL), w, ct);
+}
+template <class S>
+__device__ void store_rows(const S* src, int lds, const Rows<S>& r, int I, int w) {
+  store_block(src, lds, r.p + I * r.bs, r.ld, min(PANEL, r.rows - I * PANEL), w);
+}
+
+// C (a unit at stride ld) += scale * acc; on_diag: the unit lies on a
+// diagonal tile's diagonal, and its entries above that diagonal are left as
+// they are
+template <class S>
+__device__ __forceinline__ void unit_add(const Unit<S>& acc, S* C, int ld, int lane, bool on_diag,
+                                         S scale = S(1)) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int ti = 0; ti < 2; ++ti)
+#pragma unroll
+    for (int tj = 0; tj < 2; ++tj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * ti + g, c = 8 * tj + 2 * q + e;
+        if (!on_diag || c <= r) C[r * ld + c] += scale * acc[ti][tj][e];
+      }
+}
+
+// Operand sets 0 .. steps - 1 through two sets of buffers: load(t, b) issues
+// set t's copies into buffer b, and set t + 1 is on its way while step(t, b)
+// reads set t. The copies issued before the call arrive with set 0. Returns
+// with every copy arrived and the block past a barrier.
+template <class Load, class Step>
+__device__ __forceinline__ void stream_steps(int steps, Load load, Step step) {
+  if (steps > 0) load(0, 0);
+  copy_async_commit();
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) {
+      load(t + 1, (t + 1) & 1);
+      copy_async_commit();
+      copy_async_wait_prior<1>();
+    } else {
+      copy_async_wait_prior<0>();
+    }
+    __syncthreads();
+    step(t, t & 1);
+    __syncthreads();
+  }
+  if (steps == 0) {
+    copy_async_wait_prior<0>();
+    __syncthreads();
+  }
+}
+
+// a warp's units u = warp + BLK_WARPS q, q = 0, 1, of a group of four tiles:
+// tile u / 4, its 16 x 16 unit (ru, cu)
+struct GroupUnit {
+  int s, ru, cu;
+  __device__ explicit GroupUnit(int u) : s(u >> 2), ru((u >> 1) & 1), cu(u & 1) {}
+};
+
+// Lower Cholesky of the row-major n x n A into L (zero above the diagonal)
+// and into the lower tiles Ls (the scratch, tile layout; the diagonal tiles'
+// padding the identity), left-looking by block columns. sm: [1 + SG] tiles
+// of the group, [2][1 + SG] operand tiles, PANEL reciprocals.
+template <class S>
+__device__ void streamed_chol(const S* __restrict__ A, S* __restrict__ Lg, S* __restrict__ Ls, int n,
+                              S* sm) {
+  const int nb = panels(n), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  S* C = sm;                          // [1 + SG][TILE]: L[J, J], then the group's tiles below it
+  S* O = C + (1 + SG) * TILE;         // [2][1 + SG][TILE]: L[J, K], then the group's L[I, K]
+  S* rinv = O + 2 * (1 + SG) * TILE;  // [PANEL]: 1 / L[j][j] of block column J
+  const int64_t row = (int64_t)PANEL * n;
+  for (int J = 0; J < nb; ++J) {
+    const int nr = min(PANEL, n - J * PANEL);
+    // group g: the diagonal tile (g = 0 only) and slots 1 .. ns, tile rows R0 + s
+    for (int g = 0; g == 0 || J + g * SG + 1 < nb; ++g) {
+      const int R0 = J + g * SG, ns = min(SG, nb - 1 - R0), s0 = g == 0 ? 0 : 1;
+      for (int s = s0; s <= ns; ++s) {
+        const int I = R0 + s;
+        load_block(C + s * TILE, LDT, A + I * row + J * PANEL, n, min(PANEL, n - I * PANEL), nr, PANEL,
+                   ROWS, I == J);
+      }
+      auto live = [&](const GroupUnit& v) { return v.s == 0 ? g == 0 && v.cu <= v.ru : v.s <= ns; };
+      Unit<S> acc[2];
+      unit_zero(acc[0]);
+      unit_zero(acc[1]);
+      stream_steps(
+          J,
+          [&](int K, int b) {
+            S* o = O + b * (1 + SG) * TILE;
+            for (int s = 0; s <= ns; ++s)
+              load_block(o + s * TILE, LDT, Ls + (int64_t)tile_at(nb, s == 0 ? J : R0 + s, K) * TILE, LDT,
+                         PANEL, PANEL, PANEL);
+          },
+          [&](int, int b) {
+            const S* o = O + b * (1 + SG) * TILE;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const GroupUnit v(warp + q * BLK_WARPS);
+              if (live(v))  // A[I, J] -= L[I, K] L[J, K]^T
+                unit_sub<S, false, true>(acc[q], o + v.s * TILE + 16 * v.ru * LDT, LDT, o + 16 * v.cu * LDT,
+                                         LDT, PANEL, lane);
+            }
+          });
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const GroupUnit v(warp + q * BLK_WARPS);
+        if (live(v)) unit_add(acc[q], C + v.s * TILE + 16 * v.ru * LDT + 16 * v.cu, LDT, lane, false);
+      }
+      __syncthreads();
+      if (g == 0) {
+        if (threadIdx.x < 32) warp_chol_tile(C, rinv, nr, lane);
+        __syncthreads();
+      }
+      // the group's tiles below the diagonal one: C is the first block column
+      // of a matrix of PANEL + rows rows, its tiles consecutive
+      panel_solve(C, rinv, PANEL + min(n, (R0 + ns + 1) * PANEL) - (R0 + 1) * PANEL, 1 + SG, 0);
+      __syncthreads();
+      for (int s = s0; s <= ns; ++s) {
+        const int I = R0 + s;
+        store_block(C + s * TILE, LDT, Ls + (int64_t)tile_at(nb, I, J) * TILE, LDT, PANEL, PANEL);
+        store_block(C + s * TILE, LDT, Lg + I * row + J * PANEL, n, min(PANEL, n - I * PANEL), nr);
+      }
+      if (g == 0)  // L's blocks above the diagonal one
+        for (int e = threadIdx.x; e < J * PANEL * nr; e += BLK_THREADS)
+          Lg[(int64_t)(e / nr) * n + J * PANEL + e % nr] = S(0);
+      __syncthreads();
+    }
+  }
+}
+
+// X <- L^-1 B (UPPER_T false) or L^-T B (true) for a tile of w <= ct columns
+// (ct a multiple of 16), block rows j0 .. nb - 1 (j0 > 0 only transposed: the
+// trailing part of L from panel j0), left-looking: block row I of B (load_b)
+// takes the products with the block rows of X solved before it, read back
+// from X in device memory with L's tiles (load_l(I, J, dst): the lower tile
+// (I, J), the identity's padding on the diagonal), then tile_solve against
+// L[I, I]. sm: a block row (PANEL x (ct + 4)), L[I, I], PANEL reciprocals,
+// [2] operand sets of an L tile and a block row.
+template <class S, bool UPPER_T, class LoadL, class LoadB>
+__device__ void streamed_solve(LoadL load_l, LoadB load_b, const Rows<S>& X, int n, int nb, int j0, int ct,
+                               int w, S* sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, ld = ct + 4, cu = ct / 16;
+  const int os = TILE + PANEL * ld;  // values of an operand set
+  S* Xa = sm;                        // [PANEL][ld]: block row I
+  S* D = Xa + PANEL * ld;            // [TILE]: L[I, I]
+  S* rinv = D + TILE;                // [PANEL]
+  S* O = rinv + PANEL;               // [2][os]: an L tile, then a block row of X
+  for (int s = j0; s < nb; ++s) {
+    const int I = UPPER_T ? nb - 1 - (s - j0) : s;
+    load_b(I, Xa, ld);
+    load_l(I, I, D);
+    Unit<S> acc[2];
+    unit_zero(acc[0]);
+    unit_zero(acc[1]);
+    stream_steps(
+        UPPER_T ? nb - 1 - I : I,
+        [&](int t, int b) {  // the block rows solved before: J > I (transposed), J < I (lower)
+          const int J = UPPER_T ? I + 1 + t : t;
+          S* o = O + b * os;
+          if (UPPER_T) load_l(J, I, o); else load_l(I, J, o);
+          load_rows(X, J, o + TILE, ld, ct, w);
+        },
+        [&](int, int b) {
+          const S* o = O + b * os;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int u = warp + q * BLK_WARPS, ru = u / cu, cc = u % cu;
+            if (u >= 2 * cu) continue;
+            if (!UPPER_T)  // X[I] -= L[I, J] X[J]
+              unit_sub<S, false, false>(acc[q], o + 16 * ru * LDT, LDT, o + TILE + 16 * cc, ld, PANEL, lane);
+            else           // X[I] -= L[J, I]^T X[J]
+              unit_sub<S, true, false>(acc[q], o + 16 * ru, LDT, o + TILE + 16 * cc, ld, PANEL, lane);
+          }
+        });
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int u = warp + q * BLK_WARPS;
+      if (u < 2 * cu) unit_add(acc[q], Xa + 16 * (u / cu) * ld + 16 * (u % cu), ld, lane, false);
+    }
+    if (threadIdx.x < PANEL) rinv[threadIdx.x] = S(1) / D[threadIdx.x * (LDT + 1)];
+    __syncthreads();
+    if (warp < cu) tile_solve<S, UPPER_T>(D, rinv, Xa + 16 * warp, ld, n - I * PANEL, lane);
+    __syncthreads();
+    store_rows(Xa, ld, X, I, w);
+    __syncthreads();
+  }
+}
+
+// load_l of streamed_solve over L's lower tiles in the scratch
+template <class S>
+struct TileL {
+  const S* Ls;
+  int nb;
+  __device__ void operator()(int I, int J, S* dst) const {
+    load_block(dst, LDT, Ls + (int64_t)tile_at(nb, I, J) * TILE, LDT, PANEL, PANEL, PANEL);
+  }
+};
+
+template <class S>
+__global__ void __launch_bounds__(BLK_THREADS)
+    str_chol_kernel(const S* __restrict__ A, S* __restrict__ L, S* __restrict__ scratch, int n) {
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  const int64_t off = (int64_t)blockIdx.x * n * n;
+  streamed_chol(A + off, L + off, scratch + (int64_t)blockIdx.x * lower_tiles(panels(n)) * TILE, n,
+                reinterpret_cast<S*>(k2_smem));
+}
+
+// block (m, y): matrix m, columns [y * ct, y * ct + ct) of B; L's tiles read
+// from the row-major L
+template <class S, bool UPPER_T>
+__global__ void __launch_bounds__(BLK_THREADS)
+    str_trsm_kernel(const S* __restrict__ L, const S* __restrict__ B, S* __restrict__ X, int n, int k,
+                    int ct) {
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  const int64_t m = blockIdx.x, nk = (int64_t)n * k;
+  const int c0 = blockIdx.y * ct, w = min(ct, k - c0);
+  const S* l = L + m * n * n;
+  const Rows<const S> b{B + m * nk + c0, k, (int64_t)PANEL * k, n};
+  streamed_solve<S, UPPER_T>(
+      [&](int I, int J, S* dst) {
+        load_block(dst, LDT, l + (int64_t)I * PANEL * n + J * PANEL, n, min(PANEL, n - I * PANEL),
+                   min(PANEL, n - J * PANEL), PANEL, ROWS, I == J);
+      },
+      [&](int I, S* dst, int ld) { load_rows(b, I, dst, ld, ct, w); },
+      Rows<S>{X + m * nk + c0, k, (int64_t)PANEL * k, n}, n, panels(n), 0, ct, w,
+      reinterpret_cast<S*>(k2_smem));
+}
+
+// The fused pair, forward: the factor (its tiles to the scratch), then X =
+// L^-1 B a tile of ct columns at a time.
+template <class S>
+__global__ void __launch_bounds__(BLK_THREADS)
+    str_factor_solve_kernel(const S* __restrict__ K, const S* __restrict__ B, S* __restrict__ L,
+                            S* __restrict__ X, S* __restrict__ scratch, int n, int k, int ct) {
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  S* sm = reinterpret_cast<S*>(k2_smem);
+  const int nb = panels(n);
+  const int64_t m = blockIdx.x, nk = (int64_t)n * k;
+  S* Ls = scratch + m * lower_tiles(nb) * TILE;
+  streamed_chol(K + m * n * n, L + m * n * n, Ls, n, sm);
+  for (int c0 = 0; c0 < k; c0 += ct) {
+    const int w = min(ct, k - c0);
+    const Rows<const S> b{B + m * nk + c0, k, (int64_t)PANEL * k, n};
+    streamed_solve<S, false>(TileL<S>{Ls, nb}, [&](int I, S* dst, int ld) { load_rows(b, I, dst, ld, ct, w); },
+                             Rows<S>{X + m * nk + c0, k, (int64_t)PANEL * k, n}, n, nb, 0, ct, w, sm);
+  }
+}
+
+// The fused pair, backward, one block a matrix, in the block design's phases
+// (blk_factor_solve_bwd_kernel): L into its lower tiles Lt; dB = L^-T dX a
+// tile of ct columns at a time, into gB; G = tril(dL) - tril(dB X^T) into
+// the lower tiles W, a group of four tiles of a block row at a time, over
+// the columns 32 at a time; Phi = sym(tril(L^T G), diagonal halved) by block
+// rows in order; Y = L^-T Phi a block column C at a time into Y (its blocks
+// (J, C), J <= C, then transposed into W's (C, J)); Z = L^-T Y^T below the
+// diagonal, in place in W, block column J from block row J down; dK = 2 Z
+// below the diagonal, Z on it. scratch: Lt, W [lower_tiles(nb)][TILE] and Y
+// [nb][TILE] a matrix.
+template <class S>
+__global__ void __launch_bounds__(BLK_THREADS) str_factor_solve_bwd_kernel(
+    const S* __restrict__ L, const S* __restrict__ X, const S* __restrict__ gL, const S* __restrict__ gX,
+    S* __restrict__ gK, S* __restrict__ gB, S* __restrict__ scratch, int n, int k, int ct) {
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  S* sm = reinterpret_cast<S*>(k2_smem);
+  const int nb = panels(n), nt = lower_tiles(nb), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t m = blockIdx.x, nn = (int64_t)n * n, nk = (int64_t)n * k, row = (int64_t)PANEL * n;
+  S* Lt = scratch + m * (2 * nt + nb) * TILE;
+  S* W = Lt + (int64_t)nt * TILE;
+  S* Y = W + (int64_t)nt * TILE;
+  const S* l = L + m * nn;
+  const S* xg = X + m * nk;
+  S* gb = gB + m * nk;
+  for (int64_t e = threadIdx.x; e < (int64_t)nt * PANEL * PANEL; e += BLK_THREADS) {  // L's tiles
+    const int t = (int)(e / (PANEL * PANEL)), i = (int)(e / PANEL % PANEL), j = (int)(e % PANEL);
+    int J = 0, r = t;
+    while (r >= nb - J) r -= nb - J++;
+    const int gi = (J + r) * PANEL + i, gj = J * PANEL + j;
+    Lt[(int64_t)t * TILE + i * LDT + j] = gi < n && gj < n ? l[gi * (int64_t)n + gj] : S(gi == gj);
+  }
+  __syncthreads();
+  const TileL<S> tl{Lt, nb}, tw{W, nb};
+  for (int c0 = 0; c0 < k; c0 += ct) {  // dB = L^-T dX
+    const int w = min(ct, k - c0);
+    const Rows<const S> b{gX + m * nk + c0, k, (int64_t)PANEL * k, n};
+    streamed_solve<S, true>(tl, [&](int I, S* dst, int ld) { load_rows(b, I, dst, ld, ct, w); },
+                            Rows<S>{gb + c0, k, (int64_t)PANEL * k, n}, n, nb, 0, ct, w, sm);
+  }
+  S* C = sm;                  // [4][TILE]: a group's four tiles
+  S* O = C + 4 * TILE;        // [2][5][TILE]: a group's operands
+  const int chunks = (k + PANEL - 1) / PANEL;
+  for (int I = 0; I < nb; ++I)  // G = tril(dL) - tril(dB X^T), tiles (I, J0 .. J0 + 3)
+    for (int J0 = 0; J0 <= I; J0 += 4) {
+      const int ns = min(4, I + 1 - J0);
+      for (int s = 0; s < ns; ++s)
+        load_block(C + s * TILE, LDT, gL + m * nn + I * row + (J0 + s) * PANEL, n, min(PANEL, n - I * PANEL),
+                   min(PANEL, n - (J0 + s) * PANEL), PANEL, ROWS, false, J0 + s == I);
+      auto live = [&](const GroupUnit& v) { return v.s < ns && !(J0 + v.s == I && v.cu > v.ru); };
+      Unit<S> acc[2];
+      unit_zero(acc[0]);
+      unit_zero(acc[1]);
+      stream_steps(
+          chunks,
+          [&](int t, int b) {  // columns [32 t, 32 t + 32) of dB's block row I and X's block rows J
+            S* o = O + b * 5 * TILE;
+            const int c = t * PANEL, cw = min(PANEL, k - c);
+            load_block(o, LDT, gb + I * (int64_t)PANEL * k + c, k, min(PANEL, n - I * PANEL), cw, PANEL);
+            for (int s = 0; s < ns; ++s)
+              load_block(o + (1 + s) * TILE, LDT, xg + (J0 + s) * (int64_t)PANEL * k + c, k,
+                         min(PANEL, n - (J0 + s) * PANEL), cw, PANEL);
+          },
+          [&](int, int b) {
+            const S* o = O + b * 5 * TILE;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const GroupUnit v(warp + q * BLK_WARPS);
+              if (live(v))
+                unit_sub<S, false, true>(acc[q], o + 16 * v.ru * LDT, LDT, o + (1 + v.s) * TILE + 16 * v.cu * LDT,
+                                         LDT, PANEL, lane);
+            }
+          });
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const GroupUnit v(warp + q * BLK_WARPS);
+        if (live(v))
+          unit_add(acc[q], C + v.s * TILE + 16 * v.ru * LDT + 16 * v.cu, LDT, lane,
+                   J0 + v.s == I && v.ru == v.cu);
+      }
+      __syncthreads();
+      for (int s = 0; s < ns; ++s)
+        store_block(C + s * TILE, LDT, W + (int64_t)tile_at(nb, I, J0 + s) * TILE, LDT, PANEL, PANEL);
+      __syncthreads();
+    }
+  for (int I = 0; I < nb; ++I)  // Phi's block row I: 0.5 sum over K >= I of L[K, I]^T G[K, J]
+    for (int J0 = 0; J0 <= I; J0 += 4) {
+      const int ns = min(4, I + 1 - J0);
+      for (int e = threadIdx.x; e < ns * TILE; e += BLK_THREADS) C[e] = S(0);
+      auto live = [&](const GroupUnit& v) { return v.s < ns && !(J0 + v.s == I && v.cu > v.ru); };
+      Unit<S> acc[2];
+      unit_zero(acc[0]);
+      unit_zero(acc[1]);
+      stream_steps(
+          nb - I,
+          [&](int t, int b) {
+            S* o = O + b * 5 * TILE;
+            tl(I + t, I, o);
+            for (int s = 0; s < ns; ++s) tw(I + t, J0 + s, o + (1 + s) * TILE);
+          },
+          [&](int, int b) {
+            const S* o = O + b * 5 * TILE;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const GroupUnit v(warp + q * BLK_WARPS);
+              if (live(v))
+                unit_sub<S, true, false>(acc[q], o + 16 * v.ru, LDT, o + (1 + v.s) * TILE + 16 * v.cu, LDT,
+                                         PANEL, lane);
+            }
+          });
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const GroupUnit v(warp + q * BLK_WARPS);
+        if (live(v))  // acc holds -P
+          unit_add(acc[q], C + v.s * TILE + 16 * v.ru * LDT + 16 * v.cu, LDT, lane,
+                   J0 + v.s == I && v.ru == v.cu, S(-0.5));
+      }
+      __syncthreads();
+      for (int s = 0; s < ns; ++s)
+        store_block(C + s * TILE, LDT, W + (int64_t)tile_at(nb, I, J0 + s) * TILE, LDT, PANEL, PANEL);
+      __syncthreads();
+    }
+  const Rows<S> ycol{Y, LDT, TILE, nb * PANEL};
+  for (int Cb = 0; Cb < nb; ++Cb) {  // Y = L^-T Phi, block column Cb
+    streamed_solve<S, true>(
+        tl,
+        [&](int I, S* dst, int ld) {  // Phi's block (I, Cb) from its lower tiles
+          const int T0 = I >= Cb ? tile_at(nb, I, Cb) : tile_at(nb, Cb, I);
+          load_block(dst, ld, W + (int64_t)T0 * TILE, LDT, PANEL, PANEL, PANEL,
+                     I > Cb ? ROWS : (I == Cb ? SYM : TRANS));
+        },
+        ycol, n, nb, 0, PANEL, PANEL, sm);
+    for (int e = threadIdx.x; e < (Cb + 1) * PANEL * PANEL; e += BLK_THREADS) {
+      const int J = e / (PANEL * PANEL), a = e / PANEL % PANEL, b = e % PANEL;
+      W[(int64_t)tile_at(nb, Cb, J) * TILE + a * LDT + b] = Y[(int64_t)J * TILE + b * LDT + a];
+    }
+    __syncthreads();
+  }
+  for (int J = 0; J < nb; ++J) {  // Z = L^-T Y^T, block column J from block row J
+    const Rows<S> z{W + (int64_t)(tile_at(nb, J, J) - J) * TILE, LDT, TILE, nb * PANEL};
+    streamed_solve<S, true>(tl, [&](int I, S* dst, int ld) { load_rows(z, I, dst, ld, PANEL, PANEL); }, z, n,
+                            nb, J, PANEL, PANEL, sm);
+  }
+  for (int64_t e = threadIdx.x; e < nn; e += BLK_THREADS) {  // dK
+    const int i = (int)(e / n), j = (int)(e % n);
+    S v = S(0);
+    if (j <= i) {
+      v = W[(int64_t)tile_at(nb, i / PANEL, j / PANEL) * TILE + (i % PANEL) * LDT + j % PANEL];
+      if (j < i) v += v;
+    }
+    gK[m * nn + e] = v;
+  }
+}
+
+// dynamic shared memory of the streamed design's kernels, in bytes
+template <class S>
+size_t str_smem(K2Entry entry, int ct) {
+  const size_t solve = (size_t)PANEL * (ct + 4) + TILE + PANEL + 2 * ((size_t)TILE + PANEL * (ct + 4));
+  const size_t chol = (size_t)3 * (1 + SG) * TILE + PANEL, group = (size_t)(4 + 2 * 5) * TILE;
+  const size_t values = entry == K2_CHOL ? chol
+                        : entry == K2_TRSM ? solve
+                        : entry == K2_PAIR ? std::max(chol, solve)
+                                           : std::max(solve, group);
+  return values * sizeof(S);
+}
+
+// the streamed design's column tile: k rounded up to 16, at most BLK_CT
+inline int str_ct(int k) { return std::min(round16(k), BLK_CT); }
+
 // ------------------------------------------------ launches of the warp design
 
 template <class S, int NC>
@@ -1146,10 +1648,25 @@ cudaError_t factor_solve_bwd_launch_nc(const S* L, const S* X, const S* gL, cons
     default: return cudaErrorInvalidValue;                                         \
   }
 
+// the scratch a matrix of an entry takes in the streamed design (n >
+// K2_BLOCK_MAX_N), in values: L's lower tiles (chol, pair), and beside them
+// W's and Y's block column (bwd); none below
 template <class S>
-cudaError_t k2_chol_launch(const S* A, S* L, int64_t T, int n, cudaStream_t st) {
+int64_t k2_scratch_values(K2Entry entry, int n) {
+  if (n <= K2_BLOCK_MAX_N || entry == K2_TRSM) return 0;
+  const int64_t nb = panels(n), nt = nb * (nb + 1) / 2;
+  return (entry == K2_BWD ? 2 * nt + nb : nt) * TILE;
+}
+
+template <class S>
+cudaError_t k2_chol_launch(const S* A, S* L, int64_t T, int n, S* scratch, cudaStream_t st) {
   if (T == 0) return cudaSuccess;
-  if (n < 1 || n > K2_MAX_N) return cudaErrorInvalidValue;
+  if (n < 1) return cudaErrorInvalidValue;
+  if (n > K2_BLOCK_MAX_N) {
+    if (!scratch) return cudaErrorInvalidValue;
+    return launch_smem(str_chol_kernel<S>, dim3((unsigned)T), dim3(BLK_THREADS), str_smem<S>(K2_CHOL, 0), st,
+                       A, L, scratch, n);
+  }
   if (n > K2_WARP_MAX_N)
     return launch_smem(blk_chol_kernel<S>, dim3((unsigned)T), dim3(BLK_THREADS),
                        blk_smem<S>(panels(n), 1, 0, 0), st, A, L, n);
@@ -1160,7 +1677,15 @@ template <class S>
 cudaError_t k2_trsm_launch(const S* L, const S* B, S* X, int64_t T, int n, int k, bool upper_t,
                            cudaStream_t st) {
   if (T == 0) return cudaSuccess;
-  if (n < 1 || k < 1 || n > K2_MAX_N) return cudaErrorInvalidValue;
+  if (n < 1 || k < 1) return cudaErrorInvalidValue;
+  if (n > K2_BLOCK_MAX_N) {  // a block a matrix and a tile of up to BLK_CT columns
+    const int ct = str_ct(k);
+    const dim3 grid((unsigned)T, (unsigned)((k + ct - 1) / ct));
+    const size_t smem = str_smem<S>(K2_TRSM, ct);
+    if (upper_t)
+      return launch_smem(str_trsm_kernel<S, true>, grid, dim3(BLK_THREADS), smem, st, L, B, X, n, k, ct);
+    return launch_smem(str_trsm_kernel<S, false>, grid, dim3(BLK_THREADS), smem, st, L, B, X, n, k, ct);
+  }
   if (n > K2_WARP_MAX_N) {
     // a block a matrix and a tile of up to BLK_CT columns
     const int ct = std::min(round16(k), BLK_CT);
@@ -1177,44 +1702,51 @@ cudaError_t k2_trsm_launch(const S* L, const S* B, S* X, int64_t T, int n, int k
 
 template <class S>
 cudaError_t k2_factor_solve_launch(const S* K, const S* B, S* L, S* X, int64_t T, int n, int k,
-                                   cudaStream_t st) {
+                                   S* scratch, cudaStream_t st) {
   if (T == 0) return cudaSuccess;
   if (n < 1 || k < 1) return cudaErrorInvalidValue;
   if (n <= 8) return factor_solve_launch_nc<S, 8>(K, B, L, X, T, n, k, st);
   if (n <= 16) return factor_solve_launch_nc<S, 16>(K, B, L, X, T, n, k, st);
   if (n <= 32) return factor_solve_launch_nc<S, 32>(K, B, L, X, T, n, k, st);
-  if (n <= K2_MAX_N) {  // a block a matrix; its columns in tiles of up to BLK_CT
+  if (n <= K2_BLOCK_MAX_N) {  // a block a matrix; its columns in tiles of up to BLK_CT
     const int ct = std::min(round16(k), BLK_CT);
     return launch_smem(blk_factor_solve_kernel<S>, dim3((unsigned)T), dim3(BLK_THREADS),
                        blk_smem<S>(panels(n), 1, 1, ct), st, K, B, L, X, n, k, ct);
   }
-  return cudaErrorInvalidValue;
+  if (!scratch) return cudaErrorInvalidValue;
+  const int ct = str_ct(k);
+  return launch_smem(str_factor_solve_kernel<S>, dim3((unsigned)T), dim3(BLK_THREADS),
+                     str_smem<S>(K2_PAIR, ct), st, K, B, L, X, scratch, n, k, ct);
 }
 
 // The column tiles hold CH columns of X and dB; CH shrinks with n so that the
 // block's shared memory stays under 48 KB.
 template <class S>
 cudaError_t k2_factor_solve_bwd_launch(const S* L, const S* X, const S* gL, const S* gX, S* gK,
-                                       S* gB, int64_t T, int n, int k, cudaStream_t st) {
+                                       S* gB, int64_t T, int n, int k, S* scratch, cudaStream_t st) {
   if (T == 0) return cudaSuccess;
   if (n < 1 || k < 1) return cudaErrorInvalidValue;
   if (n <= 8) return factor_solve_bwd_launch_nc<S, 8, 128>(L, X, gL, gX, gK, gB, T, n, k, st);
   if (n <= 16) return factor_solve_bwd_launch_nc<S, 16, 128>(L, X, gL, gX, gK, gB, T, n, k, st);
   if (n <= 32) return factor_solve_bwd_launch_nc<S, 32, 32>(L, X, gL, gX, gK, gB, T, n, k, st);
-  if (n <= K2_MAX_N) {
+  if (n <= K2_BLOCK_MAX_N) {
     const int nb = panels(n), ct = blk_bwd_ct<S>(nb, k);
     return launch_smem(blk_factor_solve_bwd_kernel<S>, dim3((unsigned)T), dim3(BLK_THREADS),
                        blk_smem<S>(nb, 2, 2, ct), st, L, X, gL, gX, gK, gB, n, k, ct);
   }
-  return cudaErrorInvalidValue;
+  if (!scratch) return cudaErrorInvalidValue;
+  const int ct = str_ct(k);
+  return launch_smem(str_factor_solve_bwd_kernel<S>, dim3((unsigned)T), dim3(BLK_THREADS),
+                     str_smem<S>(K2_BWD, ct), st, L, X, gL, gX, gK, gB, scratch, n, k, ct);
 }
 
 // Every entry in S, for the instantiating source to name.
 #define K2_INSTANTIATE(S)                                                                     \
-  template cudaError_t k2_chol_launch<S>(const S*, S*, int64_t, int, cudaStream_t);           \
+  template int64_t k2_scratch_values<S>(K2Entry, int);                                        \
+  template cudaError_t k2_chol_launch<S>(const S*, S*, int64_t, int, S*, cudaStream_t);       \
   template cudaError_t k2_trsm_launch<S>(const S*, const S*, S*, int64_t, int, int, bool,     \
                                          cudaStream_t);                                       \
   template cudaError_t k2_factor_solve_launch<S>(const S*, const S*, S*, S*, int64_t, int, int, \
-                                                 cudaStream_t);                               \
+                                                 S*, cudaStream_t);                           \
   template cudaError_t k2_factor_solve_bwd_launch<S>(const S*, const S*, const S*, const S*,  \
-                                                     S*, S*, int64_t, int, int, cudaStream_t);
+                                                     S*, S*, int64_t, int, int, S*, cudaStream_t);

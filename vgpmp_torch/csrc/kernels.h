@@ -80,12 +80,22 @@ template <class S>
 cudaError_t k1_dsigma_launch(const S* g, const S* h2, const S* sigma, S* out, int64_t T,
                              int64_t K, int P, cudaStream_t stream);
 
-// K2 (k2_linalg.cuh), float or double, 1 <= n <= K2_MAX_N: a warp's rows for
-// n <= K2_WARP_MAX_N, a block a matrix in shared memory above. A, L [T, n, n];
-// B, X [T, n, k].
-constexpr int K2_WARP_MAX_N = 32, K2_MAX_N = 128;
+// K2 (k2_linalg.cuh), float or double, any n >= 1: a warp's rows for n <=
+// K2_WARP_MAX_N, a block a matrix in shared memory up to K2_BLOCK_MAX_N (what
+// a block's shared memory holds in float64), and above it a block a matrix
+// whose lower tiles live in device memory: the factorisation, the pair and
+// its backward take them in `scratch`, T * k2_scratch_values(entry, n) values
+// of S (null where that is 0); the lone solve reads L's tiles in place. A, L
+// [T, n, n]; B, X [T, n, k]. Offsets within the tensors are 64-bit.
+constexpr int K2_WARP_MAX_N = 32, K2_BLOCK_MAX_N = 128;
+enum K2Entry : int { K2_CHOL = 0, K2_TRSM = 1, K2_PAIR = 2, K2_BWD = 3 };
+// tools/k2_designs.py's shim tells this interface (with scratch) from the
+// one before it by this macro
+#define K2_TAKES_SCRATCH 1
 template <class S>
-cudaError_t k2_chol_launch(const S* A, S* L, int64_t T, int n, cudaStream_t stream);
+int64_t k2_scratch_values(K2Entry entry, int n);
+template <class S>
+cudaError_t k2_chol_launch(const S* A, S* L, int64_t T, int n, S* scratch, cudaStream_t stream);
 template <class S>
 cudaError_t k2_trsm_launch(const S* L, const S* B, S* X, int64_t T, int n, int k, bool upper_t,
                            cudaStream_t stream);
@@ -96,10 +106,11 @@ cudaError_t k2_trsm_launch(const S* L, const S* B, S* X, int64_t T, int n, int k
 // only that triangle). K, L, gL, gK [T, n, n]; B, X, gX, gB [T, n, k].
 template <class S>
 cudaError_t k2_factor_solve_launch(const S* K, const S* B, S* L, S* X, int64_t T, int n, int k,
-                                   cudaStream_t stream);
+                                   S* scratch, cudaStream_t stream);
 template <class S>
 cudaError_t k2_factor_solve_bwd_launch(const S* L, const S* X, const S* gL, const S* gX, S* gK,
-                                       S* gB, int64_t T, int n, int k, cudaStream_t stream);
+                                       S* gB, int64_t T, int n, int k, S* scratch,
+                                       cudaStream_t stream);
 
 // K3 (k3_clearance.cuh). q [T, dof]; robot and spheres as K1; sdf
 // [nx, ny, nz] with every size >= 2 and fewer than 2^31 cells; ex: the

@@ -11,9 +11,12 @@ On a CUDA tensor the entry points (:func:`chol`, :func:`solve_lower`,
 (``csrc/k2_linalg.cuh``) through ``torch.autograd.Function``s whose backward
 passes are K2 launches too; on a CPU tensor they run the plain versions.
 K2 takes float64 (the island of a float32 session, and float64 sessions) and
-float32 (a session whose ``solve_dtype`` is float32) for ``n <=``
-:data:`KERNEL_MAX_N` (128): a warp's rows up to ``n = 32``, a block a matrix
-above. Another dtype, or a larger ``n``, raises on CUDA before any launch.
+float32 (a session whose ``solve_dtype`` is float32) at any ``n``: a warp's
+rows up to ``n = 32``, a block a matrix in shared memory up to
+:data:`KERNEL_BLOCK_MAX_N` (128), and above it a block a matrix whose lower
+tiles live in device memory (the streamed design; the extension allocates
+their scratch). Another dtype, or mixed dtypes, raise on CUDA before any
+launch.
 
 :func:`factor_solve` is the fused pair: the factorisation and the forward
 substitution of every right-hand side that shares the factor in one launch
@@ -29,7 +32,7 @@ import torch
 from vgpmp_torch import _build
 
 __all__ = [
-    "MAX_UNROLL", "KERNEL_MAX_N", "KERNEL_DTYPES",
+    "MAX_UNROLL", "KERNEL_BLOCK_MAX_N", "KERNEL_DTYPES",
     "cholesky_unrolled", "solve_lower_unrolled", "solve_upper_T_unrolled",
     "cho_solve_unrolled", "factor_solve_plain", "factor_solve_bwd_plain",
     "k2_chol", "k2_trsm", "k2_factor_solve", "k2_factor_solve_bwd",
@@ -37,24 +40,73 @@ __all__ = [
 ]
 
 MAX_UNROLL = 40   # plain path: unrolled up to here, torch.linalg beyond (CPU only)
-KERNEL_MAX_N = 128  # K2 (csrc/kernels.h:K2_MAX_N): what a block's shared memory holds in float64
+# K2's block design up to here (csrc/kernels.h:K2_BLOCK_MAX_N: what a block's
+# shared memory holds in float64), the streamed design above
+KERNEL_BLOCK_MAX_N = 128
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
-def k2_work(entry: str, n: int, k: int = 0) -> tuple[int, float]:
-    """What one matrix of a K2 entry must move and compute, the floor of its
-    bound: ``(values, operations)``. ``entry`` is ``chol``, ``trsm``, ``pair``
-    (the fused pair) or ``bwd`` (its backward); ``k`` the right-hand sides'
-    columns. A triangular input (K, L, dL) is read as its lower triangle, a
-    dense input (B, dX, X) once, and every output (L, X, dK, dB) written once
-    in full."""
+def k2_work(entry: str, n: int, k: int = 0, design: str = "floor") -> tuple[int, float]:
+    """What one matrix of a K2 entry moves and computes: ``(values,
+    operations)``. ``entry`` is ``chol``, ``trsm``, ``pair`` (the fused pair)
+    or ``bwd`` (its backward); ``k`` the right-hand sides' columns.
+
+    ``design="floor"``, the floor of the bound: a triangular input (K, L, dL)
+    is read as its lower triangle, a dense input (B, dX, X) once, and every
+    output (L, X, dK, dB) written once in full. ``design="streamed"``: the
+    values the streamed design (n > 128) reads and writes in device memory,
+    its scratch and the operand tiles it reads again included (32 x 32
+    tiles, whole); the same operations."""
     tri, sq, nk = n * (n + 1) // 2, n * n, n * k
-    return {"chol": (tri + sq, n ** 3 / 3),
-            "trsm": (tri + 2 * nk, n * n * k),
-            "pair": (tri + sq + 2 * nk, n ** 3 / 3 + n * n * k),
-            # one substitution of k columns, the lower half of dB X^T, L^T G
-            # and two substitutions of n columns
-            "bwd": (2 * tri + sq + 3 * nk, 2 * n * n * k + 7 * n ** 3 / 3)}[entry]
+    ops = {"chol": n ** 3 / 3, "trsm": n * n * k, "pair": n ** 3 / 3 + n * n * k,
+           # one substitution of k columns, the lower half of dB X^T, the
+           # lower half of L^T G, and L^-T Phi L^-1: Phi is symmetric, so this
+           # congruence (LAPACK's sygst) takes n^3, not two substitutions' 2n^3
+           "bwd": 2 * n * n * k + 4 * n ** 3 / 3}[entry]
+    if design == "floor":
+        return {"chol": tri + sq, "trsm": tri + 2 * nk, "pair": tri + sq + 2 * nk,
+                "bwd": 2 * tri + sq + 3 * nk}[entry], ops
+    return _streamed_values(entry, n, k), ops
+
+
+def _streamed_values(entry: str, n: int, k: int) -> int:
+    """The device-memory values of :func:`k2_work`'s ``design="streamed"``,
+    following the kernel's loops (``csrc/k2_linalg.cuh``, its streamed
+    section)."""
+    P, SG = 32, 3
+    tile, nb = P * P, -(-n // P)
+    nt = nb * (nb + 1) // 2
+
+    def chol():  # A's lower tiles in, to the scratch and to L; the K steps' operands
+        v = 2 * nt * tile + n * n
+        for J in range(nb):
+            below = nb - 1 - J
+            v += J * (max(1, -(-below // SG)) + below) * tile
+        return v
+
+    def solve(cols, ct):  # B in, X out; per column tile L's tiles, and X read back
+        return 2 * nb * P * cols + -(-cols // ct) * nt * tile + nb * (nb - 1) // 2 * P * cols
+
+    ct = min(-(-k // 16) * 16, 128)
+    if entry == "chol":
+        return chol()
+    if entry == "trsm":
+        return solve(k, ct)
+    if entry == "pair":
+        return chol() + solve(k, ct)
+    chunks = -(-k // P)
+    v = n * n + nt * tile + solve(k, ct)  # L into its tiles, dB = L^-T dX
+    for I in range(nb):  # G, then Phi, a group of four tiles of a block row at a time
+        for J0 in range(0, I + 1, 4):
+            ns = min(4, I + 1 - J0)
+            v += ns * tile + chunks * (1 + ns) * tile + ns * tile
+            v += (nb - I) * (1 + ns) * tile + ns * tile
+    for C in range(nb):  # Y's block columns, then their transposes into W
+        v += 2 * nb * tile + nt * tile + nb * (nb - 1) // 2 * tile + 2 * (C + 1) * tile
+    for J in range(nb):  # Z's block columns, from block row J down
+        m = nb - J
+        v += 3 * m * tile + m * (m - 1) * tile
+    return v + nt * tile + n * n  # dK
 
 
 # ----------------------------------------------------------------- plain versions
@@ -137,9 +189,8 @@ def factor_solve_bwd_plain(L: torch.Tensor, X: torch.Tensor, gL: torch.Tensor, g
 
 def _k2_checks(what: str, K: torch.Tensor, *others: torch.Tensor) -> None:
     """What K2 takes, checked before a launch: CUDA tensors of one dtype,
-    float32 or float64, and square matrices ``[T, n, n]`` with ``n <=``
-    :data:`KERNEL_MAX_N` (a failing check inside the extension can take the
-    process down)."""
+    float32 or float64, and square matrices ``[T, n, n]`` (a failing check
+    inside the extension can take the process down)."""
     if not K.is_cuda:
         raise ValueError(f"{what}: needs CUDA tensors, got one on {K.device}")
     if K.ndim != 3 or K.shape[1] != K.shape[2]:
@@ -148,14 +199,15 @@ def _k2_checks(what: str, K: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 def _count(fn, x: torch.Tensor) -> None:
-    """One launch of the K2 wrapper ``fn``, in all and by dtype."""
+    """One launch of the K2 wrapper ``fn``, in all, by dtype and by ``n``."""
     fn.launches += 1
-    key = str(x.dtype).removeprefix("torch.")
+    key, n = str(x.dtype).removeprefix("torch."), x.shape[-1]
     fn.launches_by[key] = fn.launches_by.get(key, 0) + 1
+    fn.launches_by_n[n] = fn.launches_by_n.get(n, 0) + 1
 
 
 def k2_chol(K: torch.Tensor) -> torch.Tensor:
-    """K2 Cholesky: ``K [T, n, n]`` float32 or float64 on CUDA, ``n <= 128``
+    """K2 Cholesky: ``K [T, n, n]`` float32 or float64 on CUDA, any ``n``
     -> lower ``L`` (NaN from a non-positive pivot on, in that matrix only)."""
     _k2_checks("k2_chol", K)
     L = _build.load().k2_chol(K)
@@ -166,7 +218,7 @@ def k2_chol(K: torch.Tensor) -> torch.Tensor:
 def k2_trsm(L: torch.Tensor, B: torch.Tensor, upper_t: bool) -> torch.Tensor:
     """K2 triangular solve: ``L X = B`` (``upper_t`` False) or ``Lᵀ X = B``
     (True), ``L [T, n, n]``, ``B [T, n, k]`` float32 or float64 on CUDA,
-    ``n <= 128``."""
+    any ``n``."""
     _k2_checks("k2_trsm", L, B)
     X = _build.load().k2_trsm(L, B, upper_t)
     _count(k2_trsm, L)
@@ -175,7 +227,7 @@ def k2_trsm(L: torch.Tensor, B: torch.Tensor, upper_t: bool) -> torch.Tensor:
 
 def k2_factor_solve(K: torch.Tensor, B: torch.Tensor):
     """K2 fused pair, forward: ``K [T, n, n]``, ``B [T, n, k]`` float32 or
-    float64 on CUDA, ``n <= 128`` -> ``(L, X = L⁻¹B)`` in one launch."""
+    float64 on CUDA, any ``n`` -> ``(L, X = L⁻¹B)`` in one launch."""
     _k2_checks("k2_factor_solve", K, B)
     L, X = _build.load().k2_factor_solve(K, B)
     _count(k2_factor_solve, K)
@@ -192,7 +244,7 @@ def k2_factor_solve_bwd(L: torch.Tensor, X: torch.Tensor, gL: torch.Tensor, gX: 
 
 
 for _fn in (k2_chol, k2_trsm, k2_factor_solve, k2_factor_solve_bwd):
-    _fn.launches, _fn.launches_by = 0, {}
+    _fn.launches, _fn.launches_by, _fn.launches_by_n = 0, {}, {}
 del _fn
 
 
@@ -255,17 +307,13 @@ class _TrsmFn(torch.autograd.Function):
 
 
 def _cuda_n(L: torch.Tensor, what: str, *others: torch.Tensor) -> int:
-    """The matrices' size, checked against K2's envelope before any launch
+    """The matrices' size, their dtypes checked against K2's before any launch
     (a failing check inside the extension can take the process down)."""
-    n = L.shape[-1]
-    if n > KERNEL_MAX_N:
-        raise ValueError(f"{what}: K2 takes n <= {KERNEL_MAX_N} on CUDA (the most a block's shared "
-                         f"memory holds in float64), got n={n}")
     for x in (L, *others):
         if x.dtype not in KERNEL_DTYPES or x.dtype != L.dtype:
             raise TypeError(f"{what}: K2 takes float32 or float64 tensors of one dtype on CUDA, got "
                             f"{L.dtype} and {x.dtype}")
-    return n
+    return L.shape[-1]
 
 
 def chol(K: torch.Tensor) -> torch.Tensor:
