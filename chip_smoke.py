@@ -123,6 +123,18 @@ Phases, any failure exits non-zero before the result line:
     on the same draws, and a scored round whose verdicts are held against
     the CPU plain path, K1 and K3 launched in float64.
 
+(u) mesh -> SDF, after (t): ``vgpmp_torch.sdf.gen.mesh_to_sdf`` on a
+    synthetic mesh with the industrial scene mesh's counts (23 closed convex
+    pieces, boxes and fan-capped prisms, overlapping, 422 triangles; made
+    from seed 0 by ``synthetic_mesh``) at the industrial grid's voxel edge
+    and a padding of 25 cells: 337 x 401 x 205 cells, voxelized by K5
+    (``csrc/k5_mesh_sdf.cuh``) and held against ``sdf_grid_plain`` on the
+    card (1e-6 m, the sign bit equal in every cell), timed beside the plain
+    version and the bound; then the grid as an object of a franka/industrial
+    session (``SceneBuilder.add_object(..., grid=...)``): a 20-step solve and
+    a scored round of 20 steps through the composed K1 and K3, every row
+    finite.
+
 (q) ``tools/diagnose_failures_torch.py`` on wam/industrial (seed 0, 3
     adaptive rounds): a classed row for each problem not executed, and the
     failure profile (the packed training lookup along the densified best
@@ -149,8 +161,8 @@ names its design, ``one-pass`` or ``split``, and its bound counts, in
 nearest mode, the neighbours of the hinge-active pairs only, with the count
 of every pair's neighbours beside it in the record; each K3 row names its
 design, ``one-grid`` on the base grid alone or ``culled`` on a scene with
-objects), and as
-the last line
+objects; and (u)'s K5, its bound counted over every (cell, triangle) pair
+and every (column, triangle) ray test), and as the last line
 ``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
 """
@@ -2467,7 +2479,19 @@ def parallel_phase(torch, sess, cpu, adaptive):
 
 
 def diagnose_phase(torch):
-    """(q) ``tools/diagnose_failures_torch.py`` on wam/industrial, seed 0, 3
+    """(u) mesh -> SDF, after (t): ``vgpmp_torch.sdf.gen.mesh_to_sdf`` on a
+    synthetic mesh with the industrial scene mesh's counts (23 closed convex
+    pieces, boxes and fan-capped prisms, overlapping, 422 triangles; made
+    from seed 0 by ``synthetic_mesh``) at the industrial grid's voxel edge
+    and a padding of 25 cells: 337 x 401 x 205 cells, voxelized by K5
+    (``csrc/k5_mesh_sdf.cuh``) and held against ``sdf_grid_plain`` on the
+    card (1e-6 m, the sign bit equal in every cell), timed beside the plain
+    version and the bound; then the grid as an object of a franka/industrial
+    session (``SceneBuilder.add_object(..., grid=...)``): a 20-step solve and
+    a scored round of 20 steps through the composed K1 and K3, every row
+    finite.
+
+(q) ``tools/diagnose_failures_torch.py`` on wam/industrial, seed 0, 3
     adaptive rounds: one row for each problem not executed, each classed, and
     the failure profile on the card against the CPU plain path on the same
     trajectories (the failures' and the first two rows')."""
@@ -3465,6 +3489,185 @@ def envelope_phase(torch, sess, flush, profiled=None, cpu=None):
                   "parity": parity, "k2": k2, "float64": f64, "trilinear_solve_launches": trilinear_launches}
 
 
+# (u) mesh -> SDF. The industrial scene's grid (vgpmp_tpu/assets/scenes/
+# industrial.json): its voxel edge and, with a padding of 25 cells, 337 x 401
+# x 205 cells for a mesh of 285.5 x 349.5 x 153.5 voxels; its mesh's 422
+# triangles in 23 pieces. MESH_AT places the mesh's centre in the
+# franka/industrial session as a grid object, at the arm's reach.
+MESH_DELTA = 0.0046848233333333334
+MESH_PADDING = 25
+MESH_DIMS = (337, 401, 205)
+MESH_PIECES, MESH_TRIS = 23, 422
+MESH_AT = (1.1, 0.0, 0.45)
+# the float64 operations that K5's bound counts: a (cell, triangle) pair at
+# the cheapest of Ericson's regions (ab, ac, ap, two dot products, the
+# squared length, the minimum), and a (column, triangle) ray test
+K5_PAIR_OPS, K5_RAY_OPS = 25, 20
+
+
+def synthetic_mesh(seed, pieces, tris, dims, delta, padding):
+    """A union of ``pieces`` closed convex pieces with ``tris`` triangles in
+    all: a third of them boxes (12 triangles), the rest prisms of 3 or more
+    sides whose caps are fans from a corner (4k - 4 triangles; where the count
+    needs it, the last prism's top cap a fan from its centre, 2 more), each
+    turned and placed at random (every third piece overlapping the one before
+    it), then scaled per axis so that the grid ``mesh_to_sdf`` sizes at
+    ``delta`` and ``padding`` has ``dims`` cells, centred on 0. Returns
+    ``(verts [V, 3] float64, tris [T, 3] int32, piece [T] int32)``."""
+    import numpy as np
+
+    from vgpmp_torch.sdf.gen import grid_dims
+
+    rng = np.random.default_rng(seed)
+    n_box = pieces // 3
+    n_prism = pieces - n_box
+    rest = tris - 12 * n_box
+    centre_cap = rest % 4 == 2
+    assert rest % 2 == 0 and n_prism >= 1, (pieces, tris)
+    total_k = (rest - 2 * centre_cap + 4 * n_prism) // 4
+    mean = round(total_k / n_prism)
+    assert 3 <= mean, (pieces, tris)
+    ks = rng.integers(max(3, mean - 2), mean + 3, size=n_prism)
+    while ks.sum() != total_k:  # one side more or fewer on a random prism, never below 3
+        i = rng.integers(n_prism)
+        ks[i] += 1 if ks.sum() < total_k else (-1 if ks[i] > 3 else 0)
+    sides = [0] * n_box + ks.tolist()
+    ext = (np.asarray(dims) - 1 - 2 * padding - 0.5) * delta
+    cube = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5) for z in (-0.5, 0.5)])
+    quads = ((0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3))
+    verts, faces, piece = [], [], []
+    centre = np.zeros(3)
+    for i, k in enumerate(sides):
+        size = rng.uniform(0.15, 0.4, 3) * ext
+        centre = (centre + rng.uniform(-0.3, 0.3, 3) * size if i % 3 == 2
+                  else rng.uniform(-0.5, 0.5, 3) * ext)
+        if k == 0:
+            v = cube
+            f = [t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))]
+        else:
+            ang = rng.uniform(0, 2 * np.pi) + 2 * np.pi * np.arange(k) / k
+            ring = 0.5 * np.stack([np.cos(ang), np.sin(ang)], axis=1)
+            v = np.concatenate([np.c_[ring, np.full(k, -0.5)], np.c_[ring, np.full(k, 0.5)]])
+            f = [t for j in range(k) for t in ((j, (j + 1) % k, k + (j + 1) % k), (j, k + (j + 1) % k, k + j))]
+            f += [(0, j + 1, j) for j in range(1, k - 1)]
+            if centre_cap and i == len(sides) - 1:
+                v = np.concatenate([v, [[0.0, 0.0, 0.5]]])
+                f += [(2 * k, k + j, k + (j + 1) % k) for j in range(k)]
+            else:
+                f += [(k, k + j, k + j + 1) for j in range(1, k - 1)]
+        rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        faces += [[a + len(verts) for a in t] for t in f]
+        verts += list((v * size) @ rot.T + centre)
+        piece += [i] * len(f)
+    verts = np.asarray(verts)
+    lo, hi = verts.min(axis=0), verts.max(axis=0)
+    verts = -0.5 * ext + (verts - lo) * (ext / (hi - lo))
+    out = verts, np.asarray(faces, dtype=np.int32), np.asarray(piece, dtype=np.int32)
+    assert len(out[1]) == tris and grid_dims(verts, delta, padding=padding)[2] == tuple(dims)
+    return out
+
+
+def mesh_sdf_phase(torch, sess, flush, dims=MESH_DIMS, steps: int = 20):
+    """(u) the port's ``mesh_to_sdf`` on the card: a synthetic mesh with the
+    industrial mesh's counts voxelized at its grid by K5 (the main path:
+    ``launches`` counted over that call alone), held against
+    ``sdf_grid_plain`` on the card (1e-6 m, the sign equal in every cell),
+    timed beside the plain version and the bound; then the grid as an object
+    in a franka/industrial session: a ``steps``-step solve and a scored round
+    of as many steps, through the composed K1 and K3, every row finite."""
+    import numpy as np
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.scene import SceneBuilder
+    from vgpmp_torch.sdf import gen
+    from vgpmp_torch.sdf.grid import SdfGrid
+    from vgpmp_torch.session import PlanningSession
+    from vgpmp_torch.timing import time_ms
+
+    t_phase = time.perf_counter()
+    verts, tris, piece = synthetic_mesh(0, MESH_PIECES, MESH_TRIS, dims, MESH_DELTA, MESH_PADDING)
+    gen.k5_mesh_sdf.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, origin, delta = gen.mesh_to_sdf(verts, tris, piece, delta=MESH_DELTA, padding=MESH_PADDING)
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    launches = gen.k5_mesh_sdf.launches
+    assert tuple(data.shape) == tuple(dims) and launches == 1, (tuple(data.shape), launches)
+
+    dev = data.device
+    args = (torch.as_tensor(verts, device=dev), torch.as_tensor(tris, device=dev),
+            torch.as_tensor(piece, device=dev), origin, delta, dims)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    plain = gen.sdf_grid_plain(*args)
+    e.record()
+    e.synchronize()
+    plain_ms = s.elapsed_time(e)
+    err = (data - plain).abs().max().item()
+    differ = int((data != plain).sum())
+    signs = int((torch.signbit(data) != torch.signbit(plain)).sum())
+    inside = int((data < 0).sum())
+    ms = time_ms(lambda: gen.k5_mesh_sdf(*args), reps=5, flush=flush)
+    cells, T = data.numel(), len(tris)
+    pairs, rays = cells * T, (dims[1] * dims[2]) * T
+    b_ms, b_by = bound_ms(cells * 4 + T * (9 * 8 + 4), pairs * K5_PAIR_OPS + rays * K5_RAY_OPS, F64_FLOPS)
+    log(f"(u) mesh_to_sdf on the card: a synthetic mesh of {MESH_PIECES} convex pieces, {T} triangles, at "
+        f"delta {delta} with padding {MESH_PADDING}: grid {tuple(data.shape)} ({cells} cells), inside "
+        f"{inside}; K5 launches {launches}, the call {t_main:.3f} s")
+    log(f"    K5 against sdf_grid_plain on the card: max |d| {err:.3e} m (<= 1e-6), cells that differ {differ}, "
+        f"signs that differ {signs}; K5 {ms:.3f} ms (L2 flushed, 5 calls), plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.3f} ms by {b_by} ({pairs} pairs, every (cell, triangle) pair evaluated, at {K5_PAIR_OPS} "
+        f"float64 operations a pair, and {rays} ray tests at {K5_RAY_OPS}; output {cells * 4} bytes)")
+    assert err <= 1e-6 and signs == 0, (err, signs)
+    assert 0 < inside < cells, inside
+
+    # the generated grid as an object in a franka/industrial session
+    grid = SdfGrid(data=data, origin=torch.as_tensor(origin, dtype=torch.float32, device=dev),
+                   delta=torch.tensor(delta, dtype=torch.float32, device=dev))
+    b = SceneBuilder(base=sess.sdf, base_offset=sess.scene_offset, dtype=torch.float32, device=dev)
+    b.add_object("mesh", MESH_AT, grid=grid)
+    sc = b.build()
+    msess = PlanningSession("franka", "industrial", extra_grids=sc.extra_grids, extra_offsets=sc.extra_offsets,
+                            device=dev, dtype=torch.float32)
+    starts, goals = msess.queries()
+    pp, B = msess.planner_params, len(starts)
+    cfg = dataclasses.replace(msess.train_config, num_steps=steps)
+    params = planner.init_params_batch(msess.model, starts, goals, [0] * B, 0.5 * (starts + goals),
+                                       pp["lengthscales"], pp["variance"], pp["sigma_obs"], pp["alpha"])
+    counters = (col.k1_loglik, col.k3_min_clearance, col.k3_probe_clearance)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, res = solver.make_batch_solver(msess.model, cfg)(params, starts, goals,
+                                                         torch.Generator(device=dev).manual_seed(5))
+    best, rep = solver.make_round_solver(msess.model, cfg)(params, starts, goals,
+                                                           torch.Generator(device=dev).manual_seed(6))
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    on_path = {c.__name__: c.launches for c in counters}
+    executed = int(rep.executed.sum())
+    e = res.elbo_history
+    log(f"    the grid at {MESH_AT} in a franka/industrial session: a {steps}-step solve and a scored round "
+        f"at B = {B} in {t_solve:.2f} s, launches {on_path}, ELBO mean {e[:, 0].mean().item():.4g} -> "
+        f"{e[:, -1].mean().item():.4g}, executed {executed}/{B}, smallest clearance "
+        f"{rep.min_clearance.min().item():.4f} m; (u) took {time.perf_counter() - t_phase:.1f} s")
+    assert all(v > 0 for v in on_path.values()), f"a kernel was not launched: {on_path}"
+    assert torch.isfinite(e).all() and torch.isfinite(res.best).all() and torch.isfinite(best).all()
+    for name, v in rep._asdict().items():
+        assert v.shape == (B,) and torch.isfinite(v.float()).all(), f"report field {name}: {v}"
+    row = {"name": "k5_mesh_sdf", "route": "cuda", "source": "vgpmp_torch/csrc/k5_mesh_sdf.cuh",
+           "replaces": "vgpmp_tpu/native/sdfgen.cpp:91", "launches": launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "shape": [*dims, T], "pairs": pairs, "ray_tests": rays}
+    return row, {"grid": list(dims), "triangles": T, "pieces": MESH_PIECES, "delta": delta,
+                 "origin": [float(o) for o in origin], "inside_cells": inside, "cells_differ": differ,
+                 "signs_differ": signs, "mesh_to_sdf_s": t_main, "solve_and_round_s": t_solve,
+                 "launches": on_path, "executed": executed, "phase_s": time.perf_counter() - t_phase}
+
 
 def main() -> int:
     import torch
@@ -3534,6 +3737,10 @@ def main() -> int:
     flush = l2_flush_buffer(sess.device)
     envelope_rows, envelope = envelope_phase(torch, sess, flush, profiled, cpu)
     del flush
+    log("(u) mesh -> SDF on the card (K5)")
+    flush = l2_flush_buffer(sess.device)
+    k5, mesh_sdf = mesh_sdf_phase(torch, sess, flush)
+    del flush
     t0 = time.perf_counter()
     diagnosed = diagnose_phase(torch)
     scaling = scaling_phase(torch)
@@ -3572,11 +3779,11 @@ def main() -> int:
     keys = ("name", "design", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "velocity")
     kernels = [{k: v for k, v in d.items() if k in keys}
-               for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows]]
+               for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows, k5]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
     record = {"card": smi, "build_s": secs,
-              "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows],
-              "objects": objects, "envelope": envelope,
+              "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows, k5],
+              "objects": objects, "envelope": envelope, "mesh_sdf": mesh_sdf,
               "k2_errors": k2_errs, "combos": combos, "trainable": trainable, "randomized": randomized,
               "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,

@@ -14,6 +14,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module's tests (autouse where imported): the
+    plain voxelizer's thousands of small operations each fork a team of
+    threads, and on a busy host a descheduled thread stalls every one of
+    them (140 s against 2.5 s for a 40-piece mesh)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def cube_mesh():
+    """The unit cube centred on 0: 8 vertices, 12 triangles, one piece."""
+    v = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5) for z in (-0.5, 0.5)], dtype=np.float64)
+    quads = ((0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3))
+    tris = np.asarray([t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))], dtype=np.int32)
+    return v, tris, np.zeros(len(tris), dtype=np.int32)
+
+
+def two_cubes_mesh(scale=(1.0, 1.0, 1.0)):
+    """Two unit cubes overlapping over 0.6 of their x extent, a piece each,
+    scaled per axis by ``scale``."""
+    v, t, _ = cube_mesh()
+    return (np.concatenate([v, v + [0.4, 0.0, 0.0]]) * np.asarray(scale), np.concatenate([t, t + 8]).astype(np.int32),
+            np.repeat(np.arange(2, dtype=np.int32), len(t)))
+
+
 def smooth_grid(rng, shape, scale=0.3):
     """A random smooth signed-distance-like field with exact zeros and bf16
     rounding ties planted in it."""

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_support import (cuda_device, mc40_grams, real_grams, smooth_grid, source_wins,  # noqa: F401
-                            torch_scene_with_objects)
+from _torch_support import (cube_mesh, cuda_device, mc40_grams, real_grams, smooth_grid, source_wins,  # noqa: F401
+                            torch_scene_with_objects, two_cubes_mesh)
 from vgpmp_torch import robots, scene
 from vgpmp_torch.kinematics import dh
 from vgpmp_torch.likelihoods import collision as col
@@ -1417,3 +1417,56 @@ def test_k3_composed_both_entries_on_card(robot, dtype, cuda_device):
     assert torch.isnan(col.min_clearance_eval_plain(zmodel, q)).all()
     zclear, zcount = zmodel.probe_clearance(qs, *args)
     assert torch.isnan(zclear).all() and zcount.sum() == 0
+
+
+def _k5_synthetic(seed, pieces, tris, dims, delta, padding):
+    import chip_smoke
+
+    return chip_smoke.synthetic_mesh(seed, pieces, tris, dims, delta, padding)
+
+
+# name -> (mesh, delta, padding): the cube; 40 pieces and 640 triangles (more
+# than a shared-memory tile of K5); 4 000 triangles (nine tiles); the smoke's
+# mesh counts (23 pieces, 422 triangles) on a smaller grid; two cubes
+# stretched along x, whose columns take two blocks
+K5_MESHES = {
+    "cube": (cube_mesh, 0.03, 4),
+    "forty_pieces_tiled": (lambda: _k5_synthetic(1, 40, 640, (60, 52, 36), 0.025, 3), 0.025, 3),
+    "nine_tiles": (lambda: _k5_synthetic(3, 150, 4000, (40, 44, 30), 0.03, 2), 0.03, 2),
+    "smoke_counts": (lambda: _k5_synthetic(0, 23, 422, (85, 101, 52), 0.0187, 6), 0.0187, 6),
+    "two_blocks_a_column": (lambda: two_cubes_mesh((4.0, 0.1, 0.1)), 0.01, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K5_MESHES))
+def test_k5_matches_plain_on_card(name, cuda_device):
+    """K5 through ``mesh_to_sdf`` on the card against the plain version on the
+    same device: 1e-6 m (float64 inside, FMAs contracted on the card), the
+    sign bit equal in every cell, one launch a call."""
+    from vgpmp_torch.sdf import gen
+
+    make, delta, padding = K5_MESHES[name]
+    verts, tris, piece = make()
+    before = gen.k5_mesh_sdf.launches
+    data, origin, delta = gen.mesh_to_sdf(verts, tris, piece, delta=delta, padding=padding)
+    torch.cuda.synchronize()
+    assert gen.k5_mesh_sdf.launches == before + 1
+    assert data.is_cuda and data.dtype == torch.float32
+    t = [torch.as_tensor(x, device=cuda_device) for x in (verts, tris, piece)]
+    plain = gen.sdf_grid_plain(*t, origin, delta, data.shape)
+    assert torch.isfinite(data).all()
+    assert (data - plain).abs().max().item() <= 1e-6
+    assert torch.equal(torch.signbit(data), torch.signbit(plain))
+    assert 0 < int((data < 0).sum()) < data.numel()
+
+
+@pytest.mark.cuda
+def test_k5_refuses_what_it_does_not_take(cuda_device):
+    from vgpmp_torch.sdf import gen
+
+    verts, tris, piece = (torch.as_tensor(x, device=cuda_device) for x in cube_mesh())
+    with pytest.raises(ValueError, match="T >= 1"):
+        gen.k5_mesh_sdf(verts, tris[:0], piece[:0], (0.0, 0.0, 0.0), 0.1, (4, 4, 4))
+    with pytest.raises(ValueError, match="dims"):
+        gen.k5_mesh_sdf(verts, tris, piece, (0.0, 0.0, 0.0), 0.1, (4, 0, 4))

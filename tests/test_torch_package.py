@@ -36,7 +36,7 @@ PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" 
                 ROOT / "tools" / "tune_execution_torch.py"]
 PORT_TOOLS = ["tools/diagnose_failures_torch.py", "tools/batch_scaling_torch.py",
               "tools/profile_breakdown_torch.py", "tools/gram_bench_torch.py",
-              "tools/profiler_drops_torch.py"]
+              "tools/profiler_drops_torch.py", "tools/gen_scene_sdfs_torch.py", "tools/gen_extents_torch.py"]
 PORT_SCRIPTS += [ROOT / t for t in PORT_TOOLS]
 NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.ops.gather",
                "vgpmp_torch.timing", "vgpmp_torch.convert", "vgpmp_torch.engine.solver",
@@ -44,7 +44,8 @@ NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.o
                "vgpmp_torch.gp.velocity", "vgpmp_torch.engine.replan", "vgpmp_torch.engine.repl",
                "vgpmp_torch.utils.checkpoint", "vgpmp_torch.utils.profiling",
                "vgpmp_torch.parallel.mesh", "vgpmp_torch.parallel.sharded", "vgpmp_torch.parallel.multihost",
-               "vgpmp_torch.likelihoods.collision", "vgpmp_torch.ops.linalg", "vgpmp_torch._build"]
+               "vgpmp_torch.likelihoods.collision", "vgpmp_torch.ops.linalg", "vgpmp_torch._build",
+               "vgpmp_torch.sdf.gen", "vgpmp_torch.kinematics.urdf"]
 
 
 def test_port_imports_no_jax_package():
@@ -88,6 +89,44 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         PlanningSession("franka", "industrial")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_to_sdf_raises_without_cuda(monkeypatch, tmp_path):
+    """``mesh_to_sdf`` and the scene tool voxelize on the card unless asked
+    for the CPU; there is no host voxelizer to fall back to."""
+    from vgpmp_torch.sdf.gen import mesh_to_sdf
+
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import gen_scene_sdfs_torch
+
+    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], dtype=np.float64)
+    tris = np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]], dtype=np.int32)
+    piece = np.zeros(4, dtype=np.int32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_to_sdf(verts, tris, piece, dim=4, padding=1)
+    data, origin, delta = mesh_to_sdf(verts, tris, piece, dim=4, padding=1, device="cpu")
+    assert data.device.type == "cpu" and tuple(data.shape) == (7, 7, 7) and delta == 0.25
+    obj = tmp_path / "scenes" / "boxes" / "boxes-acd.obj"
+    obj.parent.mkdir(parents=True)
+    obj.write_text("o t\n" + "".join(f"v {x} {y} {z}\n" for x, y, z in verts)
+                   + "".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in tris))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gen_scene_sdfs_torch.main(["--data-dir", str(tmp_path), "--out-dir", str(tmp_path / "out"),
+                                   "--scenes", "boxes", "--dim", "4", "--padding", "1"])
+    assert not (tmp_path / "out").exists()
+
+
+def test_every_kernel_source_is_built_into_an_ignored_directory():
+    """``_build.SOURCES`` names every kernel source (K5 among them) and builds
+    into ``build/kernels``, which git ignores."""
+    from vgpmp_torch import _build
+
+    csrc = ROOT / "vgpmp_torch" / "csrc"
+    assert {p.name for p in csrc.glob("k*.cu")} | {"bindings.cpp"} == set(_build.SOURCES)
+    assert "k5_mesh_sdf.cu" in _build.SOURCES and (csrc / "k5_mesh_sdf.cuh").exists()
+    assert _build.BUILD_DIR == ROOT / "build" / "kernels"
+    assert {"build/", "build"} & set((ROOT / ".gitignore").read_text().split())
 
 
 def test_gather_benchmark_raises_without_cuda(monkeypatch):

@@ -504,6 +504,33 @@ at::Tensor k4_gather(const at::Tensor& table, const at::Tensor& idx) {
   return out;
 }
 
+// tri [T, 9] float64 (vertices a, b, c of each triangle, each piece's
+// triangles one run), piece [T] int32; the grid's origin, voxel edge and
+// shape -> [nx, ny, nz] float32 signed distances (the Python wrapper,
+// sdf/gen.py:k5_mesh_sdf, sorts by piece and checks the shapes first)
+at::Tensor k5_mesh_sdf(const at::Tensor& tri, const at::Tensor& piece, std::vector<double> origin,
+                       double delta, std::vector<int64_t> dims) {
+  const char* what = "k5_mesh_sdf";
+  check(tri, at::kDouble, 2, what, "tri");
+  check(piece, at::kInt, 1, what, "piece");
+  same_device(tri, piece, what);
+  const int64_t T = tri.size(0);
+  TORCH_CHECK_VALUE(T >= 1 && tri.size(1) == 9 && piece.size(0) == T, what, ": tri ",
+                    shape_str(tri), " and piece ", shape_str(piece), " are not [T, 9] and [T]");
+  TORCH_CHECK_VALUE(origin.size() == 3 && dims.size() == 3, what,
+                    ": origin and dims must have 3 entries");
+  const int64_t nx = dims[0], ny = dims[1], nz = dims[2];
+  TORCH_CHECK_VALUE(nx >= 1 && ny >= 1 && nz >= 1 && nx < (1LL << 31) && ny < (1LL << 31) &&
+                        nz < (1LL << 31),
+                    what, ": each of dims must lie in [1, 2^31)");
+  const c10::cuda::CUDAGuard guard(tri.device());
+  auto out = at::empty({nx, ny, nz}, tri.options().dtype(at::kFloat));
+  const K5Grid g{origin[0], origin[1], origin[2], delta, (int)nx, (int)ny, (int)nz};
+  C10_CUDA_CHECK(k5_mesh_sdf_launch(tri.data_ptr<double>(), piece.data_ptr<int32_t>(), T, g,
+                                    out.data_ptr<float>(), at::cuda::getCurrentCUDAStream()));
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -523,4 +550,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("k3_probe_clearance", &k3_probe_clearance,
         "K3 with the metric's tapered-floor compare and per-segment count; (clear, seg_count)");
   m.def("k4_gather", &k4_gather, "K4: out[i] = table[idx[i]] for 4-byte or 8-byte entries");
+  m.def("k5_mesh_sdf", &k5_mesh_sdf,
+        "K5: a triangle soup's signed-distance grid (exact distance, per-piece ray parity)");
 }

@@ -151,3 +151,15 @@ cudaError_t k3_probe_clearance_launch(const S* q, const S* robot, const S* spher
 // to that); idx [n] int32, clamped to the table; out [n] entries.
 cudaError_t k4_gather_launch(const void* table, const int32_t* idx, void* out, int64_t n,
                              int64_t ncells, int entry_bytes, cudaStream_t stream);
+
+// K5 (k5_mesh_sdf.cuh): a triangle soup's signed-distance grid. Cell (ix,
+// iy, iz) lies at origin + delta * (ix, iy, iz); out [nx, ny, nz] float32.
+struct K5Grid {
+  double ox, oy, oz;
+  double delta;
+  int nx, ny, nz;
+};
+// tri [T, 9] float64 (each triangle's vertices a, b, c), piece [T] int32,
+// sorted so that each piece's triangles are one run; T >= 1, any count.
+cudaError_t k5_mesh_sdf_launch(const double* tri, const int32_t* piece, int64_t T, K5Grid g,
+                               float* out, cudaStream_t stream);
