@@ -7,7 +7,9 @@ The optimiser is written out (:class:`BatchedAdam`) because its divergence
 guard must act per problem row, with a step count per row, exactly as
 ``_guarded_step`` does under ``vmap``. Each step is labelled for
 ``torch.profiler`` (``elbo_forward``, ``elbo_backward``, ``adam_update``,
-then ``extract``); the labels cost nothing while no profiler runs.
+then ``extract``), and the model's stages inside ``elbo_forward`` carry
+their own (``model.*``, :mod:`vgpmp_torch.models.vgpmp`); while no profiler
+runs a label costs under a microsecond (:func:`vgpmp_torch.utils.profiling.span`).
 :func:`make_resumable_solver` splits a solve into ``init_state``, chunks of
 steps on a checkpointable :class:`TrainState` and ``extract``;
 :func:`make_batch_solver` is those three with one chunk, so both run one step
@@ -26,13 +28,13 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from vgpmp_torch.convert import report_to_numpy
 from vgpmp_torch.engine.validator import ValidationReport, _min_sphere_clearance, execute_and_validate
 from vgpmp_torch.gp.pathwise import PathNoise
 from vgpmp_torch.kinematics.dh import ee_positions
 from vgpmp_torch.models import vgpmp as planner
+from vgpmp_torch.utils.profiling import span
 
 __all__ = ["TrainConfig", "SolveResult", "SolveNoise", "BatchedAdam", "TrainState", "default_trainable",
            "lr_schedule", "random_timesteps", "make_single_solver", "make_batch_solver",
@@ -289,7 +291,7 @@ def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
             for k in grad_leaves:
                 getattr(p, k).requires_grad_(True)
             step_noise = noise.steps[j] if noise is not None else None
-            with record_function("elbo_forward"):
+            with span("elbo_forward"):
                 if cfg.log_level >= 1:
                     value, aux = planner.elbo_with_aux(p, model, starts, goals, state.X_train,
                                                        generator, step_noise, sigma_scale(i),
@@ -299,10 +301,11 @@ def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
                     value = planner.elbo(p, model, starts, goals, state.X_train, generator,
                                          step_noise, sigma_scale(i), sample_group)
                 if state.anchors is not None:
-                    value = value + log_prior(p, state.anchors)
-            with record_function("elbo_backward"):
+                    with span("model.kl"):
+                        value = value + log_prior(p, state.anchors)
+            with span("elbo_backward"):
                 gl = torch.autograd.grad(-value.sum(), [getattr(p, k) for k in grad_leaves])
-            with record_function("adam_update"):
+            with span("adam_update"):
                 g = dict(zip(grad_leaves, gl))
                 grads = planner.PlannerParams(**{
                     k: (g[k] if k in g else torch.zeros_like(v)) * getattr(mask, k)
@@ -319,7 +322,7 @@ def make_resumable_solver(model: planner.PlannerModel, cfg: TrainConfig,
                 noise: Optional[SolveNoise] = None,
                 elbo_history: Optional[torch.Tensor] = None) -> SolveResult:
         starts, goals = as_t(starts), as_t(goals)
-        with torch.no_grad(), record_function("extract"):
+        with torch.no_grad(), span("extract"):
             mean, best, samples, scores = planner.sample_from_posterior(
                 state.params, model, starts, goals, Xnew, cfg.num_posterior_samples, generator,
                 noise.posterior if noise is not None else None, sample_group=sample_group)
@@ -425,7 +428,7 @@ def make_round_solver(model: planner.PlannerModel, cfg: TrainConfig,
         starts = torch.as_tensor(starts, dtype=model.dtype, device=model.device)
         goals = torch.as_tensor(goals, dtype=model.dtype, device=model.device)
         _, res = solve_batch(params, starts, goals, generator, noise)
-        with torch.no_grad(), record_function("validate"):
+        with torch.no_grad(), span("validate"):
             reports = execute_and_validate(model.collision, res.best, starts, goals,
                                            model.limits_low, model.limits_high)
         return res.best, reports
@@ -467,7 +470,7 @@ def make_ensemble_solver(model: planner.PlannerModel, cfg: TrainConfig,
         if noise is not None:
             noise = _flatten_noise(noise, K, B)
         _, res = solve_batch(params, starts, goals, generator, noise)
-        with torch.no_grad(), record_function("validate"):
+        with torch.no_grad(), span("validate"):
             reps = execute_and_validate(model.collision, res.best, starts, goals,
                                         model.limits_low, model.limits_high)
         score = ensemble_score(reps.executed, reps.success, reps.min_clearance).reshape(K, B)
@@ -641,6 +644,31 @@ def _round_seed(seed: int, rnd: int) -> int:
     return int(np.random.SeedSequence((seed, rnd)).generate_state(1)[0])
 
 
+def _restart_modes(slot_prob: np.ndarray, counters: np.ndarray, inits: Tuple[str, ...],
+                   seed: int) -> Tuple[List[str], bool]:
+    """The init mode of each restart slot, counting each problem's restarts in
+    ``counters``: the first few configured inits, then detours in turn with
+    the rest. Also whether a detour, which needs its anchor, was chosen."""
+    modes = []
+    need_anchor = False
+    head = min(len(inits), 4)
+    for p_idx in slot_prob:
+        r = int(counters[p_idx])
+        if r < head:
+            modes.append(inits[r])
+        else:
+            extra = r - head
+            if extra % 2 == 0:
+                # unique per (restart index, run seed)
+                modes.append(f"detour{1000 + 101 * seed + r}")
+                need_anchor = True
+            else:
+                rest = head + extra // 2
+                modes.append(inits[rest] if rest < len(inits) else f"frand{1000 + 101 * seed + r}")
+        counters[p_idx] += 1
+    return modes, need_anchor
+
+
 def solve_adaptive(model: planner.PlannerModel, cfg: TrainConfig, starts: np.ndarray,
                    goals: np.ndarray, planner_params: dict,
                    inits: Tuple[str, ...] = ("linear", "zeros"), max_rounds: int = 6,
@@ -665,6 +693,10 @@ def solve_adaptive(model: planner.PlannerModel, cfg: TrainConfig, starts: np.nda
     Round ``rnd`` draws from one generator on the model's device seeded from
     ``(seed, rnd)``, so one seed gives one result.
 
+    Each round is labelled ``round`` for ``torch.profiler``, and within it
+    the slot choice and the restarts' initial state ``round.select``, the
+    copies of its answers to the host ``round.fetch``.
+
     Returns ``(best [B, Nnew, L] np.ndarray, reports, info)``: a
     :class:`ValidationReport` of numpy fields, and ``info = {"rounds",
     "spent", "k_eff", "restarts_per_problem"}``.
@@ -686,67 +718,52 @@ def solve_adaptive(model: planner.PlannerModel, cfg: TrainConfig, starts: np.nda
     best_traj = best_score = merged = None
     spent = rounds = 0
     for rnd in range(max_rounds):
-        anchors = None
-        if rnd == 0:
-            slot_prob = np.arange(B)
-            modes = [inits[0]] * B
-            counters[:] = 1
-        else:
-            unsolved = np.nonzero(~merged["executed"])[0]
-            if unsolved.size == 0:
-                break
-            want = min(unsolved.size * slots_per_unsolved, round_sizes[0])
-            C = next((c for c in sorted(round_sizes) if c >= want), round_sizes[0])
-            slot_prob = unsolved[(np.arange(C) + rnd * C) % unsolved.size]
-            modes = []
-            need_anchor = False
-            # the first few configured inits, then detours in turn with the rest
-            head = min(len(inits), 4)
-            for p_idx in slot_prob:
-                r = int(counters[p_idx])
-                if r < head:
-                    modes.append(inits[r])
+        unsolved = np.nonzero(~merged["executed"])[0] if rnd else None
+        if rnd and unsolved.size == 0:
+            break
+        with span("round"):
+            with span("round.select"):
+                anchors = None
+                if rnd == 0:
+                    slot_prob = np.arange(B)
+                    modes = [inits[0]] * B
+                    counters[:] = 1
                 else:
-                    extra = r - head
-                    if extra % 2 == 0:
-                        # unique per (restart index, run seed)
-                        modes.append(f"detour{1000 + 101 * seed + r}")
-                        need_anchor = True
-                    else:
-                        rest = head + extra // 2
-                        modes.append(inits[rest] if rest < len(inits)
-                                     else f"frand{1000 + 101 * seed + r}")
-                counters[p_idx] += 1
-            if need_anchor:
-                anchors = worst_violation_configs(model.collision, best_traj[slot_prob])
-        params = init_slots(model, starts[slot_prob], goals[slot_prob], planner_params, modes,
-                            anchors=anchors)
-        gen = torch.Generator(device=model.device).manual_seed(_round_seed(seed, rnd))
-        best_r, reps_r = solve(params, starts[slot_prob], goals[slot_prob], gen)
-        spent += len(slot_prob)
-        rounds += 1
-        reps_r = report_to_numpy(reps_r)
-        best_r = best_r.detach().cpu().numpy()
-        score_r = ensemble_score(reps_r["executed"], reps_r["success"],
-                                 reps_r["min_clearance"]).numpy().astype(np.float64)
-        if merged is None:
-            best_traj, best_score = best_r.copy(), score_r
-            merged = {k: None if v is None else v.copy() for k, v in reps_r.items()}
-            continue
-        # ascending score, so that each problem's best slot lands last
-        prob_best: dict = {}
-        for j in np.argsort(score_r, kind="stable"):
-            prob_best[int(slot_prob[j])] = int(j)
-        probs = np.fromiter(prob_best.keys(), dtype=int)
-        slots = np.fromiter(prob_best.values(), dtype=int)
-        improve = score_r[slots] > best_score[probs]
-        up, us = probs[improve], slots[improve]
-        if up.size:
-            best_score[up] = score_r[us]
-            best_traj[up] = best_r[us]
-            for k, m in merged.items():
-                if m is not None:
-                    m[up] = reps_r[k][us]
+                    want = min(unsolved.size * slots_per_unsolved, round_sizes[0])
+                    C = next((c for c in sorted(round_sizes) if c >= want), round_sizes[0])
+                    slot_prob = unsolved[(np.arange(C) + rnd * C) % unsolved.size]
+                    modes, need_anchor = _restart_modes(slot_prob, counters, inits, seed)
+                    if need_anchor:
+                        anchors = worst_violation_configs(model.collision, best_traj[slot_prob])
+                params = init_slots(model, starts[slot_prob], goals[slot_prob], planner_params, modes,
+                                    anchors=anchors)
+            gen = torch.Generator(device=model.device).manual_seed(_round_seed(seed, rnd))
+            best_r, reps_r = solve(params, starts[slot_prob], goals[slot_prob], gen)
+            spent += len(slot_prob)
+            rounds += 1
+            with span("round.fetch"):
+                reps_r = report_to_numpy(reps_r)
+                best_r = best_r.detach().cpu().numpy()
+                score_r = ensemble_score(reps_r["executed"], reps_r["success"],
+                                         reps_r["min_clearance"]).numpy().astype(np.float64)
+            if merged is None:
+                best_traj, best_score = best_r.copy(), score_r
+                merged = {k: None if v is None else v.copy() for k, v in reps_r.items()}
+                continue
+            # ascending score, so that each problem's best slot lands last
+            prob_best: dict = {}
+            for j in np.argsort(score_r, kind="stable"):
+                prob_best[int(slot_prob[j])] = int(j)
+            probs = np.fromiter(prob_best.keys(), dtype=int)
+            slots = np.fromiter(prob_best.values(), dtype=int)
+            improve = score_r[slots] > best_score[probs]
+            up, us = probs[improve], slots[improve]
+            if up.size:
+                best_score[up] = score_r[us]
+                best_traj[up] = best_r[us]
+                for k, m in merged.items():
+                    if m is not None:
+                        m[up] = reps_r[k][us]
     info = {"rounds": rounds, "spent": spent, "k_eff": spent / B,
             "restarts_per_problem": counters.tolist()}
     return best_traj, ValidationReport(**merged), info

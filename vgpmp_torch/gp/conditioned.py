@@ -13,6 +13,7 @@ from typing import Callable
 import torch
 
 from vgpmp_torch.ops import linalg
+from vgpmp_torch.utils.profiling import span
 
 __all__ = ["zy", "grid_rows", "kuu", "kuf", "cholesky_kuu"]
 
@@ -63,19 +64,22 @@ def cholesky_kuu(kernel: KernelFn, ny, Z, lengthscales, variance, jitter: float 
     ``escalations``: where a factor comes out non-finite, retry with 10x
     (then 100x, ...) jitter, selected per latent row. ``with_info`` also
     returns, per problem (int32 ``[...]``), the number of latent rows that
-    needed at least one escalation.
+    needed at least one escalation. The Gram's build runs under the
+    ``torch.profiler`` label ``model.gram``, its factor under ``model.k2``.
     """
-    K = kuu(kernel, ny, Z, lengthscales, variance, jitter=jitter, solve_dtype=solve_dtype)
-    chol = linalg.chol(K)
-    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-    ever_bad = torch.zeros(K.shape[:-2], dtype=torch.bool, device=K.device)
-    for e in range(escalations):
-        bad = ~torch.isfinite(chol).all(dim=-1).all(dim=-1)
-        ever_bad = ever_bad | bad
-        K_retry = K + (10.0 ** (e + 1)) * jitter * eye
-        chol_retry = linalg.chol(K_retry)
-        chol = torch.where(bad[..., None, None], chol_retry, chol)
-        K = torch.where(bad[..., None, None], K_retry, K)
-    if with_info:
-        return K, chol, ever_bad.to(torch.int32).sum(dim=-1)
+    with span("model.gram"):
+        K = kuu(kernel, ny, Z, lengthscales, variance, jitter=jitter, solve_dtype=solve_dtype)
+    with span("model.k2"):
+        chol = linalg.chol(K)
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+        ever_bad = torch.zeros(K.shape[:-2], dtype=torch.bool, device=K.device)
+        for e in range(escalations):
+            bad = ~torch.isfinite(chol).all(dim=-1).all(dim=-1)
+            ever_bad = ever_bad | bad
+            K_retry = K + (10.0 ** (e + 1)) * jitter * eye
+            chol_retry = linalg.chol(K_retry)
+            chol = torch.where(bad[..., None, None], chol_retry, chol)
+            K = torch.where(bad[..., None, None], K_retry, K)
+        if with_info:
+            return K, chol, ever_bad.to(torch.int32).sum(dim=-1)
     return K, chol

@@ -10,6 +10,9 @@ the small triangular solves run in the float64 island.
 Randomness comes from an explicit ``torch.Generator``; every draw can instead
 be passed in through :class:`PathNoise`, which is how the tests feed both
 packages the same numbers.
+
+The draw and the evaluation run under the ``torch.profiler`` label
+``model.rff``, the factor and its triangular solves under ``model.k2``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from vgpmp_torch.gp.conditioned import grid_rows, zy as zy_fn
 from vgpmp_torch.ops import linalg
+from vgpmp_torch.utils.profiling import span
 
 __all__ = ["PathNoise", "PathState", "student_t", "whitened_scale", "draw_paths", "eval_paths",
            "draw_and_eval_paths"]
@@ -176,10 +180,14 @@ def draw_paths(ny, Z, lengthscales, variance, chol_kuu, q_mu_full, q_sqrt, num_s
     ``deriv_mask [Mc]`` flags the derivative rows of the velocity-constrained
     inducing set ``[ny; ny; Z]`` (``gp/velocity.py``).
     """
-    d = _draw_rhs(ny, Z, lengthscales, variance, chol_kuu.shape[-1], chol_kuu.dtype, q_mu_full,
-                  q_sqrt, num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise,
-                  deriv_mask)
-    return _draw_state(d, linalg.solve_lower(chol_kuu, d.rhs), chol_kuu, q_sqrt)
+    with span("model.rff"):
+        d = _draw_rhs(ny, Z, lengthscales, variance, chol_kuu.shape[-1], chol_kuu.dtype, q_mu_full,
+                      q_sqrt, num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise,
+                      deriv_mask)
+    with span("model.k2"):
+        a_solve = linalg.solve_lower(chol_kuu, d.rhs)
+    with span("model.rff"):
+        return _draw_state(d, a_solve, chol_kuu, q_sqrt)
 
 
 def _eval_whitened(state: PathState, A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -195,7 +203,10 @@ def _eval_whitened(state: PathState, A: torch.Tensor, X: torch.Tensor) -> torch.
 def eval_paths(state: PathState, kuf: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Evaluate drawn paths on the grid ``X [N]`` (or ``[B, N]``, one per
     problem): ``kuf [..., L, Mc, N]`` -> latent samples ``[..., S, N, L]``."""
-    return _eval_whitened(state, linalg.solve_lower(state.chol, kuf.to(state.chol.dtype)), X)
+    with span("model.k2"):
+        A = linalg.solve_lower(state.chol, kuf.to(state.chol.dtype))
+    with span("model.rff"):
+        return _eval_whitened(state, A, X)
 
 
 def draw_and_eval_paths(ny, Z, lengthscales, variance, kuu, kuf, X, q_mu_full, q_sqrt,
@@ -214,11 +225,14 @@ def draw_and_eval_paths(ny, Z, lengthscales, variance, kuu, kuf, X, q_mu_full, q
     Returns ``(chol(kuu), PathState, latent samples [..., S, N, L], whitened
     mean L⁻¹ q_mu_fullᵀ [..., L, Mc, 1])``.
     """
-    d = _draw_rhs(ny, Z, lengthscales, variance, kuu.shape[-1], kuu.dtype, q_mu_full, q_sqrt,
-                  num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise,
-                  deriv_mask)
-    mean = q_mu_full.transpose(-1, -2)[..., None].to(kuu.dtype)
-    chol_kuu, sol = linalg.factor_solve(kuu, torch.cat([d.rhs, kuf.to(kuu.dtype), mean], dim=-1))
-    a_solve, A, m_w = torch.split(sol, [d.rhs.shape[-1], kuf.shape[-1], 1], dim=-1)
-    state = _draw_state(d, a_solve, chol_kuu, q_sqrt)
-    return chol_kuu, state, _eval_whitened(state, A, X), m_w
+    with span("model.rff"):
+        d = _draw_rhs(ny, Z, lengthscales, variance, kuu.shape[-1], kuu.dtype, q_mu_full, q_sqrt,
+                      num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise,
+                      deriv_mask)
+    with span("model.k2"):
+        mean = q_mu_full.transpose(-1, -2)[..., None].to(kuu.dtype)
+        chol_kuu, sol = linalg.factor_solve(kuu, torch.cat([d.rhs, kuf.to(kuu.dtype), mean], dim=-1))
+        a_solve, A, m_w = torch.split(sol, [d.rhs.shape[-1], kuf.shape[-1], 1], dim=-1)
+    with span("model.rff"):
+        state = _draw_state(d, a_solve, chol_kuu, q_sqrt)
+        return chol_kuu, state, _eval_whitened(state, A, X), m_w

@@ -22,6 +22,7 @@ from vgpmp_torch.ops import transforms as tf_ops
 from vgpmp_torch.ops.transforms import (
     ALPHA_LOWER, SIGMA_OBS_LOWER, VARIANCE_LOWER, Z_HIGH, Z_LOW,
 )
+from vgpmp_torch.utils.profiling import span
 
 __all__ = ["PlannerParams", "PlannerModel", "constrain", "init_params", "init_params_batch",
            "query_latent", "elbo", "elbo_with_aux", "sample_from_posterior", "sample_mean",
@@ -210,7 +211,8 @@ def _draw_eval(model: PlannerModel, c: dict, q_mu_full, Kuf, X, num_samples, gen
                 kernel=model.kernel, antithetic=antithetic, generator=generator, noise=noise,
                 deriv_mask=deriv_mask)
     if model.jitter_escalations == 0 or model.velocity_constrained:
-        Kuu = _kuu(model, c)
+        with span("model.gram"):
+            Kuu = _kuu(model, c)
         chol, _, f, m_w = pathwise.draw_and_eval_paths(
             model.ny, c["Z"], c["lengthscales"], c["variance"], Kuu, Kuf, X, q_mu_full, c["q_sqrt"],
             **draw)
@@ -218,7 +220,8 @@ def _draw_eval(model: PlannerModel, c: dict, q_mu_full, Kuf, X, num_samples, gen
     _, chol, esc = _gram(model, c, with_info=True)
     state = pathwise.draw_paths(model.ny, c["Z"], c["lengthscales"], c["variance"], chol, q_mu_full,
                                 c["q_sqrt"], **draw)
-    m_w = linalg.solve_lower(chol, q_mu_full.transpose(-1, -2)[..., None].to(chol.dtype))
+    with span("model.k2"):
+        m_w = linalg.solve_lower(chol, q_mu_full.transpose(-1, -2)[..., None].to(chol.dtype))
     return chol, esc, pathwise.eval_paths(state, Kuf, X), m_w
 
 
@@ -231,13 +234,23 @@ def _q_mu_full(model: PlannerModel, c: dict, q_lat: torch.Tensor) -> torch.Tenso
 
 
 def _sample_configs(params, model, start, goal, X, num_samples, generator, noise, antithetic):
-    c = constrain(params, model.variance_lower)
-    q_lat = query_latent(model, start, goal)
-    q_mu_full = _q_mu_full(model, c, q_lat)
-    chol, esc, f, m_w = _draw_eval(model, c, q_mu_full, _kuf(model, c, X), X, num_samples,
-                                   generator, noise, antithetic)
-    g = joint_sigmoid(f, model.limits_low, model.limits_high)  # [B, S, N, L]
-    return c, kl.prior_kl_whitened(m_w, c["q_sqrt"].to(chol.dtype)), esc, g
+    """``(constrained leaves, KL [B], escalation count [B], configurations
+    [B, S, N, L])``, each stage under its ``torch.profiler`` label:
+    ``model.gram`` (the Gram and Kuf builds), ``model.rff`` (the pathwise
+    draw and evaluation), ``model.k2`` (the factor and its solves),
+    ``model.collision`` (from here on the likelihood) and ``model.kl``."""
+    with span("model.gram"):
+        c = constrain(params, model.variance_lower)
+        q_lat = query_latent(model, start, goal)
+        q_mu_full = _q_mu_full(model, c, q_lat)
+        Kuf = _kuf(model, c, X)
+    chol, esc, f, m_w = _draw_eval(model, c, q_mu_full, Kuf, X, num_samples, generator, noise,
+                                   antithetic)
+    with span("model.collision"):
+        g = joint_sigmoid(f, model.limits_low, model.limits_high)  # [B, S, N, L]
+    with span("model.kl"):
+        kl_term = kl.prior_kl_whitened(m_w, c["q_sqrt"].to(chol.dtype))
+    return c, kl_term, esc, g
 
 
 class _SampleMean(torch.autograd.Function):
@@ -281,9 +294,10 @@ def elbo(params: PlannerParams, model: PlannerModel, start: torch.Tensor, goal: 
     """
     c, kl_term, _, g = _sample_configs(params, model, start, goal, X, model.num_samples,
                                        generator, noise, model.antithetic)
-    lik = model.collision.log_prob(g, c["sigma_obs"] * sigma_scale)  # [B, S, N]
-    lik_sum = sample_mean(lik.mean(dim=1), sample_group).sum(dim=-1)
-    return lik_sum * c["alpha"] - kl_term.to(lik.dtype)
+    with span("model.collision"):
+        lik = model.collision.log_prob(g, c["sigma_obs"] * sigma_scale)  # [B, S, N]
+        lik_sum = sample_mean(lik.mean(dim=1), sample_group).sum(dim=-1)
+        return lik_sum * c["alpha"] - kl_term.to(lik.dtype)
 
 
 def elbo_with_aux(params: PlannerParams, model: PlannerModel, start, goal, X,
@@ -295,20 +309,21 @@ def elbo_with_aux(params: PlannerParams, model: PlannerModel, start, goal, X,
     this rank's own."""
     c, kl_term, esc, g = _sample_configs(params, model, start, goal, X, model.num_samples,
                                          generator, noise, model.antithetic)
-    clearance = model.collision.sphere_clearance(g)  # [B, S, N, P]
-    cost = torch.clamp(model.collision.epsilon - clearance, min=0.0)
-    sigma = (c["sigma_obs"] * sigma_scale)[:, None, None, :]
-    lik = -0.5 * (cost * cost / sigma).sum(dim=-1)
-    lik_total = sample_mean(lik.mean(dim=1), sample_group).sum(dim=-1)
-    kl_term = kl_term.to(lik.dtype)
-    value = lik_total * c["alpha"] - kl_term
-    aux = {
-        "kl": kl_term,
-        "expected_log_lik": lik_total,
-        "min_clearance": clearance.flatten(1).min(dim=1).values,
-        "mean_hinge_cost": cost.flatten(1).mean(dim=1),
-        "jitter_escalations": esc,
-    }
+    with span("model.collision"):
+        clearance = model.collision.sphere_clearance(g)  # [B, S, N, P]
+        cost = torch.clamp(model.collision.epsilon - clearance, min=0.0)
+        sigma = (c["sigma_obs"] * sigma_scale)[:, None, None, :]
+        lik = -0.5 * (cost * cost / sigma).sum(dim=-1)
+        lik_total = sample_mean(lik.mean(dim=1), sample_group).sum(dim=-1)
+        kl_term = kl_term.to(lik.dtype)
+        value = lik_total * c["alpha"] - kl_term
+        aux = {
+            "kl": kl_term,
+            "expected_log_lik": lik_total,
+            "min_clearance": clearance.flatten(1).min(dim=1).values,
+            "mean_hinge_cost": cost.flatten(1).mean(dim=1),
+            "jitter_escalations": esc,
+        }
     return value, aux
 
 

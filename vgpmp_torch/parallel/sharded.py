@@ -40,6 +40,7 @@ from vgpmp_torch.engine.validator import ValidationReport, execute_and_validate,
 from vgpmp_torch.gp import pathwise
 from vgpmp_torch.models import vgpmp as planner
 from vgpmp_torch.parallel.mesh import RankMesh
+from vgpmp_torch.utils.profiling import span
 
 __all__ = ["pad_problems", "shard_generator", "make_sharded_solver", "make_sharded_round_solver"]
 
@@ -189,7 +190,7 @@ def make_sharded_round_solver(model: planner.PlannerModel, cfg: solver_mod.Train
 
     def solve(params_b, starts, goals, generator=None, noise=None):
         _, s, g, res = local(params_b, starts, goals, generator, noise)
-        with torch.no_grad():
+        with torch.no_grad(), span("validate"):
             rep = execute_and_validate(model.collision, res.best, s, g, model.limits_low,
                                        model.limits_high)
         return gather_rows(res.best, mesh), _gather_report(rep, mesh)

@@ -6,7 +6,8 @@
 - :func:`trace`: a ``torch.profiler`` window that writes a Chrome trace
   (``chrome://tracing``, Perfetto);
 - :func:`grad_tap`: the identity forward whose backward prints or records the
-  upstream gradient (the reference's ``check_gradients`` idea).
+  upstream gradient (the reference's ``check_gradients`` idea);
+- :func:`span`: the program's ``torch.profiler`` labels.
 """
 
 from __future__ import annotations
@@ -19,9 +20,20 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
-__all__ = ["timing", "trace", "grad_tap"]
+__all__ = ["timing", "trace", "grad_tap", "span"]
 
 DEFAULT_TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "trace"  # git-ignored
+
+
+def span(name: str):
+    """The label ``name`` for ``torch.profiler``: ``record_function(name)``
+    while a profiler runs, else a context that does nothing (~0.6 µs). A
+    ``record_function`` costs ~10 µs of host time even with no profiler
+    running (a dispatcher call on entry and on exit): at 8 labels a step,
+    ~0.6 % of a training step's host time."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def _on_cuda(out) -> bool:
