@@ -135,6 +135,16 @@ Phases, any failure exits non-zero before the result line:
     a scored round of 20 steps through the composed K1 and K3, every row
     finite.
 
+(v) the RFF prior's paths, after (u): K6 (``csrc/k6_rff.cuh``) at wam's and
+    franka's round-0 shapes (1 024 x 7 x (26 + 70) and 512 x 7 x (12 + 50)
+    points x 1 024 bases, S 7 and 20), forward and forward with backward,
+    against the plain chain on the card (L2 flushed, 20 calls) and the
+    bound of ``benchmark/work/rff.py``'s count; the paths and the gradients
+    of x, ω and the scale against the float64 plain chain; the peak memory
+    of one step of each cell's configuration at its rows, plain chain and
+    K6; a 3-step solve with extraction through K6, none of the plain chain
+    on the card (``k6_rff.plain_on_card``).
+
 (q) ``tools/diagnose_failures_torch.py`` on wam/industrial (seed 0, 3
     adaptive rounds): a classed row for each problem not executed, and the
     failure profile (the packed training lookup along the densified best
@@ -162,7 +172,8 @@ nearest mode, the neighbours of the hinge-active pairs only, with the count
 of every pair's neighbours beside it in the record; each K3 row names its
 design, ``one-grid`` on the base grid alone or ``culled`` on a scene with
 objects; and (u)'s K5, its bound counted over every (cell, triangle) pair
-and every (column, triangle) ray test), and as the last line
+and every (column, triangle) ray test; (v)'s K6 at wam's shape), and as
+the last line
 ``{"ok": true, "device": {...}}``. A detailed record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero without a CUDA device.
 """
@@ -2491,6 +2502,16 @@ def diagnose_phase(torch):
     a scored round of 20 steps through the composed K1 and K3, every row
     finite.
 
+(v) the RFF prior's paths, after (u): K6 (``csrc/k6_rff.cuh``) at wam's and
+    franka's round-0 shapes (1 024 x 7 x (26 + 70) and 512 x 7 x (12 + 50)
+    points x 1 024 bases, S 7 and 20), forward and forward with backward,
+    against the plain chain on the card (L2 flushed, 20 calls) and the
+    bound of ``benchmark/work/rff.py``'s count; the paths and the gradients
+    of x, ω and the scale against the float64 plain chain; the peak memory
+    of one step of each cell's configuration at its rows, plain chain and
+    K6; a 3-step solve with extraction through K6, none of the plain chain
+    on the card (``k6_rff.plain_on_card``).
+
 (q) ``tools/diagnose_failures_torch.py`` on wam/industrial, seed 0, 3
     adaptive rounds: one row for each problem not executed, each classed, and
     the failure profile on the card against the CPU plain path on the same
@@ -3669,6 +3690,161 @@ def mesh_sdf_phase(torch, sess, flush, dims=MESH_DIMS, steps: int = 20):
                  "launches": on_path, "executed": executed, "phase_s": time.perf_counter() - t_phase}
 
 
+# (v) K6 at the cells' round-0 shapes: rows, samples S, grid N, inducing
+# inputs Mc (ny and Z); 7 latents, 1 024 bases
+K6_SHAPES = {"wam": (1024, 7, 70, 26), "franka": (512, 20, 50, 12)}
+K6_BASES, K6_LATENTS = 1024, 7
+K6_STEPS = 3
+
+
+def k6_inputs(torch, robot: str, device, lengthscales, variance: float, dtype=None, seed: int = 0):
+    """K6's inputs at ``robot``'s round-0 shape (:data:`K6_SHAPES`), as the
+    pathwise draw makes them: ``draw_noise``'s Student-t frequencies over the
+    lengthscales ``[L]``, the scale of ``variance``, inducing inputs ``[ny;
+    Z]`` with Z sorted in (0, 1), the grid, and an upstream gradient ``g``."""
+    from vgpmp_torch.gp import pathwise
+
+    dtype = dtype or torch.float32
+    B, S, N, Mc = K6_SHAPES[robot]
+    L, nb = K6_LATENTS, K6_BASES
+    g = torch.Generator(device=device).manual_seed(seed)
+    noise = pathwise.draw_noise((B,), L, Mc, S, nb, dtype, device, g)
+    ls = torch.as_tensor(lengthscales, dtype=dtype, device=device).expand(B, L)
+    Z = torch.sort(torch.rand(B, L, Mc - 2, dtype=dtype, device=device, generator=g), dim=-1).values
+    ny = torch.tensor([0.0, 1.0], dtype=dtype, device=device).expand(B, L, 2)
+    return {"x": torch.cat([ny, Z], dim=-1), "x_const": torch.linspace(0, 1, N, dtype=dtype, device=device),
+            "omega": noise.t / ls[..., None], "phase": noise.phase,
+            "scale": torch.full((B, L, 1), (2.0 * variance / nb) ** 0.5, dtype=dtype, device=device),
+            "w": noise.w, "g": torch.randn(B, S, L, Mc + N, dtype=dtype, device=device, generator=g)}
+
+
+def k6_reference(torch, t, rows: int = 128):
+    """The plain chain in float64 with autograd on ``k6_inputs``' tensors
+    ``t``, ``rows`` rows at a time (a float64 feature tensor of wam's 1 024
+    rows takes 5.6 GB): (paths, d x, d omega, d scale)."""
+    from vgpmp_torch.ops import rff
+
+    parts = []
+    for i in range(0, t["x"].shape[0], rows):
+        d = {k: v.double() if k == "x_const" else v[i:i + rows].double() for k, v in t.items()}
+        x, om, sc = (d[k].requires_grad_(True) for k in ("x", "omega", "scale"))
+        out = rff.prior_paths_plain(x, om, d["phase"], sc, d["w"], x_const=d["x_const"])
+        out.backward(d["g"])
+        parts.append([out.detach(), x.grad, om.grad, sc.grad])
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def k6_bound(robot: str, backward: bool = False):
+    """K6's least time at ``robot``'s round-0 shape: forward, the float32 part
+    of ``benchmark/work/rff.py``'s count (a cosine at 8 operations, the
+    contraction at 2 S a pair); ``backward`` adds a sine and a cosine, H's 2 S
+    and the three sums' 6 a pair. Operations at the float32 peak."""
+    B, S, N, Mc = K6_SHAPES[robot]
+    pairs = B * K6_LATENTS * (N + Mc) * K6_BASES
+    ops = pairs * (8 + 2 * S) + (pairs * (16 + 2 * S + 6) if backward else 0)
+    return ops / F32_FLOPS * 1e3
+
+
+def k6_phase(torch, flush, steps: int = K6_STEPS):
+    """(v) K6, the RFF prior's paths, at both cells' round-0 shapes: the
+    forward (one launch for the inducing inputs and the grid, as the draw
+    makes it) and the forward with its backward, each against the plain chain
+    on the card (L2 flushed, means of 20 calls) and its bound; the largest
+    error of the paths against the float64 plain chain and of the gradients
+    of x, ω and the scale against the plain chain's autograd in float64; then
+    the card's peak memory over one step of each cell's configuration with
+    the plain chain and with K6, and a ``steps``-step solve with extraction
+    through K6: its launches by entry and dtype, none of the plain chain on
+    the card."""
+    import numpy as np
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.models import vgpmp as planner
+    from vgpmp_torch.ops import rff
+    from vgpmp_torch.session import PlanningSession
+    from vgpmp_torch.timing import time_ms
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for robot in K6_SHAPES:
+        sess = PlanningSession(robot, "industrial", dtype=torch.float32, sdf_mode="packed", use_tuned=True)
+        pp, dev = sess.planner_params, sess.device
+        t = k6_inputs(torch, robot, dev, pp["lengthscales"], pp["variance"])
+        args = (t["x"], t["omega"], t["phase"], t["scale"], t["w"])
+
+        def fwd(plain=False, grad=False, a=args, d=t):
+            a = [v.detach().requires_grad_(grad and i in (0, 1, 3)) for i, v in enumerate(a)]
+            out = (rff.prior_paths_plain if plain else rff.prior_paths)(*a, x_const=d["x_const"])
+            if grad:
+                out.backward(d["g"])
+                return out, a[0].grad, a[1].grad, a[3].grad
+            return (out,)
+
+        k6 = [v.detach() for v in fwd(grad=True)]
+        errs = {n: ((a.double() - b).abs().max() / b.abs().max()).item()
+                for n, a, b in zip(("paths", "d_x", "d_omega", "d_scale"), k6, k6_reference(torch, t))}
+        ms = {"k6_fwd": time_ms(fwd, flush=flush), "k6_fwd_bwd": time_ms(lambda: fwd(grad=True), flush=flush),
+              "plain_fwd": time_ms(lambda: fwd(plain=True), flush=flush),
+              "plain_fwd_bwd": time_ms(lambda: fwd(plain=True, grad=True), flush=flush)}
+        bound = {"fwd": k6_bound(robot), "fwd_bwd": k6_bound(robot, backward=True)}
+
+        # one step (the ELBO and its gradient) of the cell's configuration at its
+        # round-0 rows, plain chain then K6
+        starts, goals = sess.queries()
+        B = K6_SHAPES[robot][0]
+        reps = -(-B // len(starts))
+        starts, goals = np.tile(starts, (reps, 1))[:B], np.tile(goals, (reps, 1))[:B]
+        params = planner.init_params_batch(sess.model, starts, goals, [0] * B, 0.5 * (starts + goals),
+                                           pp["lengthscales"], pp["variance"], pp["sigma_obs"], pp["alpha"])
+        st, gl = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (starts, goals))
+        X = torch.linspace(0, 1, K6_SHAPES[robot][2], dtype=torch.float32, device=dev)
+        peak = {}
+        for name in ("plain", "k6"):
+            saved = rff.prior_paths
+            if name == "plain":
+                rff.prior_paths = rff.prior_paths_plain
+            try:
+                p = params.map(lambda v: v.detach().requires_grad_(True))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                value = planner.elbo(p, sess.model, st, gl, X, torch.Generator(device=dev).manual_seed(4))
+                torch.autograd.grad(-value.sum(), [p.q_mu, p.q_sqrt, p.lengthscales_u, p.variance_u, p.z_u])
+                torch.cuda.synchronize()
+                peak[name] = torch.cuda.max_memory_allocated()
+                del p, value
+            finally:
+                rff.prior_paths = saved
+        rff.k6_rff.launches, rff.k6_rff.launches_by, rff.k6_rff.plain_on_card = 0, {}, 0
+        cfg = dataclasses.replace(sess.train_config, num_steps=steps)
+        _, res = solver.make_batch_solver(sess.model, cfg)(params, starts, goals,
+                                                           torch.Generator(device=dev).manual_seed(5))
+        torch.cuda.synchronize()
+        launches = {"launches": rff.k6_rff.launches, "plain_on_card": rff.k6_rff.plain_on_card,
+                    "by": {f"{e}/{d}": n for (e, d), n in rff.k6_rff.launches_by.items()}}
+        finite = bool(torch.isfinite(res.elbo_history).all() and torch.isfinite(res.best).all())
+        B_, S, N, Mc = K6_SHAPES[robot]
+        log(f"(v) K6 at {robot}'s round 0 ({B_} rows x {K6_LATENTS} latents x ({Mc} + {N}) points x "
+            f"{K6_BASES} bases, S {S}): fwd {ms['k6_fwd']:.4f} ms (plain {ms['plain_fwd']:.3f}, bound "
+            f"{bound['fwd']:.4f}: {100 * bound['fwd'] / ms['k6_fwd']:.1f} %), fwd + bwd {ms['k6_fwd_bwd']:.4f} ms "
+            f"(plain {ms['plain_fwd_bwd']:.3f}, bound {bound['fwd_bwd']:.4f}); error against float64 {errs}")
+        log(f"    peak memory over one step at {B} rows: plain {peak['plain'] / 2**30:.3f} GiB, K6 "
+            f"{peak['k6'] / 2**30:.3f} GiB; a {steps}-step solve with extraction: K6 {launches}, finite {finite}")
+        assert errs["paths"] <= 2e-5 and max(errs.values()) <= 5e-5, errs
+        assert launches["plain_on_card"] == 0 and launches["launches"] >= 2 * steps + 1, launches
+        assert finite and peak["k6"] < peak["plain"], (finite, peak)
+        rows[robot] = {"shape": list(K6_SHAPES[robot]), "ms": ms, "bound_ms": bound, "errors": errs,
+                       "peak_bytes_one_step": peak, "solve": launches}
+        del t, args, k6, sess
+    log(f"(v) took {time.perf_counter() - t_phase:.1f} s")
+    w = rows["wam"]
+    row = {"name": "k6_rff", "route": "cuda", "source": "vgpmp_torch/csrc/k6_rff.cuh",
+           "replaces": "vgpmp_torch/gp/pathwise.py: the features and their einsum (plain chain)",
+           "launches": w["solve"]["launches"], "max_rel_err": max(w["errors"].values()), "ms": w["ms"]["k6_fwd"],
+           "plain_ms": w["ms"]["plain_fwd"], "bound_ms": w["bound_ms"]["fwd"], "bound_by": "operations",
+           "library_ms": None}
+    return row, rows
+
+
 def main() -> int:
     import torch
 
@@ -3741,6 +3917,10 @@ def main() -> int:
     flush = l2_flush_buffer(sess.device)
     k5, mesh_sdf = mesh_sdf_phase(torch, sess, flush)
     del flush
+    log("(v) the RFF prior's paths on the card (K6)")
+    flush = l2_flush_buffer(sess.device)
+    k6, rff_prior = k6_phase(torch, flush)
+    del flush
     t0 = time.perf_counter()
     diagnosed = diagnose_phase(torch)
     scaling = scaling_phase(torch)
@@ -3779,11 +3959,11 @@ def main() -> int:
     keys = ("name", "design", "route", "source", "replaces", "launches", "max_abs_err", "max_rel_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "velocity")
     kernels = [{k: v for k, v in d.items() if k in keys}
-               for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows, k5]]
+               for d in [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows, k5, k6]]
     assert all(k["launches"] > 0 for k in kernels), "a kernel of a driven path was not launched"
     record = {"card": smi, "build_s": secs,
-              "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows, k5],
-              "objects": objects, "envelope": envelope, "mesh_sdf": mesh_sdf,
+              "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows, k5, k6],
+              "objects": objects, "envelope": envelope, "mesh_sdf": mesh_sdf, "rff_prior": rff_prior,
               "k2_errors": k2_errs, "combos": combos, "trainable": trainable, "randomized": randomized,
               "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,

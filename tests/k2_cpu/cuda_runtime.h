@@ -1,6 +1,7 @@
 // What K2's block design (vgpmp_torch/csrc/k2_linalg.cuh), K1 and k1_dsigma
-// (vgpmp_torch/csrc/k1_collision.cuh), K3 (vgpmp_torch/csrc/k3_clearance.cuh)
-// and K5 (vgpmp_torch/csrc/k5_mesh_sdf.cuh) take from CUDA, on the CPU, so
+// (vgpmp_torch/csrc/k1_collision.cuh), K3 (vgpmp_torch/csrc/k3_clearance.cuh),
+// K5 (vgpmp_torch/csrc/k5_mesh_sdf.cuh) and K6 (vgpmp_torch/csrc/k6_rff.cuh)
+// take from CUDA, on the CPU, so
 // that their sources can be compiled by g++ and run by the tests.
 // A launch runs its blocks one after another; a block runs as BLK_THREADS
 // std::threads. __syncthreads is a barrier of the block, __syncwarp one of the
@@ -67,6 +68,12 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+// K6's special-function-unit sine and cosine, on an argument it has reduced
+inline float __cosf(float x) { return std::cos(x); }
+inline void __sincosf(float x, float* s, float* c) {
+  *s = std::sin(x);
+  *c = std::cos(x);
+}
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 using std::max;
 using std::min;

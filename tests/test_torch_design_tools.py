@@ -1,7 +1,8 @@
-"""The CPU side of the design tools that time K1 and read the kernels'
-machine code on the card (``tools/k1_designs.py``,
-``tools/kernel_resources.py``): how ``--configs`` cuts the configs into σ
-rows, and how ``--against`` pairs each kernel with its older version."""
+"""The CPU side of the design tools that time K1 and K6 and read the
+kernels' machine code on the card (``tools/k1_designs.py``,
+``tools/k6_designs.py``, ``tools/kernel_resources.py``): how ``--configs``
+cuts the configs into σ rows, how ``--variant`` writes a K6 header, and how
+``--against`` pairs each kernel with its older version."""
 
 import sys
 from pathlib import Path
@@ -44,3 +45,18 @@ def test_against_pairs_each_kernel_with_its_older_version(capsys):
         ("a", True, 48, 0), ("b", False, 76, 12), ("c", False, None, None)]
     text = capsys.readouterr().out
     assert "same SASS" in text and "changed" in text and "new kernel" in text
+
+
+def test_k6_variant_changes_only_the_named_constants(tmp_path, monkeypatch):
+    """``k6_designs.py --variant NAME:CONST=VALUE,...`` writes the checkout's
+    K6 header with those constants of ``namespace k6`` changed and nothing
+    else; a name that is no such constant is refused."""
+    import k6_designs
+
+    monkeypatch.setattr(k6_designs, "BUILD", tmp_path)
+    src = (k6_designs.CSRC / "k6_rff.cuh").read_text()
+    got = k6_designs.variant("v", "BT=2,FWD_THREADS=256").read_text()
+    assert "constexpr int BT = 2;" in got and "constexpr int FWD_THREADS = 256;" in got
+    assert got.replace("BT = 2;", "BT = 4;").replace("FWD_THREADS = 256;", "FWD_THREADS = 128;") == src
+    with pytest.raises(ValueError, match="no constant"):
+        k6_designs.variant("w", "NOT_A_CONSTANT=1")

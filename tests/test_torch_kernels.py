@@ -1,4 +1,4 @@
-"""Kernels K1 to K4 (K3 with both entries) against their plain PyTorch
+"""Kernels K1 to K6 (K3 with both entries) against their plain PyTorch
 versions, on the card.
 
 These tests need an NVIDIA GPU and skip without one; they import no JAX, so
@@ -23,6 +23,7 @@ from vgpmp_torch.kinematics import dh
 from vgpmp_torch.likelihoods import collision as col
 from vgpmp_torch.ops import gather as tg
 from vgpmp_torch.ops import linalg as la
+from vgpmp_torch.ops import rff
 from vgpmp_torch.sdf import grid as sg
 
 ORIGIN = np.array([-1.2, -1.2, -0.6])
@@ -1470,3 +1471,96 @@ def test_k5_refuses_what_it_does_not_take(cuda_device):
         gen.k5_mesh_sdf(verts, tris[:0], piece[:0], (0.0, 0.0, 0.0), 0.1, (4, 4, 4))
     with pytest.raises(ValueError, match="dims"):
         gen.k5_mesh_sdf(verts, tris, piece, (0.0, 0.0, 0.0), 0.1, (4, 0, 4))
+
+
+# K6: (name, dtype, S, N, Mc, derivative rows (the first 2), bases, rows)
+K6_CASES = [
+    ("wam", torch.float32, 7, 70, 26, False, 1024, 64),
+    ("franka", torch.float32, 20, 50, 12, False, 1024, 64),
+    ("velocity", torch.float32, 20, 50, 14, True, 1024, 16),
+    ("extraction", torch.float32, 150, 150, 26, False, 1024, 8),
+    ("tails", torch.float32, 9, 37, 5, True, 1000, 5),
+    ("wam_f64", torch.float64, 7, 70, 26, False, 1024, 16),
+    ("velocity_f64", torch.float64, 20, 150, 40, True, 1100, 8),
+]
+
+
+def _k6_inputs(dtype, S, N, Mc, deriv, nb, R, device, L=7, seed=0):
+    """The prior's inputs as the pathwise draw makes them: the port's own
+    Student-t draws over lengthscales down to 0.04 (|ω| past 50), inducing
+    inputs in (0, 1) that take a gradient, a grid that takes none."""
+    from vgpmp_torch.gp import pathwise
+
+    g = torch.Generator().manual_seed(seed)
+    noise = pathwise.draw_noise((R,), L, Mc, S, nb, dtype, "cpu", g)
+    ls = 0.04 + 0.26 * torch.rand(R, L, dtype=dtype, generator=g)
+    var = 0.5 + 1.5 * torch.rand(R, L, dtype=dtype, generator=g)
+    x = torch.sort(torch.rand(R, L, Mc, dtype=dtype, generator=g), dim=-1).values
+    t = {"x": x, "x_const": torch.linspace(0, 1, N, dtype=dtype).expand(R, L, N),
+         "omega": noise.t / ls[..., None], "phase": noise.phase,
+         "scale": torch.sqrt(2.0 * var[..., None] / nb), "w": noise.w,
+         "g": torch.randn(R, S, L, Mc + N, dtype=dtype, generator=g)}
+    mask = (torch.arange(Mc) < 2) if deriv else None
+    return {k: v.to(device) for k, v in t.items()}, mask
+
+
+def test_k6_refuses_cpu_tensors_and_the_cpu_takes_the_plain_chain():
+    t, mask = _k6_inputs(torch.float64, 3, 9, 5, True, 40, 2, "cpu")
+    P = 2 * 7
+    with pytest.raises(ValueError):
+        rff.k6_rff(t["x"].reshape(P, -1), t["omega"].reshape(P, -1), t["phase"].reshape(P, -1),
+                   t["scale"].reshape(P), t["w"], None)
+    before = (rff.k6_rff.launches, rff.k6_rff.plain_on_card)
+    args = (t["omega"], t["phase"], t["scale"], t["w"])
+    joint = rff.prior_paths(t["x"], *args, mask, x_const=t["x_const"])
+    apart = torch.cat([rff.prior_paths(t["x"], *args, mask), rff.prior_paths(t["x_const"], *args)], dim=-1)
+    torch.testing.assert_close(joint, apart, rtol=1e-13, atol=1e-13)
+    assert (rff.k6_rff.launches, rff.k6_rff.plain_on_card) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,S,N,Mc,deriv,nb,R", K6_CASES, ids=[c[0] for c in K6_CASES])
+def test_k6_matches_plain_on_card(name, dtype, S, N, Mc, deriv, nb, R, cuda_device):
+    """K6 through ``prior_paths`` (one launch for the inducing inputs and the
+    grid, as the draw makes it) against the plain chain in float64 with
+    autograd on the same card: the paths and the gradients of x, ω and the
+    scale within 2e-5 of the largest magnitude in float32 (the argument's
+    float32 rounding at |ωx| up to ~200, the SFU's sine and cosine on the
+    reduced argument, sums in another order), 1e-12 in float64; one launch
+    forward and one backward; the same bits on a second run."""
+    t, mask = _k6_inputs(dtype, S, N, Mc, deriv, nb, R, cuda_device)
+    assert t["omega"].abs().max() > 50
+
+    def run(k6):
+        d = {k: v.detach().clone() for k, v in t.items()}
+        if not k6:
+            d = {k: v.double() for k, v in d.items()}
+        for k in ("x", "omega", "scale"):
+            d[k].requires_grad_(True)
+        m = None if mask is None else mask.to(cuda_device)
+        out = (rff.prior_paths if k6 else rff.prior_paths_plain)(d["x"], d["omega"], d["phase"], d["scale"],
+                                                                  d["w"], m, x_const=d["x_const"])
+        (out * d["g"]).sum().backward()
+        return [v.detach() for v in (out, d["omega"].grad, d["scale"].grad, d["x"].grad)]
+
+    before, plain_before = rff.k6_rff.launches, rff.k6_rff.plain_on_card
+    got = run(True)
+    torch.cuda.synchronize()
+    assert rff.k6_rff.launches == before + 2 and rff.k6_rff.plain_on_card == plain_before
+    want = run(False)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    for name_, g, w in zip(("paths", "d omega", "d scale", "d x"), got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name_
+        err = ((g.double() - w).abs().max() / w.abs().max()).item()
+        assert err <= tol, (name_, err)
+    for a, b in zip(got, run(True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k6_refuses_what_it_does_not_take(cuda_device):
+    t, mask = _k6_inputs(torch.float32, 3, 9, 5, False, 40, 2, cuda_device)
+    with pytest.raises(TypeError, match="one dtype"):
+        rff.prior_paths(t["x"], t["omega"].double(), t["phase"], t["scale"], t["w"])
+    with pytest.raises(ValueError, match="noise"):
+        rff.prior_paths(t["x"], t["omega"], t["phase"], t["scale"], t["w"].requires_grad_(True))

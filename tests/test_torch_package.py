@@ -31,7 +31,7 @@ def _imports(path: Path):
 
 PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "gather_bench_torch.py",
                 ROOT / "tools" / "k2_designs.py", ROOT / "tools" / "k1_designs.py",
-                ROOT / "tools" / "k3_designs.py", ROOT / "benchmarking_torch.py",
+                ROOT / "tools" / "k3_designs.py", ROOT / "tools" / "k6_designs.py", ROOT / "benchmarking_torch.py",
                 ROOT / "tools" / "solve_digest_torch.py", ROOT / "tools" / "launch_multihost_torch.py",
                 ROOT / "tools" / "tune_execution_torch.py"]
 PORT_TOOLS = ["tools/diagnose_failures_torch.py", "tools/batch_scaling_torch.py",
@@ -45,7 +45,7 @@ NEW_MODULES = ["vgpmp_torch.sim", "vgpmp_torch.engine.validator", "vgpmp_torch.o
                "vgpmp_torch.utils.checkpoint", "vgpmp_torch.utils.profiling",
                "vgpmp_torch.parallel.mesh", "vgpmp_torch.parallel.sharded", "vgpmp_torch.parallel.multihost",
                "vgpmp_torch.likelihoods.collision", "vgpmp_torch.ops.linalg", "vgpmp_torch._build",
-               "vgpmp_torch.sdf.gen", "vgpmp_torch.kinematics.urdf"]
+               "vgpmp_torch.sdf.gen", "vgpmp_torch.kinematics.urdf", "vgpmp_torch.ops.rff"]
 
 
 def test_port_imports_no_jax_package():
@@ -61,7 +61,7 @@ def test_port_imports_no_jax_package():
 
 @pytest.mark.parametrize("target", NEW_MODULES + ["vgpmp_torch.parallel", "chip_smoke", "bench_torch", "tools/gather_bench_torch.py",
                                                    "tools/k2_designs.py", "tools/k1_designs.py",
-                                                   "tools/k3_designs.py",
+                                                   "tools/k3_designs.py", "tools/k6_designs.py",
                                                    "benchmarking_torch",
                                                    "tools/solve_digest_torch.py",
                                                    "tools/launch_multihost_torch.py",

@@ -26,6 +26,7 @@ from vgpmp_tpu.session import PlanningSession as JaxSession
 from vgpmp_torch.convert import params_from_numpy, params_to_numpy
 from vgpmp_torch.engine import solver as ts
 from vgpmp_torch.gp import pathwise as tp
+from vgpmp_torch.ops import rff
 from vgpmp_torch.gp import velocity as tv
 from vgpmp_torch.models import vgpmp as tm
 from vgpmp_torch.ops import kernels as tk
@@ -109,7 +110,7 @@ def test_derivative_features_match_jax():
     mask = np.arange(9) < 2
     want = np.asarray(jp._rff_features(jnp.asarray(x), jnp.asarray(omega), jnp.asarray(phase),
                                        jnp.asarray(mask)))
-    got = tp._rff_features(torch.as_tensor(x), torch.as_tensor(omega), torch.as_tensor(phase),
+    got = rff.rff_features(torch.as_tensor(x), torch.as_tensor(omega), torch.as_tensor(phase),
                            torch.as_tensor(mask)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
     np.testing.assert_allclose(got[:, :2], -omega[:, None] * np.sin(x[:, :2, None] * omega[:, None]

@@ -101,6 +101,7 @@ def kl_leg(inp: dict, chol: torch.Tensor) -> torch.Tensor:
 def pieces(inp: dict, device) -> dict:
     """Each piece as a call on inputs it holds."""
     from vgpmp_torch.gp import conditioned, pathwise
+    from vgpmp_torch.ops import rff
     from vgpmp_torch.ops.kernels import matern52
 
     B = inp["ls"].shape[0]
@@ -121,8 +122,7 @@ def pieces(inp: dict, device) -> dict:
         phase = pathwise.TWO_PI * torch.rand((B, L, BR), generator=gen, device=device)
         w = torch.randn((B, S, L, BR), generator=gen, device=device)
         scale = torch.sqrt(2.0 * inp["s2"][..., None] / BR)
-        phi = pathwise._rff_features(inp["X"].expand(B, L, N), omega, phase) * scale[..., None]
-        return torch.einsum("...lnb,...slb->...sln", phi, w)
+        return rff.prior_paths(inp["X"].expand(B, L, N), omega, phase, scale, w)
 
     return {
         "gram_chol_f64": lambda: gram_chol_f64(inp),

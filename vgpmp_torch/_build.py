@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("bindings.cpp", "k1_collision.cu", "k1_nearest.cu", "k1_trilinear.cu", "k1_packed_f64.cu",
            "k1_nearest_f64.cu", "k1_trilinear_f64.cu", "k2_linalg.cu", "k2_linalg_f32.cu",
-           "k3_clearance.cu", "k3_clearance_f64.cu", "k4_gather.cu", "k5_mesh_sdf.cu")
+           "k3_clearance.cu", "k3_clearance_f64.cu", "k4_gather.cu", "k5_mesh_sdf.cu", "k6_rff.cu")
 # naming an arch here stops cpp_extension from adding its own
 CUDA_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 

@@ -531,6 +531,93 @@ at::Tensor k5_mesh_sdf(const at::Tensor& tri, const at::Tensor& piece, std::vect
   return out;
 }
 
+// K6's shapes (kernels.h:K6Args): x [P, A], omega and phase [P, nb], scale
+// [P], w [R, ns, L, nb] with P = R * L, flags [A] uint8 or empty (no
+// derivative rows), all but flags of x's type (the Python wrapper,
+// ops/rff.py, flattens the leading axes)
+template <class S>
+K6Args<S> k6_args(const at::Tensor& x, const at::Tensor& omega, const at::Tensor& phase,
+                  const at::Tensor& scale, const at::Tensor& w, const at::Tensor& flags,
+                  const char* what) {
+  const at::ScalarType st = x.scalar_type();
+  check(x, st, 2, what, "x");
+  check(omega, st, 2, what, "omega");
+  check(phase, st, 2, what, "phase");
+  check(scale, st, 1, what, "scale");
+  check(w, st, 4, what, "w");
+  for (const at::Tensor* t : {&omega, &phase, &scale, &w}) same_device(x, *t, what);
+  const int64_t P = x.size(0), A = x.size(1), R = w.size(0), ns = w.size(1), L = w.size(2),
+                nb = w.size(3);
+  TORCH_CHECK_VALUE(P >= 1 && A >= 1 && nb >= 1 && ns >= 1 && R * L == P && omega.size(0) == P &&
+                        omega.size(1) == nb && phase.sizes() == omega.sizes() &&
+                        scale.size(0) == P,
+                    what, ": x ", shape_str(x), ", omega ", shape_str(omega), ", phase ",
+                    shape_str(phase), ", scale ", shape_str(scale), " and w ", shape_str(w),
+                    " are not [R*L, A], [R*L, nb], [R*L, nb], [R*L] and [R, ns, L, nb]");
+  TORCH_CHECK_VALUE(P < (1LL << 31) && A < (1LL << 31) && nb < (1LL << 31) && ns < (1LL << 31),
+                    what, ": sizes must lie below 2^31");
+  const uint8_t* fl = nullptr;
+  if (flags.numel() > 0) {
+    check(flags, at::kByte, 1, what, "flags");
+    same_device(x, flags, what);
+    TORCH_CHECK_VALUE(flags.size(0) == A, what, ": flags ", shape_str(flags), " is not [A] for x ",
+                      shape_str(x));
+    fl = flags.data_ptr<uint8_t>();
+  }
+  return K6Args<S>{x.data_ptr<S>(), omega.data_ptr<S>(), phase.data_ptr<S>(), scale.data_ptr<S>(),
+                   w.data_ptr<S>(), fl, R, (int)L, (int)A, (int)nb, (int)ns};
+}
+
+// -> out [R, ns, L, A]
+at::Tensor k6_rff(const at::Tensor& x, const at::Tensor& omega, const at::Tensor& phase,
+                  const at::Tensor& scale, const at::Tensor& w, const at::Tensor& flags) {
+  const char* what = "k6_rff";
+  check_scalar(x, what);
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto out = at::empty({w.size(0), w.size(1), w.size(2), x.size(1)}, x.options());
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  if (x.scalar_type() == at::kDouble)
+    C10_CUDA_CHECK(k6_rff_launch<double>(k6_args<double>(x, omega, phase, scale, w, flags, what),
+                                         out.data_ptr<double>(), st));
+  else
+    C10_CUDA_CHECK(k6_rff_launch<float>(k6_args<float>(x, omega, phase, scale, w, flags, what),
+                                        out.data_ptr<float>(), st));
+  return out;
+}
+
+// g [R, ns, L, A], the gradient of out -> (d_omega [P, nb], d_scale [P], d_x
+// [P, n_dx]: the gradient of the first n_dx points)
+std::vector<at::Tensor> k6_rff_bwd(const at::Tensor& g, const at::Tensor& x,
+                                   const at::Tensor& omega, const at::Tensor& phase,
+                                   const at::Tensor& scale, const at::Tensor& w,
+                                   const at::Tensor& flags, int64_t n_dx) {
+  const char* what = "k6_rff_bwd";
+  check_scalar(x, what);
+  check(g, x.scalar_type(), 4, what, "g");
+  same_device(x, g, what);
+  TORCH_CHECK_VALUE(g.size(0) == w.size(0) && g.size(1) == w.size(1) && g.size(2) == w.size(2) &&
+                        g.size(3) == x.size(1),
+                    what, ": g ", shape_str(g), " is not [R, ns, L, A] for w ", shape_str(w),
+                    " and x ", shape_str(x));
+  TORCH_CHECK_VALUE(n_dx >= 0 && n_dx <= x.size(1), what, ": n_dx ", n_dx, " outside [0, A]");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto d_omega = at::empty_like(omega);
+  auto d_scale = at::empty_like(scale);
+  auto d_x = at::empty({x.size(0), n_dx}, x.options());
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  if (x.scalar_type() == at::kDouble)
+    C10_CUDA_CHECK(k6_rff_bwd_launch<double>(
+        k6_args<double>(x, omega, phase, scale, w, flags, what), g.data_ptr<double>(),
+        d_omega.data_ptr<double>(), d_scale.data_ptr<double>(),
+        n_dx ? d_x.data_ptr<double>() : nullptr, (int)n_dx, st));
+  else
+    C10_CUDA_CHECK(k6_rff_bwd_launch<float>(
+        k6_args<float>(x, omega, phase, scale, w, flags, what), g.data_ptr<float>(),
+        d_omega.data_ptr<float>(), d_scale.data_ptr<float>(),
+        n_dx ? d_x.data_ptr<float>() : nullptr, (int)n_dx, st));
+  return {d_omega, d_scale, d_x};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -552,4 +639,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("k4_gather", &k4_gather, "K4: out[i] = table[idx[i]] for 4-byte or 8-byte entries");
   m.def("k5_mesh_sdf", &k5_mesh_sdf,
         "K5: a triangle soup's signed-distance grid (exact distance, per-piece ray parity)");
+  m.def("k6_rff", &k6_rff, "K6: the random-Fourier-feature prior's paths at a set of points");
+  m.def("k6_rff_bwd", &k6_rff_bwd, "K6's backward: d/domega, d/dscale and d/dx of the first points");
 }

@@ -163,3 +163,27 @@ struct K5Grid {
 // sorted so that each piece's triangles are one run; T >= 1, any count.
 cudaError_t k5_mesh_sdf_launch(const double* tri, const int32_t* piece, int64_t T, K5Grid g,
                                float* out, cudaStream_t stream);
+
+// K6 (k6_rff.cuh): the random-Fourier-feature prior at A points of each of
+// the P = R * L problems (row r, latent l; p = r * L + l), float or double.
+// x [P, A]; omega, phase [P, nb]; scale [P]; w [R, ns, L, nb]; flags [A]
+// (nonzero: a derivative row, feature -omega sin) or null; out [R, ns, L, A].
+// The backward takes g [R, ns, L, A] (the gradient of out) and writes d_omega
+// [P, nb], d_scale [P] and, for the first n_dx points, d_x [P, n_dx] (null
+// where n_dx is 0). P < 2^31.
+template <class S>
+struct K6Args {
+  const S* x;
+  const S* omega;
+  const S* phase;
+  const S* scale;
+  const S* w;
+  const uint8_t* flags;
+  int64_t R;
+  int L, A, nb, ns;
+};
+template <class S>
+cudaError_t k6_rff_launch(const K6Args<S>& a, S* out, cudaStream_t stream);
+template <class S>
+cudaError_t k6_rff_bwd_launch(const K6Args<S>& a, const S* g, S* d_omega, S* d_scale, S* d_x,
+                              int n_dx, cudaStream_t stream);

@@ -11,6 +11,9 @@ Randomness comes from an explicit ``torch.Generator``; every draw can instead
 be passed in through :class:`PathNoise`, which is how the tests feed both
 packages the same numbers.
 
+The prior's paths ``Φ(x) w`` come from :func:`vgpmp_torch.ops.rff.prior_paths`:
+kernel K6 on the card (in :func:`draw_and_eval_paths` one launch for the
+inducing inputs and the grid), the plain features and ``einsum`` on the CPU.
 The draw and the evaluation run under the ``torch.profiler`` label
 ``model.rff``, the factor and its triangular solves under ``model.k2``.
 """
@@ -22,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from vgpmp_torch.gp.conditioned import grid_rows, zy as zy_fn
-from vgpmp_torch.ops import linalg
+from vgpmp_torch.ops import linalg, rff
 from vgpmp_torch.utils.profiling import span
 
 __all__ = ["PathNoise", "PathState", "student_t", "whitened_scale", "draw_paths", "eval_paths",
@@ -79,20 +82,6 @@ def whitened_scale(chol_kuu: torch.Tensor, q_sqrt: torch.Tensor, jitter: float =
     return chol_kuu @ pad + jitter_pad
 
 
-def _rff_features(x: torch.Tensor, omega: torch.Tensor, phase: torch.Tensor,
-                  deriv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """cos features: ``x [..., L, A], omega/phase [..., L, B] -> [..., L, A, B]``.
-
-    Rows flagged by ``deriv_mask [A]`` are derivative observations, whose
-    feature is ``d/dx cos(ωx + φ) = -ω sin(ωx + φ)`` (the velocity-constrained
-    inducing set, ``gp/velocity.py``)."""
-    arg = x[..., :, None] * omega[..., None, :] + phase[..., None, :]
-    cos = torch.cos(arg)
-    if deriv_mask is None:
-        return cos
-    return torch.where(deriv_mask[:, None], -omega[..., None, :] * torch.sin(arg), cos)
-
-
 def draw_noise(batch: tuple, L: int, Mc: int, num_samples: int, num_bases: int, dtype, device,
                generator: Optional[torch.Generator] = None, kernel: str = "matern52",
                antithetic: bool = False, df: float = 5.0) -> PathNoise:
@@ -125,11 +114,14 @@ class _Draw(NamedTuple):
     noise: PathNoise
     rff_scale: torch.Tensor
     rhs: torch.Tensor  # [..., L, Mc, S], island dtype: the solve's right-hand side
+    f_prior_x: Optional[torch.Tensor]  # [..., S, L, N]: the prior's paths on the grid, if given
 
 
 def _draw_rhs(ny, Z, lengthscales, variance, Mc: int, solve_dtype, q_mu_full, q_sqrt,
               num_samples: int, num_bases: int, df: float, jitter: float, kernel: str,
-              antithetic: bool, generator, noise, deriv_mask=None) -> _Draw:
+              antithetic: bool, generator, noise, deriv_mask=None, X=None) -> _Draw:
+    """The draw's right-hand side; given the grid ``X``, also the prior's paths
+    on it, from the same K6 launch as those at the inducing inputs."""
     L = Z.shape[-1]
     bulk = Z.dtype
     if noise is None:
@@ -141,8 +133,14 @@ def _draw_rhs(ny, Z, lengthscales, variance, Mc: int, solve_dtype, q_mu_full, q_
     zy_ = zy_fn(ny, Z).to(bulk)
     if deriv_mask is not None:  # the inducing inputs are [ny; ny; Z]
         zy_ = torch.cat([ny.to(bulk).expand(zy_.shape[:-1] + ny.shape), zy_], dim=-1)
-    phi_z = _rff_features(zy_, omega, noise.phase, deriv_mask) * rff_scale[..., None]
-    f_prior_z = torch.einsum("...lmb,...slb->...slm", phi_z, noise.w)  # [..., S, L, Mc]
+    f_prior_x = None
+    if X is None:
+        f_prior_z = rff.prior_paths(zy_, omega, noise.phase, rff_scale, noise.w, deriv_mask)
+    else:
+        Xb = grid_rows(X.to(bulk), omega.shape[:-2], L)
+        f_prior_z, f_prior_x = torch.split(
+            rff.prior_paths(zy_, omega, noise.phase, rff_scale, noise.w, deriv_mask, x_const=Xb),
+            [Mc, Xb.shape[-1]], dim=-1)  # [..., S, L, Mc], [..., S, L, N]
 
     C = Mc - q_sqrt.shape[-1]
     cond_rows = (torch.arange(Mc, device=Z.device) < C).to(bulk)
@@ -151,7 +149,8 @@ def _draw_rhs(ny, Z, lengthscales, variance, Mc: int, solve_dtype, q_mu_full, q_
         - f_prior_z.movedim(-3, -1)
         + jitter * (noise.eps * cond_rows).movedim(-3, -1)
     )  # [..., L, Mc, S]
-    return _Draw(omega=omega, noise=noise, rff_scale=rff_scale, rhs=rhs.to(solve_dtype))
+    return _Draw(omega=omega, noise=noise, rff_scale=rff_scale, rhs=rhs.to(solve_dtype),
+                 f_prior_x=f_prior_x)
 
 
 def _draw_state(d: _Draw, a_solve: torch.Tensor, chol_kuu: torch.Tensor, q_sqrt) -> PathState:
@@ -190,12 +189,14 @@ def draw_paths(ny, Z, lengthscales, variance, chol_kuu, q_mu_full, q_sqrt, num_s
         return _draw_state(d, a_solve, chol_kuu, q_sqrt)
 
 
-def _eval_whitened(state: PathState, A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """:func:`eval_paths` from ``A = L⁻¹ kuf [..., L, Mc, N]``."""
+def _eval_whitened(state: PathState, A: torch.Tensor, X: torch.Tensor,
+                   f_prior: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`eval_paths` from ``A = L⁻¹ kuf [..., L, Mc, N]``; ``f_prior``, the
+    prior's paths on the grid, where the draw computed them."""
     bulk = state.omega.dtype
-    Xb = grid_rows(X.to(bulk), state.omega.shape[:-2], state.omega.shape[-2])
-    phi_x = _rff_features(Xb, state.omega, state.phase) * state.rff_scale[..., None]
-    f_prior = torch.einsum("...lnb,...slb->...sln", phi_x, state.w)
+    if f_prior is None:
+        Xb = grid_rows(X.to(bulk), state.omega.shape[:-2], state.omega.shape[-2])
+        f_prior = rff.prior_paths(Xb, state.omega, state.phase, state.rff_scale, state.w)
     update = torch.einsum("...lmn,...slm->...sln", A.to(bulk), state.a)
     return (f_prior + update).transpose(-1, -2)
 
@@ -226,13 +227,14 @@ def draw_and_eval_paths(ny, Z, lengthscales, variance, kuu, kuf, X, q_mu_full, q
     mean L⁻¹ q_mu_fullᵀ [..., L, Mc, 1])``.
     """
     with span("model.rff"):
+        # on the card the grid's prior paths come from the draw's K6 launch
         d = _draw_rhs(ny, Z, lengthscales, variance, kuu.shape[-1], kuu.dtype, q_mu_full, q_sqrt,
                       num_samples, num_bases, df, jitter, kernel, antithetic, generator, noise,
-                      deriv_mask)
+                      deriv_mask, X if Z.is_cuda else None)
     with span("model.k2"):
         mean = q_mu_full.transpose(-1, -2)[..., None].to(kuu.dtype)
         chol_kuu, sol = linalg.factor_solve(kuu, torch.cat([d.rhs, kuf.to(kuu.dtype), mean], dim=-1))
         a_solve, A, m_w = torch.split(sol, [d.rhs.shape[-1], kuf.shape[-1], 1], dim=-1)
     with span("model.rff"):
         state = _draw_state(d, a_solve, chol_kuu, q_sqrt)
-        return chol_kuu, state, _eval_whitened(state, A, X), m_w
+        return chol_kuu, state, _eval_whitened(state, A, X, d.f_prior_x), m_w
