@@ -145,6 +145,20 @@ Phases, any failure exits non-zero before the result line:
     K6; a 3-step solve with extraction through K6, none of the plain chain
     on the card (``k6_rff.plain_on_card``).
 
+(w) the UR10 on the bookshelves, after (v): the ``ur10-bookshelves-b3520``
+    cell's round-0 shape (the problemset's 55 queries tiled to 3 520 rows;
+    6 joints, standard DH, 17 spheres). First the 6-joint kernels against
+    their plain versions on the same card inputs: K1's likelihood and d/dq
+    at 3 520 x 7 x 70 configurations along the queries' lines with 1 rad of
+    noise (about a quarter hinge-active), K3's clearance of the round's
+    3 x 3 520 endpoints and its probes of 3 520 trajectories of 150 points
+    (``pd_path_configs``' 9 600 probes a row), at the card tests'
+    tolerances. Then ``make_round_solver`` at 3 steps: training, the
+    extraction and the metric. K1 and both K3 entries launched for 6 joints
+    and standard DH only (``launches_by_arm``), none of the plain K1, K3 or
+    K6 on the card (``plain_on_card``), every row finite; the card's peak
+    memory and the round's seconds.
+
 (q) ``tools/diagnose_failures_torch.py`` on wam/industrial (seed 0, 3
     adaptive rounds): a classed row for each problem not executed, and the
     failure profile (the packed training lookup along the densified best
@@ -3845,6 +3859,136 @@ def k6_phase(torch, flush, steps: int = K6_STEPS):
     return row, rows
 
 
+UR10_ROWS = 3520  # the ur10-bookshelves-b3520 cell's rows, its round 0
+
+
+def ur10_kernels_against_plain(torch, model, starts, goals, S: int = 7, N: int = 70, T: int = 150):
+    """(w)'s first part: K1 (likelihood and d/dq) and both K3 entries for the
+    model's arm against their plain versions on the same card inputs, at
+    ``test_k1_matches_plain_on_card``'s and the K3 card tests' tolerances;
+    ``starts``, ``goals`` ``[B, 6]`` on the card. Returns the errors and the
+    shares that show the inputs reach the scene."""
+    import numpy as np
+
+    from vgpmp_torch import sim
+    from vgpmp_torch.likelihoods import collision as col
+
+    B, dev = starts.shape[0], starts.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    frac = torch.linspace(0, 1, N, device=dev)[None, None, :, None]
+    q = starts[:, None, None] + (goals - starts)[:, None, None] * frac
+    q = q + torch.randn((B, S, N, starts.shape[1]), generator=gen, device=dev)
+    sigma = torch.full((B, model.fk.sphere_radii.shape[0]), 5e-4, device=dev)
+    qk = q.clone().requires_grad_()
+    lik_k = model.log_prob(qk, sigma)
+    lik_k.sum().backward()
+    qp = q.clone().requires_grad_()
+    lik_p = col.log_prob_plain(model, qp, sigma)
+    lik_p.sum().backward()
+    active = (lik_p < 0).float().mean().item()
+    close = torch.isclose(lik_k, lik_p, rtol=1e-5, atol=1e-3)
+    off = (~close).float().mean().item()
+    gscale = qp.grad.abs().max().item()
+    gerr = (qk.grad[close] - qp.grad[close]).abs().max().item()
+    assert 0.01 < active < 0.9, active
+    assert off <= 1e-3, off
+    torch.testing.assert_close(qk.grad[close], qp.grad[close], rtol=1e-3, atol=1e-3 * gscale)
+    del q, qk, qp, lik_k, lik_p
+
+    w = torch.linspace(0, 1, T, device=dev)[None, :, None]
+    traj = starts[:, None] * (1 - w) + goals[:, None] * w
+    traj = traj + 0.6 * torch.randn((B, T, starts.shape[1]), generator=gen, device=dev) * torch.sin(np.pi * w)
+    ends = torch.cat([starts, goals, traj[:, 0]])
+    ends_err = (model.min_clearance_eval(ends) - col.min_clearance_eval_plain(model, ends)).abs().max().item()
+    assert ends_err <= 1e-5, ends_err
+    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj)
+    depth_s, depth_g = torch.clamp(-model.min_clearance_eval(torch.cat([starts, goals])), min=0.0).split(B)
+    args = (starts, goals, depth_s, depth_g, visited[:, 0], seg_idx, T, 0.5, 5e-3)
+    clear, count = model.probe_clearance(qs, *args)
+    plain = lambda x: col.min_clearance_eval_plain(model, x)
+    parts = [sim.probe_clearance_plain(plain, qs[r:r + 440], *(a[r:r + 440] for a in args[:6]), *args[6:])
+             for r in range(0, B, 440)]
+    want_clear, want_count = (torch.cat(x) for x in zip(*parts))
+    probe_err = (clear - want_clear).abs().max().item()
+    below = (want_clear < 0).float().mean().item()
+    assert probe_err <= 1e-5, probe_err
+    assert 0.01 < below < 0.99, below
+    floor = sim._floor_from_depths(qs, starts, goals, depth_s, depth_g, 0.5, 5e-3)
+    near = visited & ((want_clear - floor).abs() <= 1e-5)
+    far = sim._segment_count(seg_idx, visited & (want_clear < floor) & ~near, T)
+    counts_ok = bool(((far <= count) & (count <= far + sim._segment_count(seg_idx, near, T))).all())
+    assert counts_ok and int(want_count.sum()) > 0
+    return {"k1_configs": int(B * S * N), "k1_hinge_active_share": active, "k1_value_off_share": off,
+            "k1_dq_max_abs_err": gerr, "k1_dq_scale": gscale, "k3_ends_max_abs_err": ends_err,
+            "k3_probes": int(qs.shape[0] * qs.shape[1]), "k3_probe_max_abs_err": probe_err,
+            "k3_probes_below_0_share": below, "k3_counts_within_bracket": counts_ok}
+
+
+def ur10_phase(torch, steps: int = 3, rows: int = UR10_ROWS):
+    """(w) The UR10 on the bookshelves at its cell's round-0 shape: the
+    6-joint K1 and K3 against their plain versions
+    (:func:`ur10_kernels_against_plain`), then a ``steps``-step round
+    (``make_round_solver``: the steps, the extraction, the metric) on
+    ``rows`` rows, the problemset's queries tiled. Asserts that the round
+    ran K1 and both K3 entries for 6 joints and standard DH and for no
+    other arm, that no plain K1, K3 or K6 ran on the card and that every row
+    is finite; records the card's peak memory and the round's seconds."""
+    import numpy as np
+
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.likelihoods import collision as col
+    from vgpmp_torch.ops import rff
+    from vgpmp_torch.session import PlanningSession
+
+    t_phase = time.perf_counter()
+    sess = PlanningSession("ur10", "bookshelves", dtype=torch.float32, sdf_mode="packed", use_tuned=True)
+    fk = sess.model.collision.fk
+    starts, goals = sess.queries()
+    idx = np.arange(rows) % len(starts)
+    starts, goals = starts[idx], goals[idx]
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=sess.device)
+    against_plain = ur10_kernels_against_plain(torch, sess.model.collision, as_t(starts), as_t(goals))
+    log(f"(w) 6-joint K1 and K3 against their plain versions at {rows} rows: {against_plain}")
+    torch.cuda.empty_cache()
+    arm_kernels = (col.k1_loglik, col.k3_min_clearance, col.k3_probe_clearance)
+    plain_kernels = (col.k1_loglik, col.k3_min_clearance, rff.k6_rff)
+    for f in arm_kernels:
+        f.launches_by_arm = {}
+    for f in plain_kernels:
+        f.plain_on_card = 0
+    k6_before = rff.k6_rff.launches
+    cfg = dataclasses.replace(sess.train_config, num_steps=steps)
+    params = solver.init_slots(sess.model, starts, goals, sess.planner_params, ["linear"] * rows)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    best, reps = solver.make_round_solver(sess.model, cfg)(params, starts, goals,
+                                                           torch.Generator(device=sess.device).manual_seed(6))
+    torch.cuda.synchronize()
+    secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    arms = {f.__name__: {f"{d}/{'craig' if c else 'standard'}": n for (d, c), n in f.launches_by_arm.items()}
+            for f in arm_kernels}
+    plain = {f.__name__: f.plain_on_card for f in plain_kernels}
+    finite = bool(torch.isfinite(best).all())
+    rec = {"robot": "ur10", "problemset": "bookshelves", "rows": rows, "steps": steps,
+           "dof": int(fk.dof), "craig": bool(fk.craig), "spheres": int(fk.sphere_radii.shape[0]),
+           "against_plain": against_plain, "launches_by_arm": arms, "plain_on_card": plain,
+           "k6_launches": rff.k6_rff.launches - k6_before,
+           "executed": int(torch.as_tensor(reps.executed).sum()), "finite": finite, "round_s": secs,
+           "peak_bytes": int(peak), "phase_s": time.perf_counter() - t_phase}
+    log(f"(w) ur10/bookshelves, {rows} rows, a {steps}-step round in {secs:.2f} s, peak "
+        f"{peak / 2**30:.2f} GiB: launches by arm {arms}, plain on the card {plain}, finite {finite}")
+    assert (fk.dof, fk.craig) == (6, False), (fk.dof, fk.craig)
+    assert arms["k1_loglik"].keys() == {"6/standard"} and arms["k1_loglik"]["6/standard"] >= steps + 1, arms
+    for name in ("k3_min_clearance", "k3_probe_clearance"):
+        assert arms[name].keys() == {"6/standard"} and arms[name]["6/standard"] >= 1, arms
+    assert not any(plain.values()) and rec["k6_launches"] >= 2 * steps + 1, (plain, rec["k6_launches"])
+    assert finite
+    del sess, best, reps, params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3921,6 +4065,8 @@ def main() -> int:
     flush = l2_flush_buffer(sess.device)
     k6, rff_prior = k6_phase(torch, flush)
     del flush
+    log("(w) the UR10 on the bookshelves at its cell's round 0 (K1 and K3 for 6 joints)")
+    ur10 = ur10_phase(torch)
     t0 = time.perf_counter()
     diagnosed = diagnose_phase(torch)
     scaling = scaling_phase(torch)
@@ -3937,7 +4083,8 @@ def main() -> int:
     t0 = time.perf_counter()
     breakdown = breakdown_phase(torch)
     log(f"(q)-(s) took {t_qr + time.perf_counter() - t0:.1f} s")
-    for rec in (velocity, resumable, replanned, ensemble, objects, parallel, diagnosed, scaling, breakdown):
+    for rec in (velocity, resumable, replanned, ensemble, objects, parallel, ur10, diagnosed, scaling,
+                breakdown):
         print(json.dumps(rec))
 
     k1["launches"] = launches["k1_loglik"]
@@ -3964,6 +4111,7 @@ def main() -> int:
     record = {"card": smi, "build_s": secs,
               "kernels": [k1, k1_h2, dsigma, *k2, k3, k3p, k4, k1o, k3o, k3po, *envelope_rows, k5, k6],
               "objects": objects, "envelope": envelope, "mesh_sdf": mesh_sdf, "rff_prior": rff_prior,
+              "ur10_round0": ur10,
               "k2_errors": k2_errs, "combos": combos, "trainable": trainable, "randomized": randomized,
               "escalation_path": escalating,
               "small_input_rel_errors": small, "main_path": summary, "extraction_s": t_ext,

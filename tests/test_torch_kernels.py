@@ -1564,3 +1564,125 @@ def test_k6_refuses_what_it_does_not_take(cuda_device):
         rff.prior_paths(t["x"], t["omega"].double(), t["phase"], t["scale"], t["w"])
     with pytest.raises(ValueError, match="noise"):
         rff.prior_paths(t["x"], t["omega"], t["phase"], t["scale"], t["w"].requires_grad_(True))
+
+
+# the ur10-bookshelves-b3520 cell's round 0: rows, samples, training grid, metric grid
+UR10_ROUND0 = (3520, 7, 70, 150)
+
+
+def _ur10_bookshelves(device):
+    """The cell's session: UR10 (6 joints, standard DH, 17 spheres) on the
+    real bookshelves grid, packed for training; its 55 queries tiled to the
+    cell's rows."""
+    from vgpmp_torch.session import PlanningSession
+
+    sess = PlanningSession("ur10", "bookshelves", dtype=torch.float32, sdf_mode="packed", use_tuned=True,
+                           device=device)
+    starts, goals = sess.queries()
+    idx = np.arange(UR10_ROUND0[0]) % len(starts)
+    as_t = lambda x: torch.as_tensor(x[idx], dtype=torch.float32, device=device)
+    return sess.model.collision, as_t(starts), as_t(goals)
+
+
+@pytest.mark.cuda
+def test_k1_six_joints_at_the_ur10_cells_round0_on_card(cuda_device):
+    """K1 for 6 joints and standard DH on the bookshelves grid at the
+    ``ur10-bookshelves-b3520`` cell's round-0 size (3 520 rows x 7 samples x
+    70 points): configurations along the queries' lines with 1 rad of noise
+    (about a quarter hinge-active; most of the lines alone touch a shelf),
+    at the cell's σ, against the plain version on the same card, with
+    ``test_k1_matches_plain_on_card``'s tolerances. Launched for (6,
+    standard DH) only, and the plain version counted on the card."""
+    model, s, g = _ur10_bookshelves(cuda_device)
+    B, S, N, _ = UR10_ROUND0
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    frac = torch.linspace(0, 1, N, device=cuda_device)[None, None, :, None]
+    q = s[:, None, None] + (g - s)[:, None, None] * frac
+    q = q + torch.randn((B, S, N, 6), generator=gen, device=cuda_device)
+    sigma = torch.full((B, model.fk.sphere_radii.shape[0]), 5e-4, device=cuda_device)
+    col.k1_loglik.launches_by_arm, col.k1_loglik.plain_on_card = {}, 0
+    qk = q.clone().requires_grad_()
+    lik_k = model.log_prob(qk, sigma)
+    lik_k.sum().backward()
+    assert col.k1_loglik.launches_by_arm == {(6, False): 1} and col.k1_loglik.plain_on_card == 0
+    qp = q.clone().requires_grad_()
+    lik_p = col.log_prob_plain(model, qp, sigma)
+    lik_p.sum().backward()
+    assert col.k1_loglik.plain_on_card == 1
+    assert 0.01 < (lik_p < 0).float().mean() < 0.5
+    close = torch.isclose(lik_k, lik_p, rtol=1e-5, atol=1e-3)
+    assert (~close).float().mean().item() <= 1e-3
+    torch.testing.assert_close(qk.grad[close], qp.grad[close], rtol=1e-3,
+                               atol=1e-3 * qp.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_k3_six_joints_at_the_ur10_cells_round0_on_card(cuda_device):
+    """Both K3 entries for 6 joints and standard DH on the bookshelves grid at
+    the cell's round-0 size: the clearance of the round's 3 x 3 520 endpoint
+    configurations, and the probes of 3 520 trajectories of 150 points along
+    the queries' lines with 0.6 rad of noise (``pd_path_configs``' 9 600
+    probes a row, 33.8 M in all; about half of them below 0), against
+    the plain versions on the same card (the probes 440 rows at a time),
+    with ``test_k3_probe_entry_matches_plain_on_card``'s tolerances.
+    Launched for (6, standard DH) only."""
+    from vgpmp_torch import sim
+
+    model, s, g = _ur10_bookshelves(cuda_device)
+    B, _, _, T = UR10_ROUND0
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    w = torch.linspace(0, 1, T, device=cuda_device)[None, :, None]
+    traj = s[:, None] * (1 - w) + g[:, None] * w
+    traj = traj + 0.6 * torch.randn((B, T, 6), generator=gen, device=cuda_device) * torch.sin(np.pi * w)
+    for f in (col.k3_min_clearance, col.k3_probe_clearance):
+        f.launches_by_arm = {}
+    ends = torch.cat([s, g, traj[:, 0]])
+    torch.testing.assert_close(model.min_clearance_eval(ends), col.min_clearance_eval_plain(model, ends),
+                               rtol=0, atol=1e-5)
+    qs, visited, seg_idx, *_ = sim.pd_path_configs(traj)
+    depth_s, depth_g = torch.clamp(-model.min_clearance_eval(torch.cat([s, g])), min=0.0).split(B)
+    args = (s, g, depth_s, depth_g, visited[:, 0], seg_idx, T, 0.5, 5e-3)
+    clear, count = model.probe_clearance(qs, *args)
+    assert col.k3_min_clearance.launches_by_arm == {(6, False): 2}
+    assert col.k3_probe_clearance.launches_by_arm == {(6, False): 1}
+    plain = lambda q: col.min_clearance_eval_plain(model, q)
+    parts = [sim.probe_clearance_plain(plain, qs[r:r + 440], *(a[r:r + 440] for a in args[:6]), *args[6:])
+             for r in range(0, B, 440)]
+    want_clear, want_count = (torch.cat(p) for p in zip(*parts))
+    assert 0.01 < (want_clear < 0).float().mean() < 0.99
+    torch.testing.assert_close(clear, want_clear, rtol=0, atol=1e-5)
+    floor = sim._floor_from_depths(qs, s, g, depth_s, depth_g, 0.5, 5e-3)
+    near = visited & ((want_clear - floor).abs() <= 1e-5)
+    far = sim._segment_count(seg_idx, visited & (want_clear < floor) & ~near, T)
+    assert ((far <= count) & (count <= far + sim._segment_count(seg_idx, near, T))).all()
+    assert want_count.sum() > 0
+
+
+@pytest.mark.cuda
+def test_ur10_round_launches_the_six_joint_builds_on_card(cuda_device):
+    """A 3-step round of the ``ur10-bookshelves`` session (``make_round_solver``:
+    the steps, the extraction, the metric) on the problemset's 55 queries:
+    K1 and both K3 entries launched for 6 joints and standard DH, none for 7
+    joints, and no plain K1, K3 or K6 on the card."""
+    from vgpmp_torch.engine import solver
+    from vgpmp_torch.session import PlanningSession
+
+    sess = PlanningSession("ur10", "bookshelves", dtype=torch.float32, sdf_mode="packed", use_tuned=True,
+                           device=cuda_device)
+    starts, goals = sess.queries()
+    arm = (col.k1_loglik, col.k3_min_clearance, col.k3_probe_clearance)
+    plain = (col.k1_loglik, col.k3_min_clearance, rff.k6_rff)
+    for f in arm:
+        f.launches_by_arm = {}
+    for f in plain:
+        f.plain_on_card = 0
+    cfg = dataclasses.replace(sess.train_config, num_steps=3)
+    params = solver.init_slots(sess.model, starts, goals, sess.planner_params, ["linear"] * len(starts))
+    best, _ = solver.make_round_solver(sess.model, cfg)(params, starts, goals,
+                                                        torch.Generator(device=cuda_device).manual_seed(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(best).all()
+    assert col.k1_loglik.launches_by_arm.keys() == {(6, False)} and col.k1_loglik.launches_by_arm[(6, False)] >= 4
+    for f in arm[1:]:
+        assert f.launches_by_arm.keys() == {(6, False)}, f.__name__
+    assert [f.plain_on_card for f in plain] == [0, 0, 0]

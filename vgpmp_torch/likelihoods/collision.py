@@ -239,7 +239,10 @@ def _sigma_rows(sigma_obs: torch.Tensor, configs: torch.Tensor) -> torch.Tensor:
 
 
 def log_prob_plain(model: CollisionModel, configs: torch.Tensor, sigma_obs: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: FK, scene lookup and hinge as separate tensor ops."""
+    """Plain version of K1: FK, scene lookup and hinge as separate tensor ops.
+    ``k1_loglik.plain_on_card`` counts its calls on CUDA tensors."""
+    if configs.is_cuda:
+        k1_loglik.plain_on_card += 1
     cost = model.hinge_cost(configs)
     return -0.5 * (cost * cost / _sigma_rows(sigma_obs, configs)).sum(dim=-1)
 
@@ -256,6 +259,13 @@ def _kernel_dtype(what: str, model: CollisionModel, *xs: torch.Tensor) -> None:
             raise TypeError(f"{what}: takes {dt} tensors for this model, got {x.dtype}")
 
 
+def _count_arm(fn, model: CollisionModel) -> None:
+    """One more launch of ``fn`` for the model's arm: its joints and DH
+    convention, the template arguments its kernel was instantiated with."""
+    key = (int(model.fk.dof), bool(model.fk.craig))
+    fn.launches_by_arm[key] = fn.launches_by_arm.get(key, 0) + 1
+
+
 def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad: bool,
               h2: bool = False):
     """K1 launch: ``q [T, dof]`` CUDA in the model's dtype (float32 or
@@ -265,7 +275,9 @@ def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad:
     hinges that :func:`k1_dsigma` reads. The scene's mode picks the lookup:
     the packed words, or the grid itself (``nearest``, ``trilinear``).
     ``launches`` counts every launch, ``launches_h2`` those that wrote h²,
-    and ``launches_by`` those of each (mode, dtype)."""
+    ``launches_by`` those of each (mode, dtype) and ``launches_by_arm``
+    those of each (joints, Craig's convention); ``plain_on_card`` counts
+    :func:`log_prob_plain`'s calls on CUDA tensors."""
     scene, fk = model.scene, model.fk
     if not q.is_cuda:
         raise ValueError(f"k1_loglik: needs CUDA tensors, got q on {q.device}")
@@ -287,12 +299,15 @@ def k1_loglik(model: CollisionModel, q: torch.Tensor, sigma: torch.Tensor, grad:
     k1_loglik.launches_h2 += int(h2)
     key = (scene.mode, str(q.dtype).removeprefix("torch."))
     k1_loglik.launches_by[key] = k1_loglik.launches_by.get(key, 0) + 1
+    _count_arm(k1_loglik, model)
     return lik, dlik, sq
 
 
 k1_loglik.launches = 0
 k1_loglik.launches_h2 = 0
 k1_loglik.launches_by = {}
+k1_loglik.launches_by_arm = {}
+k1_loglik.plain_on_card = 0
 
 
 def dsigma_plain(g: torch.Tensor, h2: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -327,7 +342,10 @@ k1_dsigma.launches = 0
 
 def min_clearance_eval_plain(model: CollisionModel, configs: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: FK, the eight-corner trilinear lookup and the
-    minimum over spheres as separate tensor ops."""
+    minimum over spheres as separate tensor ops. ``k3_min_clearance.plain_on_card``
+    counts its calls on CUDA tensors."""
+    if configs.is_cuda:
+        k3_min_clearance.plain_on_card += 1
     return model.sphere_clearance_eval(configs).min(dim=-1).values
 
 
@@ -335,7 +353,8 @@ def k3_min_clearance(model: CollisionModel, q: torch.Tensor) -> torch.Tensor:
     """K3 launch: ``q [T, dof]`` CUDA in the model's dtype (float32 or
     float64) -> ``[T]`` minimum over spheres of the trilinear clearance
     against the scene (base grid, extra grids and primitives).
-    ``launches_by`` counts the launches of each dtype."""
+    ``launches_by`` counts the launches of each dtype, ``launches_by_arm``
+    those of each (joints, Craig's convention)."""
     scene, fk = model.scene, model.fk
     if not q.is_cuda:
         raise ValueError(f"k3_min_clearance: needs CUDA tensors, got q on {q.device}")
@@ -348,11 +367,14 @@ def k3_min_clearance(model: CollisionModel, q: torch.Tensor) -> torch.Tensor:
     k3_min_clearance.launches += 1
     key = str(q.dtype).removeprefix("torch.")
     k3_min_clearance.launches_by[key] = k3_min_clearance.launches_by.get(key, 0) + 1
+    _count_arm(k3_min_clearance, model)
     return out
 
 
 k3_min_clearance.launches = 0
 k3_min_clearance.launches_by = {}
+k3_min_clearance.launches_by_arm = {}
+k3_min_clearance.plain_on_card = 0
 
 
 def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tensor,
@@ -364,7 +386,8 @@ def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tenso
     their depths ``[B]`` in the same dtype, ``visited [B]`` bool, ``seg_idx
     [B, G]`` int64 -> ``(clear [B, G], seg_count [B, T] int32)`` in one launch
     (see :func:`vgpmp_torch.sim.probe_clearance_plain`). ``launches_by``
-    counts the launches of each dtype."""
+    counts the launches of each dtype, ``launches_by_arm`` those of each
+    (joints, Craig's convention)."""
     scene, fk = model.scene, model.fk
     if not qs.is_cuda:
         raise ValueError(f"k3_probe_clearance: needs CUDA tensors, got qs on {qs.device}")
@@ -385,11 +408,13 @@ def k3_probe_clearance(model: CollisionModel, qs: torch.Tensor, q_s: torch.Tenso
     k3_probe_clearance.launches += 1
     key = str(qs.dtype).removeprefix("torch.")
     k3_probe_clearance.launches_by[key] = k3_probe_clearance.launches_by.get(key, 0) + 1
+    _count_arm(k3_probe_clearance, model)
     return clear.reshape(B, G), count
 
 
 k3_probe_clearance.launches = 0
 k3_probe_clearance.launches_by = {}
+k3_probe_clearance.launches_by_arm = {}
 
 
 class _K1Fn(torch.autograd.Function):

@@ -1,7 +1,16 @@
 """Robot specification artifacts: the port's own copy of ``vgpmp_tpu/robots.py``.
 
 Reads the JSON specs under ``vgpmp_tpu/assets/robots/`` by path (data, not an
-import of the JAX package).
+import of the JAX package). :func:`asset` resolves every asset file the port
+reads: the port's own copy under ``vgpmp_torch/assets/`` where it has one,
+else the JAX package's. The port's copies differ from the JAX package's in
+one place: the UR10's base orientation on the bookshelves is the identity, as
+the reference's benchmark script sets the UR10's (``benchmarking.py:59-65``
+of luke-ck/vgpmp), since the DH twist of pi on its first joint already turns
+the chain; the problemset's own 180 degrees about z turned it a second time
+and put the arm's reach away from the shelves. The scene is a link to the JAX
+package's file, so that the port's directory is a whole asset directory
+(robots, problemsets, scenes) that the benchmark's reference can read.
 """
 
 from __future__ import annotations
@@ -13,9 +22,17 @@ from typing import Dict, List
 
 import numpy as np
 
-__all__ = ["RobotSpec", "ASSET_DIR", "available_robots", "load_robot"]
+__all__ = ["RobotSpec", "ASSET_DIR", "PORT_ASSET_DIR", "asset", "available_robots", "load_robot"]
 
 ASSET_DIR = Path(__file__).resolve().parents[1] / "vgpmp_tpu" / "assets"
+PORT_ASSET_DIR = Path(__file__).resolve().parent / "assets"
+
+
+def asset(kind: str, name: str) -> Path:
+    """The asset file ``<kind>/<name>`` (``kind``: robots, problemsets or
+    scenes): the port's copy where it has one, else the JAX package's."""
+    own = PORT_ASSET_DIR / kind / name
+    return own if own.exists() else ASSET_DIR / kind / name
 
 
 @dataclass(frozen=True)
@@ -65,11 +82,11 @@ class RobotSpec:
 
 
 def available_robots() -> List[str]:
-    return sorted(p.stem for p in (ASSET_DIR / "robots").glob("*.json"))
+    return sorted({p.stem for d in (ASSET_DIR, PORT_ASSET_DIR) for p in (d / "robots").glob("*.json")})
 
 
 def load_robot(name: str) -> RobotSpec:
-    path = ASSET_DIR / "robots" / f"{name}.json"
+    path = asset("robots", f"{name}.json")
     if not path.exists():
         raise FileNotFoundError(f"no robot spec {name!r} — available: {available_robots()}")
     return RobotSpec.from_json(path.read_text())

@@ -1,9 +1,10 @@
 """Planning session: problemset -> robot spec -> scene SDF -> planner model.
 
 Port of ``vgpmp_tpu/session.py:PlanningSession``. Reads the robot, problemset
-and scene files under ``vgpmp_tpu/assets/`` by path. Runs on the CUDA device
-unless ``device`` says otherwise; with ``device=None`` and no CUDA device it
-raises. A float32 session keeps the Gram/Cholesky/solve island in float64.
+and scene files by path (:func:`vgpmp_torch.robots.asset`: the port's copy
+under ``vgpmp_torch/assets/`` where it has one, else ``vgpmp_tpu/assets/``).
+Runs on the CUDA device unless ``device`` says otherwise; with ``device=None``
+and no CUDA device it raises. A float32 session keeps the Gram/Cholesky/solve island in float64.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from vgpmp_torch.engine.solver import TrainConfig
 from vgpmp_torch.kinematics.dh import FkModel
 from vgpmp_torch.likelihoods.collision import CollisionModel
 from vgpmp_torch.models.vgpmp import PlannerModel
-from vgpmp_torch.robots import ASSET_DIR, RobotSpec, load_robot
+from vgpmp_torch.robots import RobotSpec, asset, load_robot
 from vgpmp_torch.scene import Primitives, Scene
 from vgpmp_torch.sdf.grid import SdfGrid
 
@@ -105,7 +106,7 @@ class PlanningSession:
         if self.explicit is not None:
             ps = self.explicit
         else:
-            problemsets = json.loads((ASSET_DIR / "problemsets" / f"{self.robot_name}.json").read_text())
+            problemsets = json.loads(asset("problemsets", f"{self.robot_name}.json").read_text())
             if self.problemset_name not in problemsets:
                 raise KeyError(f"robot {self.robot_name!r} has no problemset "
                                f"{self.problemset_name!r}; available: {sorted(problemsets)}")
@@ -124,7 +125,7 @@ class PlanningSession:
             return
 
         dt, dev = self.dtype, self.device
-        self.sdf = SdfGrid.load(ASSET_DIR / "scenes" / f"{self.problemset_name}.npz", dt, dev)
+        self.sdf = SdfGrid.load(asset("scenes", f"{self.problemset_name}.npz"), dt, dev)
         fk = FkModel.from_spec(self.spec, self.base_pose, dtype=dt, device=dev)
         self.scene = Scene(
             base=self.sdf,
